@@ -1,0 +1,29 @@
+"""PyTorch/CUDA port of ``repro`` for one NVIDIA H100 (Hopper, sm_90a).
+
+The JAX package ``src/repro`` is the reference; this package mirrors its
+layout (``api/``, ``core/``, ``ml/``, ``data/``, ``kernels/<name>/{kernel,
+ops,ref}.py``) so each module's counterpart is found by path, and it
+imports ``torch`` and numpy only — never ``jax``, never ``repro``.
+
+Ported so far: ``api.fit`` on the local executor with ``GradientDescent`` /
+``FunctionStrategy``, the ``allreduce`` / ``delay_line`` /
+``sequential_server`` / ``stale_server`` transports, the ``dense`` /
+``thresh`` / ``topk`` / ``int8`` wires (±ef), fault plans, and the four
+wire-encode kernels (``kernels/topk_compress``, ``kernels/int8_quant``) as
+hand-written CUDA (``csrc/wire_kernels.cu``), built with ``nvcc`` on first
+use.  What is not ported raises ``NotImplementedError`` naming its
+``ROADMAP.md`` item.
+
+Idiom: plain functions on tensors; dicts, tuples and NamedTuples for
+pytrees (``torch.utils._pytree``); an explicit ``device`` (default
+``"cuda"``; without a GPU, pass ``device="cpu"`` or the entry points
+raise); explicit ``torch.Generator``s; a batch dimension written out (or
+``torch.func.vmap``) where the reference vmaps; Python loops where it
+scans.  The reference's ``jit``, its program cache (``cached_program`` /
+``dispatch``) and the reprolint-driven trace hygiene have no counterpart:
+PyTorch runs eagerly, so there is no trace to keep clean or to cache.
+"""
+
+from repro_torch.device import resolve_device
+
+__all__ = ["resolve_device"]

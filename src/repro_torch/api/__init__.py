@@ -1,0 +1,51 @@
+"""``repro_torch.api`` — the unified training API on PyTorch (port of
+``repro.api``: Strategy × Transport × Wire on the local executor).
+
+    from repro_torch import api
+    from repro_torch.ml.linear import lsq_loss
+
+    res = api.fit(api.GradientDescent(lsq_loss, lr=0.1), (Xs, ys),
+                  transport="allreduce", wire="topk:0.25+ef", steps=100,
+                  device="cuda")
+    res.ledger.total_bytes, res.metrics["wire_kernel_hits"]
+"""
+
+from repro_torch.api.engine import FitResult, fit
+from repro_torch.api.executor import EXECUTORS, Executor, LocalExecutor, make_executor
+from repro_torch.api.faults import FaultCarry, FaultDraws, FaultPlan
+from repro_torch.api.strategy import (
+    LBFGS,
+    FunctionStrategy,
+    GradientDescent,
+    OptimizerStrategy,
+    ProxStrategy,
+    Strategy,
+)
+from repro_torch.api.transport import (
+    TRANSPORTS,
+    ServerTransport,
+    Transport,
+    UpdateTransport,
+    make_transport,
+)
+from repro_torch.api.wire import (
+    CompressedWire,
+    DenseWire,
+    Int8Wire,
+    ThresholdWire,
+    TopKWire,
+    Wire,
+    make_wire,
+)
+
+__all__ = [
+    "fit", "FitResult",
+    "Strategy", "FunctionStrategy", "GradientDescent",
+    "LBFGS", "ProxStrategy", "OptimizerStrategy",
+    "Transport", "ServerTransport", "UpdateTransport", "make_transport",
+    "TRANSPORTS",
+    "Wire", "DenseWire", "CompressedWire", "ThresholdWire", "TopKWire",
+    "Int8Wire", "make_wire",
+    "Executor", "LocalExecutor", "make_executor", "EXECUTORS",
+    "FaultPlan", "FaultDraws", "FaultCarry",
+]

@@ -1,0 +1,168 @@
+"""``repro_torch.api.fit`` — one entry point for the distributed trainers
+(port of ``repro.api.engine``, local executor).
+
+    fit(strategy, data, transport=..., wire=..., schedule=..., device="cuda")
+
+runs a (strategy × transport × wire) combination on the local executor and
+returns a ``FitResult``:
+
+* ``theta``       — the final parameter;
+* ``trajectory``  — per-round trace: the handed-back θ for server
+  transports, the strategy's ``round_metric`` for update transports;
+* ``ledger``      — byte-exact ``CommLedger`` under the paper's
+  client-server cost model;
+* ``metrics``     — the strategy's summary, plus ``uplink_bytes_per_round``
+  / ``downlink_bytes_per_round`` (numpy), ``wire_kernel_hits`` for the
+  kernel wires, and ``carry`` — a resume token for ``fit(..., carry=...)``
+  (``repro_torch.convert.carry_from_reference`` makes one from a JAX fit).
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.api.executor import make_executor
+from repro_torch.api.faults import FaultPlan, make_fault_plan
+from repro_torch.api.strategy import Strategy
+from repro_torch.api.transport import make_transport
+from repro_torch.api.wire import make_wire
+from repro_torch.core.allreduce import CommLedger
+from repro_torch.device import resolve_device, to_device
+
+PyTree = Any
+
+
+def _jsonable(v, _size_cap: int = 100_000):
+    """Best-effort JSON conversion: primitives pass, arrays and tensors
+    become lists (or a shape/dtype placeholder past ``_size_cap``
+    elements), anything else becomes ``"<TypeName>"``."""
+    if v is None or isinstance(v, (bool, int, float, str)):
+        return v
+    if isinstance(v, dict):
+        return {str(k): _jsonable(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [_jsonable(x) for x in v]
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    if isinstance(v, (np.ndarray, np.generic)):
+        arr = np.asarray(v)
+        if arr.ndim == 0:
+            return arr.item()
+        if arr.size > _size_cap:
+            return f"<ndarray shape={arr.shape} dtype={str(arr.dtype)}>"
+        return arr.tolist()
+    return f"<{type(v).__name__}>"
+
+
+class FitResult(NamedTuple):
+    theta: PyTree
+    trajectory: PyTree
+    ledger: CommLedger
+    metrics: dict
+
+    def metrics_json(self) -> dict:
+        """``metrics`` as a JSON-serializable dict (the ``"carry"`` resume
+        token dropped, arrays as lists)."""
+        return {k: _jsonable(v) for k, v in self.metrics.items() if k != "carry"}
+
+
+def _total(a: np.ndarray) -> int:
+    """Exact byte total: int64 accumulation for integer counts, f64 for
+    the (small) value-dependent f32 counts."""
+    if np.issubdtype(a.dtype, np.integer):
+        return int(a.sum(dtype=np.int64))
+    return int(round(float(a.sum(dtype=np.float64))))
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet — ROADMAP.md {item}"
+    )
+
+
+def fit(
+    strategy: Strategy,
+    data: PyTree = None,
+    *,
+    transport="sequential_server",
+    wire="dense",
+    executor="local",
+    schedule=None,
+    steps: int | None = None,
+    stream: PyTree = None,
+    theta0: PyTree = None,
+    carry=None,
+    faults: FaultPlan | None = None,
+    tag: str = "fit",
+    device="cuda",
+    sweep: dict | None = None,
+    tracer=None,
+    trace: str | None = None,
+    **transport_options,
+) -> FitResult:
+    """Train ``strategy`` on ``data`` under a transport and a wire.
+
+    Args:
+      strategy: the per-node learner F^(k) (``repro_torch.api.strategy``).
+      data: sharded data with a leading node axis (tensors or numpy arrays;
+        moved to ``device``), or None for closure-based strategies.
+      transport: ``sequential_server`` / ``stale_server`` / ``delay_line``
+        / ``allreduce``, or a ``Transport`` instance.
+      wire: ``"dense"``, ``"topk:<f>[+ef]"``, ``"thresh:<τ>[+ef]"``,
+        ``"int8[+ef]"``, or a ``Wire``.
+      executor: ``"local"`` (the only executor ported so far).
+      schedule: contact schedule (server transports), any int sequence.
+      steps: number of rounds (update transports).
+      stream: optional pytree with a leading time axis, one element per
+        round handed to ``local_updates``.
+      theta0: initial parameter; defaults to ``strategy.init_theta(data)``.
+      carry: resume token from a previous ``FitResult.metrics["carry"]``.
+      faults: optional ``FaultPlan`` — seeded dropout / straggler / quorum.
+      device: ``"cuda"`` (default; raises without a GPU) or ``"cpu"``.
+      sweep, tracer, trace: not ported yet; anything but None raises.
+      transport_options: ``staleness=...`` for delay_line.
+    """
+    if sweep is not None:
+        raise _not_ported("fit(sweep=...)", "queue 1, item 8 (sweep executor)")
+    if tracer is not None or trace is not None:
+        raise _not_ported("fit(tracer=/trace=)", "queue 1, item 12 (telemetry/)")
+    dev = resolve_device(device)
+    w = make_wire(wire)
+    tr = make_transport(transport, **transport_options)
+    ex = make_executor(executor)
+    plan = make_fault_plan(faults)
+    data, stream, theta0, carry = to_device((data, stream, theta0, carry), dev)
+    raw = tr.run(
+        strategy, data,
+        wire=w, schedule=schedule, steps=steps, stream=stream,
+        theta0=theta0, carry=carry, executor=ex, faults=plan,
+    )
+
+    ups = np.asarray(raw.uplink)
+    downs = np.asarray(raw.downlink)
+    ledger = CommLedger()
+    T = int(ups.shape[0])
+    up_tot, down_tot = _total(ups), _total(downs)
+    ledger.uplink_bytes += up_tot
+    ledger.downlink_bytes += down_tot
+    ledger.rounds += raw.rounds_per_step * T
+    ledger.events.append((raw.event_kind, f"{tag}[0:{T}]", up_tot + down_tot))
+
+    metrics = dict(strategy.summary(raw.theta, data))
+    metrics.update(raw.extras)
+    metrics["uplink_bytes_per_round"] = ups
+    metrics["downlink_bytes_per_round"] = downs
+    metrics["transport"] = tr.name
+    metrics["wire"] = w.name
+    metrics["executor"] = ex.name
+    metrics["carry"] = raw.carry
+    if hasattr(w, "kernel_report"):
+        # which leaves the wire's kernels covered vs the <256/non-f32
+        # reference fallback
+        metrics["wire_kernel_hits"] = w.kernel_report(raw.theta)
+    return FitResult(
+        theta=raw.theta, trajectory=raw.trajectory, ledger=ledger, metrics=metrics
+    )

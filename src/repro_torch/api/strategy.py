@@ -1,0 +1,206 @@
+"""Strategy layer — the per-node learner F^(k) (port of
+``repro.api.strategy``).
+
+The paper's §5 observation is that ANY local learning method F^(k) can sit
+behind the client-server protocol; a ``Strategy`` is that method, written
+once and runnable under every transport:
+
+* server family (``local_step``)       — F^(k): θ → θ', for
+  ``sequential_server`` / ``stale_server``;
+* update family (``local_updates`` / ``aggregate`` / ``apply_update``) —
+  per-node messages + one aggregation + a global apply, for ``allreduce``
+  / ``delay_line``.
+
+Ported: ``Strategy``, ``FunctionStrategy``, ``GradientDescent``.  The
+per-node gradient is ``torch.func.vmap`` over ``torch.func.grad`` (the
+reference's ``jax.vmap(jax.grad(loss))``).  ``LBFGS``, ``ProxStrategy``
+and ``OptimizerStrategy`` raise ``NotImplementedError`` naming the
+``ROADMAP.md`` item that ports them.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+from torch.func import grad, vmap
+
+from repro_torch.api import executor as _exec
+from repro_torch.utils.tree import tree_leaves
+
+PyTree = Any
+
+
+class Strategy:
+    """Base strategy.  Subclasses override the families they support."""
+
+    #: messages from ``local_updates`` carry a leading node axis
+    stacked_msgs: bool = True
+    #: reduction the base ``aggregate`` applies over the node axis
+    aggregate_op: str = "sum"
+
+    def init_theta(self, data) -> PyTree:
+        raise NotImplementedError(
+            f"{type(self).__name__} cannot derive θ_0 from data; pass theta0="
+        )
+
+    def init_state(self, theta: PyTree, data):
+        return ()
+
+    def num_nodes(self, data) -> int:
+        if data is None:
+            raise ValueError(
+                f"{type(self).__name__}.num_nodes needs data with a leading "
+                "node axis (or override num_nodes)"
+            )
+        return tree_leaves(data)[0].shape[0]
+
+    # -- server family -------------------------------------------------------
+    def local_step(self, k: int, theta: PyTree, state, data):
+        """F^(k): one local run on node ``k``'s shard.  Returns (θ', state)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support server transports"
+        )
+
+    # -- update family -------------------------------------------------------
+    def local_updates(self, theta: PyTree, state, data, batch):
+        """All nodes' messages for this round (stacked on axis 0).
+        Returns (msgs, state)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support update transports"
+        )
+
+    def aggregate(self, msgs: PyTree) -> PyTree:
+        return _exec.aggregate(msgs, op=self.aggregate_op)
+
+    def apply_update(self, theta: PyTree, agg: PyTree, state, data):
+        """Apply the aggregated message.  Returns (θ', state)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support update transports"
+        )
+
+    # -- diagnostics ---------------------------------------------------------
+    def round_metric(self, theta: PyTree, state, data):
+        """Per-round scalar stacked into the trajectory by update
+        transports."""
+        return torch.zeros(())
+
+    def summary(self, theta: PyTree, data) -> dict:
+        """Final metrics dict merged into ``FitResult.metrics``."""
+        return {}
+
+    def finalize(self, theta: PyTree, state, data) -> PyTree:
+        return theta
+
+    def predict(self, theta: PyTree, X: PyTree) -> PyTree:
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement predict()"
+        )
+
+
+class FunctionStrategy(Strategy):
+    """Wrap a bare update function ``F(k, θ) -> θ'`` (the paper's notation)
+    as a server-family strategy::
+
+        strategy = api.FunctionStrategy(F, num_nodes=K)
+        res = api.fit(strategy, transport="sequential_server",
+                      schedule=schedules.round_robin(K, 50), theta0=theta0,
+                      device="cuda")
+    """
+
+    def __init__(self, F: Callable, *, num_nodes: int, metric: Callable | None = None):
+        self._F = F
+        self._num_nodes = num_nodes
+        self._metric = metric
+
+    def num_nodes(self, data) -> int:
+        return self._num_nodes
+
+    def local_step(self, k, theta, state, data):
+        return self._F(k, theta), state
+
+    def round_metric(self, theta, state, data):
+        if self._metric is None:
+            return torch.zeros(())
+        return self._metric(theta)
+
+    def summary(self, theta, data) -> dict:
+        if self._metric is None:
+            return {}
+        return {"final_metric": self._metric(theta)}
+
+
+class GradientDescent(Strategy):
+    """Full-batch distributed GD on sharded ``data = (Xs, ys)``, Xs (K, N, d).
+
+    Under ``allreduce`` each node pushes its weighted local gradient and
+    receives the global sum; under the server transports each contact is
+    one local gradient step::
+
+        res = api.fit(api.GradientDescent(lsq_loss, lr=0.1), (Xs, ys),
+                      transport="allreduce", steps=100, device="cuda")
+        res.metrics["loss"]            # final mean loss over all nodes
+    """
+
+    def __init__(self, loss: Callable, *, lr: float = 0.1, l2: float = 0.0):
+        self.loss = loss
+        self.lr = lr
+        self.l2 = l2
+        self._grad_local = vmap(grad(loss), in_dims=(None, 0, 0))
+        self._loss_local = vmap(loss, in_dims=(None, 0, 0))
+
+    def init_theta(self, data):
+        Xs, _ = data
+        return torch.zeros((Xs.shape[-1],), dtype=torch.float32, device=Xs.device)
+
+    def _weights(self, data):
+        Xs, _ = data
+        K, Nk = Xs.shape[0], Xs.shape[1]
+        K_all = K * _exec.num_node_shards()
+        return torch.full((K,), Nk / (K_all * Nk), dtype=torch.float32,
+                          device=Xs.device)
+
+    def local_step(self, k, theta, state, data):
+        Xs, ys = data
+        g = grad(self.loss)(theta, Xs[k], ys[k])
+        return theta - self.lr * (g + self.l2 * theta), state
+
+    def local_updates(self, theta, state, data, batch):
+        Xs, ys = data
+        gs = self._grad_local(theta, Xs, ys)
+        return gs * self._weights(data)[:, None], state
+
+    def apply_update(self, theta, agg, state, data):
+        g = agg + self.l2 * theta
+        return theta - self.lr * g, state
+
+    def round_metric(self, theta, state, data):
+        Xs, ys = data
+        return _exec.metric_mean(torch.mean(self._loss_local(theta, Xs, ys)))
+
+    def summary(self, theta, data) -> dict:
+        return {"loss": self.round_metric(theta, (), data)}
+
+    def predict(self, theta, X):
+        """Linear score X @ θ — regression values (lsq) or logits."""
+        return X @ theta
+
+
+def _not_ported(name: str, item: str):
+    class NotPorted:
+        def __init__(self, *args, **kwargs):
+            raise NotImplementedError(
+                f"{name} is not ported to repro_torch yet — ROADMAP.md {item}"
+            )
+
+    NotPorted.__name__ = NotPorted.__qualname__ = name
+    return NotPorted
+
+
+LBFGS = _not_ported("LBFGS", "queue 1, item 4 (api/strategy.py)")
+ProxStrategy = _not_ported(
+    "ProxStrategy", "queue 1, item 7 (core/admm.py with AdmmTransport)"
+)
+OptimizerStrategy = _not_ported(
+    "OptimizerStrategy", "queue 1, item 9 (optim/optimizers.py, LM model path)"
+)

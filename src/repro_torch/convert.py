@@ -1,0 +1,61 @@
+"""Carry weights and resume state across from the JAX package.
+
+The JAX package's pytrees arrive as numpy (``jax.tree.map(np.asarray,
+tree)``); these functions turn them into the port's tensors and types so a
+fit started in ``repro`` resumes in ``repro_torch``::
+
+    res = repro.api.fit(..., steps=3)
+    carry = jax.tree.map(np.asarray, res.metrics["carry"])
+    more = repro_torch.api.fit(..., carry=carry_from_reference(carry), steps=3)
+
+The reference's NamedTuples are recognised by class name and fields (this
+module imports nothing of ``repro``): ``DelayLine``, ``ServerState``,
+``FaultCarry`` and ``EFState`` map to the port's classes of the same name.
+Dicts, lists and tuples keep their structure (dicts keep their keys).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.api.faults import FaultCarry
+from repro_torch.core.compression import EFState
+from repro_torch.core.server import ServerState
+from repro_torch.core.staleness import DelayLine
+from repro_torch.device import resolve_device
+
+_NAMED = {cls.__name__: cls for cls in (DelayLine, ServerState, FaultCarry, EFState)}
+
+
+def _convert(x, dev):
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        cls = _NAMED.get(type(x).__name__)
+        if cls is None or tuple(cls._fields) != tuple(x._fields):
+            raise TypeError(
+                f"no repro_torch counterpart for {type(x).__name__}{x._fields}"
+            )
+        return cls(*(_convert(v, dev) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_convert(v, dev) for v in x)
+    if isinstance(x, dict):
+        return {k: _convert(v, dev) for k, v in x.items()}
+    if isinstance(x, (int, float)) and not isinstance(x, bool):
+        return x  # host-side counters (FaultCarry.next_round)
+    arr = np.asarray(x)
+    if arr.dtype == object:
+        raise TypeError(f"cannot convert {type(x).__name__} to a tensor")
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+
+
+def theta_from_reference(tree, device="cuda"):
+    """The JAX package's θ (a pytree of numpy arrays) as the port's
+    tensors on ``device``, bit for bit."""
+    return _convert(tree, resolve_device(device))
+
+
+def carry_from_reference(carry, device="cuda"):
+    """``FitResult.metrics["carry"]`` of a JAX fit (as numpy) as the port's
+    carry: θ, strategy state, wire state (EF residuals), the delay line and
+    ``FaultCarry`` — accepted by ``repro_torch.api.fit(..., carry=...)``."""
+    return _convert(carry, resolve_device(device))

@@ -1,0 +1,59 @@
+"""Bounded-staleness delay line (port of ``repro.core.staleness``).
+
+The §5 protocol without a literal server: the aggregated update pushed at
+round t is applied ``D`` rounds later (``D = 0`` → synchronous mini-batch
+GD, ``D = 1`` → the paper's literal one-step-stale protocol).  The line is
+a FIFO of the last ``D`` pushes, leaves stacked on axis 0.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.utils.tree import tree_leaves, tree_map
+
+PyTree = Any
+
+
+class DelayLine(NamedTuple):
+    """FIFO of the last ``D`` pushed gradients (leaves stacked on axis 0)."""
+
+    buffer: PyTree  # each leaf: (D, *leaf_shape)
+    step: torch.Tensor  # int32 scalar
+
+
+def delay_init(params: PyTree, depth: int) -> DelayLine:
+    if depth < 1:
+        raise ValueError("use depth >= 1; depth 0 means 'no delay line at all'")
+    buf = tree_map(lambda p: torch.zeros((depth,) + tuple(p.shape), dtype=p.dtype,
+                                         device=p.device), params)
+    return DelayLine(buffer=buf, step=torch.tensor(0, dtype=torch.int32))
+
+
+def delay_push_pop(state: DelayLine, grads: PyTree) -> tuple[DelayLine, PyTree]:
+    """Push fresh ``grads``, pop the D-step-old gradient to apply (zeros for
+    the first D steps — the replies that have not arrived yet)."""
+    popped = tree_map(lambda b: b[0], state.buffer)
+    new_buf = tree_map(
+        lambda b, g: torch.cat([b[1:], g[None]], dim=0), state.buffer, grads
+    )
+    return DelayLine(buffer=new_buf, step=state.step + 1), popped
+
+
+def delay_push_read(
+    state: DelayLine, grads: PyTree, delay: int
+) -> tuple[DelayLine, PyTree]:
+    """Push fresh ``grads`` and read the value pushed ``delay`` steps ago,
+    ``delay`` in ``[0, D]``: ``delay == D`` is ``delay_push_pop``,
+    ``delay == 0`` reads the fresh push."""
+    depth = tree_leaves(state.buffer)[0].shape[0]
+    if not 0 <= int(delay) <= depth:
+        raise ValueError(f"delay {delay} outside [0, {depth}]")
+    ext = tree_map(
+        lambda b, g: torch.cat([b, g[None]], dim=0), state.buffer, grads
+    )
+    read = tree_map(lambda e: e[depth - int(delay)], ext)
+    new_buf = tree_map(lambda e: e[1:], ext)
+    return DelayLine(buffer=new_buf, step=state.step + 1), read

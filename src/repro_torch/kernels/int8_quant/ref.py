@@ -1,0 +1,20 @@
+"""Plain PyTorch versions of the int8 wire kernels (the CPU path, and what
+``chip_smoke.py`` holds the CUDA kernels to on the card)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def absmax_ref(x: torch.Tensor) -> torch.Tensor:
+    """(K,) row maxima of |x| for ``x`` (K, n)."""
+    return x.abs().amax(dim=1)
+
+
+def quant_dequant_ref(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``clip(round(x / s), ±127)`` through int8, times ``s``, per row.
+    ``torch.round`` rounds half to even like ``jnp.round``, and the divide
+    is IEEE, so this is bitwise the jitted JAX formula."""
+    s = scale[:, None]
+    q = torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
+    return q.to(x.dtype) * s

@@ -11,6 +11,12 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device and nvcc (skipped without one)"
+    )
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
