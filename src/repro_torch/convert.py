@@ -12,6 +12,10 @@ The reference's NamedTuples are recognised by class name and fields (this
 module imports nothing of ``repro``): ``DelayLine``, ``ServerState``,
 ``FaultCarry`` and ``EFState`` map to the port's classes of the same name.
 Dicts, lists and tuples keep their structure (dicts keep their keys).
+
+Model weights cross the same way: ``params_from_reference`` takes the tree
+of ``repro.models.transformer.init_params`` (as numpy) to the port's tree,
+which has the same names and shapes, bit for bit.
 """
 
 from __future__ import annotations
@@ -42,10 +46,16 @@ def _convert(x, dev):
         return {k: _convert(v, dev) for k, v in x.items()}
     if isinstance(x, (int, float)) and not isinstance(x, bool):
         return x  # host-side counters (FaultCarry.next_round)
-    arr = np.asarray(x)
+    arr = np.ascontiguousarray(np.asarray(x))
+    if not arr.flags.writeable:  # JAX hands out read-only views
+        arr = arr.copy()
     if arr.dtype == object:
         raise TypeError(f"cannot convert {type(x).__name__} to a tensor")
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+    if arr.dtype.name == "bfloat16":
+        # numpy has no bf16 of its own (JAX hands out ml_dtypes' type):
+        # cross as the 16-bit patterns
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(arr).to(dev)
 
 
 def theta_from_reference(tree, device="cuda"):
@@ -59,3 +69,11 @@ def carry_from_reference(carry, device="cuda"):
     carry: θ, strategy state, wire state (EF residuals), the delay line and
     ``FaultCarry`` — accepted by ``repro_torch.api.fit(..., carry=...)``."""
     return _convert(carry, resolve_device(device))
+
+
+def params_from_reference(tree, device="cuda"):
+    """The JAX package's model parameters (``init_params``'s tree as
+    numpy) as the port's parameter tree on ``device``, bit for bit — f32
+    and bf16 leaves alike.  The names and shapes agree leaf for leaf, so
+    the result goes to ``repro_torch.models.transformer`` as it is."""
+    return _convert(tree, resolve_device(device))

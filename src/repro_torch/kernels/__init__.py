@@ -12,14 +12,16 @@ through the kernels::
 
     from repro_torch import kernels
     kernels.reset_launches()
-    ...                                  # drive a fit on the card
+    ...                                  # drive a fit or a server on the card
     kernels.LAUNCHES["topk_encode"]      # launches since the reset
 """
 
 from __future__ import annotations
 
 #: the kernels of this package, by the name their wrapper counts under
-KERNEL_NAMES = ("topk_encode", "topk_select", "int8_absmax", "int8_quant")
+KERNEL_NAMES = (
+    "topk_encode", "topk_select", "int8_absmax", "int8_quant", "decode_attention",
+)
 
 #: launches per kernel name since the last ``reset_launches``
 LAUNCHES: dict = dict.fromkeys(KERNEL_NAMES, 0)

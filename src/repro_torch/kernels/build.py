@@ -36,12 +36,17 @@ _LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
-#: C signature of every entry point: (argtypes, restype)
+_I = ctypes.c_int
+#: C signature of every entry point, by source: (argtypes, restype)
 SIGNATURES = {
     "wire_kernels": {
         "repro_topk_encode": ([_P, _P, _P, _P, _P, _LL, _LL, _P], ctypes.c_int),
         "repro_absmax": ([_P, _P, _LL, _LL, _P], ctypes.c_int),
         "repro_quant_dequant": ([_P, _P, _P, _LL, _LL, _P], ctypes.c_int),
+    },
+    "decode_attention": {
+        "repro_decode_attention": (
+            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
     },
 }
 
@@ -59,28 +64,66 @@ def _nvcc() -> str:
     )
 
 
-def _compile(name: str) -> tuple[Path, float, str]:
+def _paths(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    lib = BUILD_DIR / f"{name}-{digest}.so"
-    log = lib.with_suffix(".log")
+    return src, BUILD_DIR / f"{name}-{digest}.so"
+
+
+def _start(name: str):
+    """Start nvcc on ``csrc/<name>.cu`` unless its library is built:
+    ``(src, lib, tmp, process | None, start time)``."""
+    src, lib = _paths(name)
     if lib.exists():
-        return lib, 0.0, log.read_text() if log.exists() else ""
+        return src, lib, None, None, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-        capture_output=True, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
     )
+    return src, lib, tmp, proc, time.perf_counter()
+
+
+def _finish(started) -> tuple[Path, float, str]:
+    src, lib, tmp, proc, t0 = started
+    log = lib.with_suffix(".log")
+    if proc is None:
+        return lib, 0.0, log.read_text() if log.exists() else ""
+    _, stderr = proc.communicate()
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr[-4000:]}")
-    log.write_text(proc.stderr)
+        raise RuntimeError(f"nvcc failed on {src}:\n{stderr[-4000:]}")
+    log.write_text(stderr)
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
-    return lib, seconds, proc.stderr
+    return lib, seconds, stderr
+
+
+def _load(name: str, built) -> None:
+    path, seconds, log = built
+    lib = ctypes.CDLL(str(path))
+    for fn, (argtypes, restype) in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    _LIBS[name] = (lib, seconds, log)
+
+
+def build_all() -> None:
+    """Build every source at once (one nvcc each, all started together) and
+    load the libraries; what is loaded already is skipped.  A failed build
+    raises, and no nvcc is left running."""
+    with _LOCK:
+        started = [(n, _start(n)) for n in SIGNATURES if n not in _LIBS]
+        try:
+            for n, st in started:
+                _load(n, _finish(st))
+        finally:
+            for _, (_, _, _, proc, _) in started:
+                if proc is not None and proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
 
 
 def library(name: str = "wire_kernels"):
@@ -88,12 +131,7 @@ def library(name: str = "wire_kernels"):
     first call in this process (or reused from ``_build/``)."""
     with _LOCK:
         if name not in _LIBS:
-            path, seconds, log = _compile(name)
-            lib = ctypes.CDLL(str(path))
-            for fn, (argtypes, restype) in SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = restype
-            _LIBS[name] = (lib, seconds, log)
+            _load(name, _finish(_start(name)))
         return _LIBS[name][0]
 
 

@@ -9,6 +9,7 @@ order, not sorted key order.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
@@ -27,8 +28,11 @@ def tree_sub(a, b):
 
 
 def tree_bytes(a) -> int:
-    """Total bytes of the pytree's leaves."""
-    return sum(int(x.numel()) * x.element_size() for x in tree_leaves(a))
+    """Total bytes of the pytree's leaves (tensors or numpy arrays)."""
+    return sum(
+        int(x.nbytes) if isinstance(x, np.ndarray) else int(x.numel()) * x.element_size()
+        for x in tree_leaves(a)
+    )
 
 
 def tree_stack(trees: list):

@@ -13,6 +13,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import kernels  # noqa: E402
+from repro_torch.kernels.decode_attention import kernel as da_kernel  # noqa: E402
+from repro_torch.kernels.decode_attention import ref as da_ref  # noqa: E402
 from repro_torch.kernels.int8_quant import kernel as q8_kernel  # noqa: E402
 from repro_torch.kernels.int8_quant import ref as q8_ref  # noqa: E402
 from repro_torch.kernels.topk_compress import kernel as tk_kernel  # noqa: E402
@@ -71,3 +73,67 @@ def test_wrappers_refuse_bad_operands(cuda):
         q8_kernel.absmax(x.cpu())
     with pytest.raises(ValueError, match="threshold"):
         tk_kernel.encode_threshold(x, torch.zeros(3, device=cuda), with_residual=True)
+
+
+# (B, S, Hq, Hkv, D): the JAX package's decode test shapes, the serving
+# shape of tinyllama-1.1b (G 8, D 64) and qwen2-1.5b's heads (G 6, D 128)
+DECODE_SHAPES = [
+    (2, 256, 8, 2, 32), (1, 512, 4, 4, 64), (3, 128, 4, 1, 16),
+    (2, 300, 8, 4, 32), (4, 1024, 32, 4, 64), (3, 200, 12, 2, 128),
+    (2, 70, 2, 2, 8),
+]
+#: |kernel - plain| limits: the JAX package's own decode-test tolerances
+DECODE_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+def _decode_inputs(device, shape, dtype, seed):
+    B, S, Hq, Hkv, D = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((B, Hq, D), generator=g, device=device).to(dtype)
+    k = torch.randn((B, S, Hkv, D), generator=g, device=device).to(dtype)
+    v = torch.randn((B, S, Hkv, D), generator=g, device=device).to(dtype)
+    # 0, 1, S and a length that is no multiple of any tile, per row
+    lens = [0, 1, S, (S * 5) // 7 + 3][:B] + [S] * max(0, B - 4)
+    vl = torch.tensor(lens, dtype=torch.int32, device=device).clamp(max=S)
+    return q, k, v, vl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", DECODE_SHAPES, ids=str)
+def test_decode_attention_kernel_vs_plain(cuda, shape, dtype):
+    q, k, v, vl = _decode_inputs(cuda, shape, dtype, sum(shape))
+    before = kernels.LAUNCHES["decode_attention"]
+    out = da_kernel.decode_attention(q, k, v, vl)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["decode_attention"] == before + 1
+    plain = da_ref.decode_attention_plain(q, k, v, vl)
+    assert out.dtype == dtype and out.shape == q.shape
+    assert bool(torch.isfinite(out).all())
+    err = float((out.float() - plain.float()).abs().max())
+    assert err <= DECODE_TOL[dtype], err
+    # a row with no valid key gives 0, as the plain version does
+    if int(vl[0]) == 0:
+        assert bool((out[0] == 0).all())
+
+
+@pytest.mark.cuda
+def test_decode_attention_refuses_bad_operands(cuda):
+    q = torch.zeros((2, 8, 64), device=cuda)
+    k = torch.zeros((2, 16, 2, 64), device=cuda)
+    vl = torch.ones((2,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        da_kernel.decode_attention(q.double(), k.double(), k.double(), vl)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        da_kernel.decode_attention(q, k.bfloat16(), k.bfloat16(), vl)
+    with pytest.raises(ValueError, match="contiguous"):
+        da_kernel.decode_attention(q.transpose(0, 1), k, k, vl)
+    with pytest.raises(ValueError, match="no kernel for G=3"):
+        da_kernel.decode_attention(q[:, :6].contiguous(), k, k, vl)
+    with pytest.raises(ValueError, match="no kernel for G=4, D=48"):
+        da_kernel.decode_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                                   k[..., :48].contiguous(), vl)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        da_kernel.decode_attention(q, k.cpu(), k, vl)
+    with pytest.raises(ValueError, match="valid_len"):
+        da_kernel.decode_attention(q, k, k, vl.long())

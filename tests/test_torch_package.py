@@ -48,6 +48,9 @@ def test_import_loads_no_jax_and_builds_nothing():
         "import repro_torch, repro_torch.api, repro_torch.convert\n"
         "import repro_torch.kernels.topk_compress.ops\n"
         "import repro_torch.kernels.int8_quant.ops\n"
+        "import repro_torch.kernels.decode_attention.ops\n"
+        "import repro_torch.serve, repro_torch.models, repro_torch.configs\n"
+        "import repro_torch.launch.serve\n"
         "from repro_torch.kernels import build\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))"
         " or m == 'repro' for m in sys.modules), sorted(sys.modules)\n"
