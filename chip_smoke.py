@@ -40,7 +40,26 @@
    where that step's time goes (host wall and enqueue, device time as a
    CUDA graph, aten operations dispatched, and the parts on the device).
    Then the CLI itself, briefly.
-6. Prints one JSON line of per-kernel numbers, the card's name and power
+6. Nearest-centroid kernel phase: the kernel against its plain version
+   (``pdist_argmin_ref``) under l2, l1 and l∞, f32 and bf16, at the JAX
+   package's test shapes, K = 1, K 1024 × d 512, duplicated centroid rows
+   (ties take the first index) and the first 8,192 points of the main
+   shape; distances within atol 1e-5 + rtol 1e-5·|plain|, indices equal
+   wherever the top-2 gap clears that.  Times at the main shape (4,898,432
+   × 42 against 1,000, l2) beside the operation bound, the plain version on
+   the 8,192-point chunk and ``torch.cdist(X, C).min(dim=1)``.
+7. Clustering: ``repro_torch.ml.clustering.distributed_kmeans`` at the KDD
+   Cup 1999 shape (16 sites × 306,152 × 42, K = 1000, 20 iterations; a
+   planted mixture made on the card from a seed): exactly 21 kernel
+   launches, inertia below C0's, the §4.1 identity against centralized
+   k-means on the union (empty clusters kept, as ``distributed_kmeans``
+   keeps them; ``kmeans`` itself, which zeroes them, is run and reported),
+   and where an iteration's time goes (E-step, M-step, profiled device
+   busy time against wall).  Then, at a reduced 16 × 20,000 × 42:
+   k-windows through ``fit`` (ledger bytes checked), ``consensus_kmeans``
+   (launches = iterations × sites × local EM steps) and ``kmeans_pp_init``
+   at K = 1000 on one site.
+8. Prints one JSON line of per-kernel numbers, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX.  Exits non-zero, with no result line, when there
@@ -590,15 +609,398 @@ def serve_phase(torch):
     return launches
 
 
+# ----------------------------------------------------------------------------
+# The §4 clustering family: the nearest-centroid kernel and distributed k-means
+# ----------------------------------------------------------------------------
+
+#: the KDD Cup 1999 set as the k-means|| paper clusters it (Bahmani et al.,
+#: VLDB 2012): 4,898,432 points (one above 4,898,431, for equal sites) in 42
+#: dimensions over 16 sites, k = 1000, 20 EM iterations
+SITES, SITE_N, KDD_D, KDD_K, KDD_ITERS = 16, 306_152, 42, 1000, 20
+#: the reduced size of the rest of the family (16 sites × 20,000 × 42)
+SMALL_N = 20_000
+PDIST_CHUNK = 8192  # points the plain version (it materialises N × K × d) runs on
+#: |kernel − plain| ≤ atol + rtol·|plain|: the JAX pdist test's jnp.allclose
+#: (atol 1e-5, its default rtol 1e-5); rtol is what binds at the large shapes
+PDIST_ATOL = PDIST_RTOL = 1e-5
+#: (N, K, d): tests/test_kernels_pdist.py's CASES, K = 1, the design limit
+#: K 1024 × d 512, and duplicated centroid rows (exact ties); the first
+#: 8,192 points of the main shape run last, against its 1,000 centroids
+PDIST_SHAPES = [(500, 16, 8), (300, 7, 5), (260, 5, 3), (128, 32, 64), (1000, 3, 2),
+                (65, 4, 4), (4099, 1, 42), (1000, 1024, 512), ("dup", 40, 20)]
+
+
+def make_kdd_shaped(torch, seed: int, n_per_site: int = SITE_N):
+    """A planted mixture of ``KDD_K`` Gaussian components at the KDD Cup
+    1999 shape, made on the card from a seeded generator: means ~ N(0, 10²),
+    unit noise, components drawn uniformly.  Returns the (sites, n, 42)
+    points and ``KDD_K`` distinct rows of them as C0."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    means = 10.0 * torch.randn((KDD_K, KDD_D), generator=gen, device="cuda")
+    comp = torch.randint(0, KDD_K, (SITES * n_per_site,), generator=gen, device="cuda")
+    X = means[comp] + torch.randn((SITES * n_per_site, KDD_D), generator=gen, device="cuda")
+    C0 = X[torch.randperm(X.shape[0], generator=gen, device="cuda")[:KDD_K]].clone()
+    return X.reshape(SITES, n_per_site, KDD_D), C0
+
+
+def pdist_compare(torch, X, C, metric, out=None):
+    """Kernel against plain version on one input: (max |kernel − plain|,
+    points whose top-2 gap clears the tolerance, points).  Fails on a
+    distance outside the tolerance or an index that differs where the gap
+    is clear.  ``out`` is the kernel's (index, distance) for X when a
+    launch made elsewhere is held to the plain version; else it launches."""
+    from repro_torch.kernels.pdist_argmin import kernel as pdk, ref as pdr
+    from repro_torch.ml.clustering import pdist
+
+    idx, dist = pdk.pdist_argmin(X, C, metric) if out is None else out
+    err, clear_n = 0.0, 0
+    for s in range(0, X.shape[0], 1024):
+        xs = X[s:s + 1024]
+        r_idx, r_dist = pdr.pdist_argmin_ref(xs, C, metric)
+        tol = PDIST_ATOL + PDIST_RTOL * r_dist.abs()
+        diff = (dist[s:s + 1024] - r_dist).abs()
+        check(bool((diff <= tol).all()), f"pdist_argmin {tuple(X.shape)}×{tuple(C.shape)} "
+              f"{metric} {X.dtype}: distance off by {float(diff.max())}")
+        D = pdist(xs.float(), C.float(), "l2sq" if metric == "l2" else metric)
+        if C.shape[0] > 1:
+            top = torch.topk(D, 2, dim=1, largest=False).values
+            clear = (top[:, 1] - top[:, 0]) > tol
+        else:
+            clear = torch.ones_like(tol, dtype=torch.bool)
+        same = idx[s:s + 1024].long() == r_idx.long()
+        check(bool(same[clear].all()), f"pdist_argmin {tuple(X.shape)}×{tuple(C.shape)} "
+              f"{metric} {X.dtype}: index differs where the top-2 gap is clear")
+        err = max(err, float(diff.max()))
+        clear_n += int(clear.sum())
+    return err, clear_n, X.shape[0]
+
+
+def pdist_kernel_phase(torch, Xs, C0):
+    """The nearest-centroid kernel against its plain version at every shape,
+    metric and type, then times at the main shape."""
+    from repro_torch.kernels.pdist_argmin import kernel as pdk, ref as pdr
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    err, checked = 0.0, 0
+    chunk = Xs.reshape(-1, KDD_D)[:PDIST_CHUNK]
+    for shape in PDIST_SHAPES + [("main", KDD_K, KDD_D)]:
+        N, K, d = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            if N == "main":
+                X, C = chunk.to(dtype), C0.to(dtype)
+            else:
+                X = torch.randn((1000 if N == "dup" else N, d), generator=gen,
+                                device="cuda").to(dtype)
+                C = torch.randn((K, d), generator=gen, device="cuda").to(dtype)
+            if N == "dup":  # every row three times: exact ties take the first
+                C = torch.cat([C, C, C])
+            for metric in ("l2", "l1", "linf"):
+                e, clear, n = pdist_compare(torch, X, C, metric)
+                if N == "dup":
+                    i3, d3 = pdk.pdist_argmin(X, C, metric)
+                    i1, d1 = pdk.pdist_argmin(X, C[:K].contiguous(), metric)
+                    check(torch.equal(i3, i1) and torch.equal(d3, d1),
+                          f"pdist_argmin ties {metric} {dtype}: not the first index")
+                err = max(err, e)
+                checked += 1
+                print(f"pdist check {shape} {metric} {str(dtype)[6:]}: max |kernel − plain| "
+                      f"{e:.4g}, index compared on {clear}/{n} points", flush=True)
+    torch.cuda.synchronize()
+    print(f"pdist phase: {checked} comparisons within atol {PDIST_ATOL} + rtol "
+          f"{PDIST_RTOL}·|plain|, indices equal wherever the top-2 gap is clear", flush=True)
+
+    # times at the main shape (4,898,432 × 42 against 1,000, l2, f32)
+    X = Xs.reshape(-1, KDD_D)
+    N = X.shape[0]
+    nbytes = (N * KDD_D + KDD_K * KDD_D) * 4 + N * 8
+    # what the function needs: one multiply-add (2 operations) per term of
+    # x·c, as the expanded form ‖x‖² − 2x·c + ‖c‖² does, plus the norms.
+    # The kernel's direct form Σ(x − c)² issues 3·N·K·d (a subtract and a
+    # multiply-add per term); that is its design, not the function's bound.
+    ops = 2 * N * KDD_K * KDD_D + 2 * (N + KDD_K) * KDD_D
+    b_ms, b_by = bound_ms(nbytes, ops)
+    # the library call materialises the 19.6 GB distance matrix: eager, 3 runs
+    lib_ms = eager_ms(torch, lambda: torch.cdist(X, C0).min(dim=1), inner=1, reps=3)
+    torch.cuda.empty_cache()
+    t = {
+        "ms": graph_ms(torch, lambda: pdk.pdist_argmin(X, C0, "l2"), inner=3, reps=5),
+        "plain_ms": eager_ms(torch, lambda: pdr.pdist_argmin_ref(chunk, C0, "l2"),
+                             inner=1, reps=5),
+        "plain_shape": [PDIST_CHUNK, KDD_D, KDD_K],
+        "library_ms": lib_ms, "library": "torch.cdist(X, C).min(dim=1)",
+        "bound_ms": b_ms, "bound_by": b_by, "shape": [N, KDD_D, KDD_K], "bytes": nbytes,
+        "ops": ops, "direct_form_ops": 3 * N * KDD_K * KDD_D,
+    }
+    torch.cuda.empty_cache()
+    print(f"time pdist_argmin main: {t}", flush=True)
+    return err, t
+
+
+#: the §4.1 limits.  On the H100 the sound run read a relative inertia
+#: difference of 0 and 0.999647 of assignments equal (the two M-steps sum
+#: in different orders, so a few boundary points go the other way over 20
+#: iterations), and one M-step's Allreduce from the same assignments gave
+#: the centralized counts exactly (integers below 2^24 in f32) and its
+#: centroids within 1.1e-5.  The planted control, one site left out of the
+#: Allreduce, read 7.4e-3, 0.9796, 978 counts differing and 0.081.
+IDENTITY_RTOL, IDENTITY_SAME, IDENTITY_CENTROID_ATOL = 1e-6, 0.999, 1e-4
+
+
+def identity_readings(torch, clustering, Xs, res, central):
+    """The §4.1 readings of one ``distributed_kmeans`` result against the
+    centralized run ``central`` = (centroids, assignments, inertia): the
+    relative inertia difference, the share of equal assignments, and one
+    M-step from ``res``'s assignments through ``clustering.node_stats``
+    (the Allreduce) against the centralized one-hot product on the union:
+    clusters whose count differs, and the centroids' max |Δ|."""
+    C_c, a_c, inertia_c = central
+    Xall = Xs.reshape(-1, Xs.shape[-1])
+    sums, counts = clustering.node_stats(Xs, res.assignments, res.centroids.shape[0])
+    mean_c, counts_c = clustering._m_step(Xall, res.assignments, res.centroids.shape[0], "l2sq")
+    mean_d = sums / torch.clamp_min(counts, 1.0)[:, None]
+    kept = counts_c > 0
+    return {
+        "inertia": float(res.inertia), "inertia_centralized": inertia_c,
+        "inertia_rel": abs(float(res.inertia) - inertia_c) / inertia_c,
+        "assignments_equal": float((res.assignments == a_c).float().mean()),
+        "centroids_max_abs_diff": float((res.centroids - C_c).abs().max()),
+        "mstep_counts_differ": int((counts != counts_c).sum()),
+        "mstep_centroids_max_abs_diff": float((mean_d - mean_c)[kept].abs().max()),
+    }
+
+
+def identity_holds(r) -> bool:
+    return (r["inertia_rel"] <= IDENTITY_RTOL and r["assignments_equal"] >= IDENTITY_SAME
+            and r["mstep_counts_differ"] == 0
+            and r["mstep_centroids_max_abs_diff"] <= IDENTITY_CENTROID_ATOL)
+
+
+def kmeans_phase(torch, Xs, C0):
+    """The main path: ``distributed_kmeans`` at the KDD Cup 1999 shape, its
+    final launch against the plain version, the §4.1 identity against
+    centralized k-means on the union with a planted faulty Allreduce as its
+    control, and where an EM iteration's time goes."""
+    from repro_torch import kernels
+    from repro_torch.ml import clustering
+
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmuls are on")
+    Xall = Xs.reshape(-1, KDD_D)
+    inertia0 = float(clustering.nearest(Xall, C0, "l2sq")[1].sum())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = clustering.distributed_kmeans(Xs, C0, num_clusters=KDD_K, iters=KDD_ITERS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = {n: (KDD_ITERS + 1 if n == "pdist_argmin" else 0) for n in kernels.KERNEL_NAMES}
+    check(launches == want, f"distributed_kmeans launches {launches}, expected {want}")
+    inertia = float(res.inertia)
+    check(bool(torch.isfinite(res.centroids).all()) and res.centroids.shape == (KDD_K, KDD_D),
+          "centroids not finite of shape (1000, 42)")
+    check(res.assignments.shape == (Xall.shape[0],), "assignments shape")
+    check(inertia < inertia0, f"inertia {inertia} not below C0's {inertia0}")
+
+    # where an iteration goes: the E-step and the M-step apart, on CUDA events
+    def events(fn, reps=3):
+        out = []
+        for _ in range(reps):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            e1.synchronize()
+            out.append(e0.elapsed_time(e1))
+        return statistics.median(out)
+
+    assign = res.assignments
+    # the main path's launches against the plain version: the E-step again
+    # on the final centroids must give the final assignment and inertia
+    # bit for bit, and its first and last PDIST_CHUNK rows agree with
+    # pdist_argmin_ref
+    i_full, d_full = clustering.nearest(Xall, res.centroids, "l2sq")
+    check(torch.equal(i_full, assign) and float(d_full.sum()) == inertia,
+          "the E-step on the final centroids differs from distributed_kmeans' last one")
+    rows = torch.cat([torch.arange(PDIST_CHUNK, device="cuda"),
+                      torch.arange(Xall.shape[0] - PDIST_CHUNK, Xall.shape[0], device="cuda")])
+    full_err, clear, n = pdist_compare(torch, Xall[rows], res.centroids, "l2",
+                                       out=(i_full[rows], d_full[rows]))
+    print(f"pdist check of the main path's final launch (rows 0..{PDIST_CHUNK} and the last "
+          f"{PDIST_CHUNK}, final centroids): max |kernel − plain| {full_err:.4g}, index "
+          f"compared on {clear}/{n} points", flush=True)
+    del i_full, d_full
+    e_ms = events(lambda: clustering.nearest(Xall, res.centroids, "l2sq"))
+    m_ms = events(lambda: clustering.node_stats(Xs, assign, KDD_K))
+    # wall = iters × (E + M + host) + one final E-step
+    it_ms = (wall * 1e3 - e_ms) / KDD_ITERS
+    empty = int((torch.bincount(assign, minlength=KDD_K) == 0).sum())
+    print(f"distributed_kmeans {SITES} sites × {SITE_N} × {KDD_D}, K {KDD_K}, {KDD_ITERS} "
+          f"iterations: {wall:.4f} s, {it_ms:.4f} ms an iteration (host clock, the final "
+          f"assignment taken out); E-step {e_ms:.4f} ms, M-step {m_ms:.4f} ms (CUDA events, "
+          f"timed apart), the rest {it_ms - e_ms - m_ms:.4f} ms; inertia {inertia0:.6g} -> "
+          f"{inertia:.6g}; {empty} clusters empty at the end; peak memory "
+          f"{peak / 2**30:.3f} GiB; launches {launches}", flush=True)
+
+    # device busy time of three iterations from the profiler, against wall
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        clustering.distributed_kmeans(Xs, C0, num_clusters=KDD_K, iters=3)
+        torch.cuda.synchronize()
+        p_wall = (time.perf_counter() - t0) * 1e3
+    from torch.autograd import DeviceType
+
+    on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in on_card) / 1e3
+    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:5]
+    idle = f"idle share {1 - busy / p_wall:.4f}" if busy > 0 else "idle share not measured"
+    print(f"profiled distributed_kmeans (3 iterations + final): wall {p_wall:.4f} ms, device "
+          f"busy {busy:.4f} ms, {idle}; top kernels "
+          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms" for e in top),
+          flush=True)
+
+    # §4.1: the sufficient-statistics Allreduce is centralized k-means on the
+    # union.  The centralized loop keeps an empty cluster's centroid, as
+    # distributed_kmeans does (the JAX package's kmeans() sends an empty
+    # cluster to the origin, so it leaves this trajectory at the first empty
+    # cluster; 21 of the 1,000 are empty here).
+    t0 = time.perf_counter()
+    C = C0
+    for _ in range(KDD_ITERS):
+        a, _ = clustering.nearest(Xall, C, "l2sq")
+        C_new, counts = clustering._m_step(Xall, a, KDD_K, "l2sq")
+        C = torch.where(counts[:, None] > 0, C_new, C)
+    a, d = clustering.nearest(Xall, C, "l2sq")
+    torch.cuda.synchronize()
+    c_wall = time.perf_counter() - t0
+    central = (C, a, float(d.sum()))
+    del C_new, counts, d
+    sound = identity_readings(torch, clustering, Xs, res, central)
+    print(f"§4.1 identity: centralized k-means on the union ({c_wall:.4f} s); "
+          f"distributed_kmeans: {sound}", flush=True)
+    check(identity_holds(sound), f"§4.1 identity fails: {sound}")
+
+    # the planted control: an Allreduce that leaves the last site out must
+    # fail the same check, or the check cannot see a faulty Allreduce
+    sound_node_stats = clustering.node_stats
+
+    def without_last_site(Xs_, assign_, K_):
+        return sound_node_stats(Xs_[:-1], assign_[:-Xs_.shape[1]], K_)
+
+    clustering.node_stats = without_last_site
+    try:
+        bad = clustering.distributed_kmeans(Xs, C0, num_clusters=KDD_K, iters=KDD_ITERS)
+        planted = identity_readings(torch, clustering, Xs, bad, central)
+    finally:
+        clustering.node_stats = sound_node_stats
+    print(f"§4.1 planted control (Allreduce without site {SITES - 1}): {planted}", flush=True)
+    check(not identity_holds(planted), f"§4.1 check passes a faulty Allreduce: {planted}")
+    del bad, central, a, C
+    torch.cuda.empty_cache()
+    return launches["pdist_argmin"], full_err, {"iteration_ms": it_ms, "estep_ms": e_ms,
+                                      "mstep_ms": m_ms, "peak_gib": peak / 2**30}
+
+
+def family_phase(torch):
+    """The rest of the family at a reduced size (16 sites × 20,000 × 42):
+    k-windows through ``fit``, consensus and centralized k-means, k-means++
+    seeding."""
+    from repro_torch import api, kernels
+    from repro_torch.core import schedules
+    from repro_torch.ml import clustering, kwindows
+
+    Xs, _ = make_kdd_shaped(torch, 1, n_per_site=SMALL_N)
+    W = 32
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = api.fit(kwindows.KWindowsStrategy(0, num_windows=W, r=3.0), Xs,
+                  transport="sequential_server", schedule=schedules.round_robin(SITES, 1),
+                  device="cuda")
+    torch.cuda.synchronize()
+    kw_s = time.perf_counter() - t0
+    pool = SITES * W
+    # the JAX package's price: each contact pushes the pooled window set and
+    # is handed it back (dense), centers and halfwidths (pool, d) and alive
+    # and counts (pool,), f32
+    per_contact = pool * (2 * KDD_D + 2) * 4
+    check(res.ledger.uplink_bytes == SITES * per_contact
+          and res.ledger.downlink_bytes == SITES * per_contact,
+          f"k-windows ledger {res.ledger.summary()} != {SITES} × {per_contact} each way")
+    check(sum(kernels.LAUNCHES.values()) == 0, "k-windows launched a kernel")
+    alive = int(res.theta.alive.sum())
+    check(0 < alive <= pool and bool(torch.isfinite(res.theta.centers).all()),
+          f"k-windows: {alive} windows alive")
+    captured = float((kwindows.assign_points(Xs[0], res.theta) >= 0).float().mean())
+    print(f"k-windows fit ({SITES} sites × {SMALL_N} × {KDD_D}, {W} windows a site): "
+          f"{kw_s:.4f} s, {alive} windows after the server merge, {captured:.4f} of site 0 "
+          f"captured; ledger {res.ledger.summary()}", flush=True)
+
+    Kc, iters, em = 32, 10, 3
+    Xall = Xs.reshape(-1, KDD_D)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    C0 = Xall[torch.randperm(Xall.shape[0], generator=gen, device="cuda")[:Kc]].clone()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    C, admm = clustering.consensus_kmeans(Xs, C0, iters=iters, local_em_iters=em)
+    torch.cuda.synchronize()
+    ck_s = time.perf_counter() - t0
+    check(kernels.LAUNCHES["pdist_argmin"] == iters * SITES * em,
+          f"consensus_kmeans launches {kernels.LAUNCHES['pdist_argmin']} != "
+          f"{iters} × {SITES} × {em}")
+    check(bool(torch.isfinite(C).all()) and C.shape == (Kc, KDD_D), "consensus centroids")
+    print(f"consensus_kmeans K {Kc}, {iters} ADMM iterations × {em} local EM steps: "
+          f"{ck_s:.4f} s, {kernels.LAUNCHES['pdist_argmin']} kernel launches, residuals "
+          f"{admm.history[-1].tolist()}", flush=True)
+
+    # centralized kmeans as the JAX package defines it: l2 (argmin over
+    # square roots), an empty cluster sent to the origin
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    km = clustering.kmeans(Xall, C0, num_clusters=Kc, metric="l2", iters=iters)
+    torch.cuda.synchronize()
+    km_s = time.perf_counter() - t0
+    check(kernels.LAUNCHES["pdist_argmin"] == iters + 1, "kmeans launches")
+    km0 = float(clustering.nearest(Xall, C0, "l2sq")[1].sum())
+    check(bool(torch.isfinite(km.centroids).all()) and float(km.inertia) < km0,
+          f"kmeans inertia {float(km.inertia)} not below C0's {km0}")
+    print(f"kmeans K {Kc}, {iters} iterations on the union ({SITES * SMALL_N} points): "
+          f"{km_s:.4f} s, {iters + 1} launches; inertia {km0:.6g} -> {float(km.inertia):.6g}",
+          flush=True)
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    Cpp = clustering.kmeans_pp_init(torch.Generator(device="cuda").manual_seed(4), Xs[0], KDD_K)
+    torch.cuda.synchronize()
+    pp_s = time.perf_counter() - t0
+    check(kernels.LAUNCHES["pdist_argmin"] == KDD_K - 1, "kmeans_pp_init launches")
+    check(bool((clustering.nearest(Cpp, Xs[0], "l2sq")[1] == 0).all()),
+          "kmeans++ centers are not data points")
+    rand = Xs[0][torch.randperm(SMALL_N, generator=gen, device="cuda")[:KDD_K]]
+    i_pp = float(clustering.nearest(Xs[0], Cpp, "l2sq")[1].sum())
+    i_rand = float(clustering.nearest(Xs[0], rand, "l2sq")[1].sum())
+    check(i_pp < i_rand, f"kmeans++ inertia {i_pp} not below random rows' {i_rand}")
+    print(f"kmeans_pp_init K {KDD_K} on one site ({SMALL_N} points): {pp_s:.4f} s, "
+          f"{KDD_K - 1} launches; inertia {i_pp:.6g} vs {i_rand:.6g} for random rows",
+          flush=True)
+    del Xs
+    torch.cuda.empty_cache()
+
+
 REPLACES = {
     "topk_encode": "src/repro/kernels/topk_compress/kernel.py:73",
     "topk_select": "src/repro/kernels/topk_compress/kernel.py:106",
     "int8_absmax": "src/repro/kernels/int8_quant/kernel.py:34",
     "int8_quant": "src/repro/kernels/int8_quant/kernel.py:53",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:31",
+    "pdist_argmin": "src/repro/kernels/pdist_argmin/kernel.py:20",
 }
 SOURCES = {
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
+    "pdist_argmin": "src/repro_torch/csrc/pdist_argmin.cu",
 }
 
 
@@ -631,6 +1033,19 @@ def main() -> int:
     err["decode_attention"], timings[("decode_attention", "main")] = decode_kernel_phase(torch)
     launches = main_path(torch)
     launches["decode_attention"] = serve_phase(torch)["decode_attention"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Xs, C0 = make_kdd_shaped(torch, 0)
+    torch.cuda.synchronize()
+    print(f"KDD Cup 1999-shaped data {tuple(Xs.shape)} f32 on the card "
+          f"({Xs.numel() * 4 / 1e9:.3f} GB) in {time.perf_counter() - t0:.4f} s", flush=True)
+    err["pdist_argmin"], timings[("pdist_argmin", "main")] = pdist_kernel_phase(torch, Xs, C0)
+    launches["pdist_argmin"], full_err, kmeans_stats = kmeans_phase(torch, Xs, C0)
+    err["pdist_argmin"] = max(err["pdist_argmin"], full_err)
+    del Xs, C0
+    torch.cuda.empty_cache()
+    family_phase(torch)
+    print("k-means iteration:", json.dumps(kmeans_stats), flush=True)
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was never launched on the main path")
 

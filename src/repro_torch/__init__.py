@@ -6,13 +6,17 @@ ops,ref}.py``) so each module's counterpart is found by path, and it
 imports ``torch`` and numpy only — never ``jax``, never ``repro``.
 
 Ported so far: ``api.fit`` on the local executor with ``GradientDescent`` /
-``FunctionStrategy``, the ``allreduce`` / ``delay_line`` /
-``sequential_server`` / ``stale_server`` transports, the ``dense`` /
+``FunctionStrategy`` / ``ProxStrategy``, the ``allreduce`` / ``delay_line``
+/ ``sequential_server`` / ``stale_server`` / ``admm_consensus`` transports, the ``dense`` /
 ``thresh`` / ``topk`` / ``int8`` wires (±ef), fault plans, and the four
 wire-encode kernels (``kernels/topk_compress``, ``kernels/int8_quant``) as
-hand-written CUDA (``csrc/wire_kernels.cu``), built with ``nvcc`` on first
-use.  What is not ported raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item.
+hand-written CUDA (``csrc/wire_kernels.cu``); continuous-batching LM
+serving (``serve``, ``models``) with decode attention in CUDA
+(``csrc/decode_attention.cu``); the §4 clustering family (``ml.clustering``,
+``ml.kwindows``, consensus ADMM in ``core.admm``) with the nearest-centroid
+E-step in CUDA (``csrc/pdist_argmin.cu``).  Kernels are built with ``nvcc``
+on first use.  What is not ported raises ``NotImplementedError`` naming
+its ``ROADMAP.md`` item.
 
 Idiom: plain functions on tensors; dicts, tuples and NamedTuples for
 pytrees (``torch.utils._pytree``); an explicit ``device`` (default

@@ -23,6 +23,7 @@ from repro_torch.api.strategy import (
 )
 from repro_torch.api.transport import (
     TRANSPORTS,
+    AdmmTransport,
     ServerTransport,
     Transport,
     UpdateTransport,
@@ -42,7 +43,8 @@ __all__ = [
     "fit", "FitResult",
     "Strategy", "FunctionStrategy", "GradientDescent",
     "LBFGS", "ProxStrategy", "OptimizerStrategy",
-    "Transport", "ServerTransport", "UpdateTransport", "make_transport",
+    "Transport", "ServerTransport", "UpdateTransport", "AdmmTransport",
+    "make_transport",
     "TRANSPORTS",
     "Wire", "DenseWire", "CompressedWire", "ThresholdWire", "TopKWire",
     "Int8Wire", "make_wire",

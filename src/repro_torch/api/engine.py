@@ -110,7 +110,7 @@ def fit(
       data: sharded data with a leading node axis (tensors or numpy arrays;
         moved to ``device``), or None for closure-based strategies.
       transport: ``sequential_server`` / ``stale_server`` / ``delay_line``
-        / ``allreduce``, or a ``Transport`` instance.
+        / ``allreduce`` / ``admm_consensus``, or a ``Transport`` instance.
       wire: ``"dense"``, ``"topk:<f>[+ef]"``, ``"thresh:<τ>[+ef]"``,
         ``"int8[+ef]"``, or a ``Wire``.
       executor: ``"local"`` (the only executor ported so far).
@@ -123,7 +123,8 @@ def fit(
       faults: optional ``FaultPlan`` — seeded dropout / straggler / quorum.
       device: ``"cuda"`` (default; raises without a GPU) or ``"cpu"``.
       sweep, tracer, trace: not ported yet; anything but None raises.
-      transport_options: ``staleness=...`` for delay_line.
+      transport_options: ``staleness=...`` for delay_line; ``rho=``,
+        ``g=``, ``g_lam=`` for admm_consensus.
     """
     if sweep is not None:
         raise _not_ported("fit(sweep=...)", "queue 1, item 8 (sweep executor)")

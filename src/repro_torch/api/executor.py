@@ -4,10 +4,10 @@ executor only).
 ``LocalExecutor`` stacks the K logical nodes on one device and walks the
 rounds in a Python loop (the reference's ``lax.scan``).  The primitive set
 the transports and strategies are written against (``aggregate``,
-``broadcast``, ``local_rows``, ``local_node``, ``from_owner``,
-``commit_owner``, ``metric_mean``, ``sum_bytes``) is the local identity:
-aggregation is the stacked ``server_allreduce`` and every cross-shard step
-is a no-op.  The reference's ``StatsDeferral`` defers cross-shard metric
+``broadcast``, ``local_rows``, ``local_node``, ``node_global_index``,
+``from_owner``, ``commit_owner``, ``metric_mean``, ``sum_bytes``) is the
+local identity: aggregation is the stacked ``server_allreduce`` and every
+cross-shard step is a no-op.  The reference's ``StatsDeferral`` defers cross-shard metric
 and byte collectives; locally there are none, so it has no counterpart.
 
 Not ported yet: the mesh, multipod, sweep and serve executors and their
@@ -40,6 +40,14 @@ def num_node_shards() -> int:
 def local_rows(x):
     """This shard's slice of a replicated node-axis array: all of it."""
     return x
+
+
+def node_global_index(k_local):
+    """Global index of shard-local node ``k_local``: the identity locally.
+    Server-family strategies that index replicated per-node structures (a
+    pooled θ slot block, per-node generators) use it, as the k-windows
+    strategy does."""
+    return k_local
 
 
 def local_node(k):

@@ -11,11 +11,14 @@ once and runnable under every transport:
   per-node messages + one aggregation + a global apply, for ``allreduce``
   / ``delay_line``.
 
-Ported: ``Strategy``, ``FunctionStrategy``, ``GradientDescent``.  The
-per-node gradient is ``torch.func.vmap`` over ``torch.func.grad`` (the
-reference's ``jax.vmap(jax.grad(loss))``).  ``LBFGS``, ``ProxStrategy``
-and ``OptimizerStrategy`` raise ``NotImplementedError`` naming the
-``ROADMAP.md`` item that ports them.
+* consensus family (``make_local_prox`` / ``dim``) — the per-node prox
+  of consensus ADMM, for ``admm_consensus``.
+
+Ported: ``Strategy``, ``FunctionStrategy``, ``GradientDescent``,
+``ProxStrategy``.  The per-node gradient is ``torch.func.vmap`` over
+``torch.func.grad`` (the reference's ``jax.vmap(jax.grad(loss))``).
+``LBFGS`` and ``OptimizerStrategy`` raise ``NotImplementedError`` naming
+the ``ROADMAP.md`` item that ports them.
 """
 
 from __future__ import annotations
@@ -78,6 +81,17 @@ class Strategy:
         raise NotImplementedError(
             f"{type(self).__name__} does not support update transports"
         )
+
+    # -- consensus family ----------------------------------------------------
+    def make_local_prox(self, data) -> Callable:
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support the admm_consensus "
+            "transport (implement make_local_prox)"
+        )
+
+    def dim(self, data) -> int:
+        """Consensus-variable dimension for admm_consensus."""
+        raise NotImplementedError
 
     # -- diagnostics ---------------------------------------------------------
     def round_metric(self, theta: PyTree, state, data):
@@ -186,6 +200,36 @@ class GradientDescent(Strategy):
         return X @ theta
 
 
+class ProxStrategy(Strategy):
+    """Consensus-family strategy: per-node proximity operators for the
+    ``admm_consensus`` transport (the paper's Douglas-Rachford three-stage
+    algorithm).  ``make_prox(data)`` builds the local prox
+    ``(v, u, rho) -> (K, n)`` over all nodes — closed form or inner
+    gradient loop::
+
+        res = api.fit(api.ProxStrategy(lasso_prox_builder), (Xs, ys),
+                      transport="admm_consensus", steps=50,
+                      g="l1", g_lam=0.1, device="cuda")
+
+    Consensus runs wrap ``core.admm``'s own loop, so they are one-shot
+    (no warm start / resume), need a lossless wire, and run on the local
+    executor only.
+    """
+
+    def __init__(self, make_prox: Callable, *, dim: int | None = None):
+        self._make_prox = make_prox
+        self._dim = dim
+
+    def make_local_prox(self, data):
+        return self._make_prox(data)
+
+    def dim(self, data) -> int:
+        if self._dim is not None:
+            return self._dim
+        Xs = data[0] if isinstance(data, tuple) else data
+        return Xs.shape[-1]
+
+
 def _not_ported(name: str, item: str):
     class NotPorted:
         def __init__(self, *args, **kwargs):
@@ -198,9 +242,6 @@ def _not_ported(name: str, item: str):
 
 
 LBFGS = _not_ported("LBFGS", "queue 1, item 4 (api/strategy.py)")
-ProxStrategy = _not_ported(
-    "ProxStrategy", "queue 1, item 7 (core/admm.py with AdmmTransport)"
-)
 OptimizerStrategy = _not_ported(
     "OptimizerStrategy", "queue 1, item 9 (optim/optimizers.py, LM model path)"
 )

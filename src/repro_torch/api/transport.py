@@ -7,6 +7,8 @@
 * ``allreduce``         — the two-phase central-server Allreduce of §3.1.
 * ``delay_line``        — the aggregate is applied D rounds late; wraps
   ``core.staleness``.
+* ``admm_consensus``    — global-variable-consensus ADMM (three-stage
+  Douglas-Rachford, two Allreduces per iteration); wraps ``core.admm``.
 
 A transport builds the per-round step, calling back into the strategy for
 local computation, into the wire for encoding and byte metering, and into
@@ -15,8 +17,7 @@ nodes live.  Fault plans (``api.faults``) are host-side numpy draws, so a
 round's participation, straggler lag and quorum decision are Python values
 here; the reference's jit-argument masks select the same rows and the same
 rollback.  The reference's comm/compute overlap branch is mesh-only and is
-not ported; ``admm_consensus`` is not ported yet (``ROADMAP.md`` queue 1,
-item 7).
+not ported.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 from repro_torch.api import executor as _exec
 from repro_torch.api.faults import FaultCarry
 from repro_torch.api.strategy import Strategy
+from repro_torch.core.admm import consensus_admm
 from repro_torch.core.server import contact, init_server
 from repro_torch.core.staleness import delay_init, delay_push_pop, delay_push_read
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_stack
@@ -361,11 +363,91 @@ class UpdateTransport(Transport):
         )
 
 
-TRANSPORTS = ("sequential_server", "stale_server", "delay_line", "allreduce")
+class AdmmTransport(Transport):
+    """Global-variable-consensus ADMM: the strategy supplies the per-node
+    prox; every iteration costs two Allreduces of the consensus variable
+    (z-update mean + residual norms), which is what the ledger charges::
+
+        api.fit(api.ProxStrategy(lasso_prox_builder), (Xs, ys),
+                transport="admm_consensus", steps=50, g="l1", g_lam=0.1,
+                device="cuda")
+
+    Wraps ``core.admm.consensus_admm``'s own three-stage loop rather than
+    the executor step protocol, so runs are one-shot (no ``theta0=`` /
+    ``carry=``), need a lossless wire (compressing consensus pushes would
+    change the algorithm), and run on the local executor only.
+    """
+
+    name = "admm_consensus"
+
+    def __init__(self, *, rho: float = 1.0, g: str = "none", g_lam: float = 0.0):
+        self.rho = rho
+        self.g = g
+        self.g_lam = g_lam
+
+    def run(self, strategy, data, *, wire, schedule, steps, stream, theta0, carry,
+            executor, faults=None):
+        if faults is not None:
+            raise ValueError(
+                "admm_consensus wraps core.admm's own synchronous loop — "
+                "consensus ADMM has no masked-participation form here; "
+                "faults= applies to server/allreduce/delay_line transports"
+            )
+        if steps is None:
+            raise ValueError("transport 'admm_consensus' needs steps= (iterations)")
+        if theta0 is not None or carry is not None:
+            raise ValueError(
+                "admm_consensus runs are one-shot: warm-start (theta0=) and "
+                "resume (carry=) are not supported — rerun with more steps"
+            )
+        if not wire.lossless:
+            raise ValueError(
+                "admm_consensus needs a lossless wire (dense) — compressing "
+                "the consensus pushes would change the algorithm"
+            )
+        if not isinstance(executor, _exec.LocalExecutor):
+            raise ValueError(
+                "admm_consensus wraps core.admm's own inner loop — it runs "
+                f"on the local executor only, not {executor.name!r}"
+            )
+        local_prox = strategy.make_local_prox(data)
+        K = strategy.num_nodes(data)
+        dim = strategy.dim(data)
+        # zeros, as the reference's default, on the data's device
+        zeros = torch.zeros((K, dim), device=tree_leaves(data)[0].device)
+        res = consensus_admm(
+            local_prox, K, dim, rho=self.rho, g=self.g, g_lam=self.g_lam,
+            iters=steps, theta0=zeros,
+        )
+        theta = executor.finalize(strategy, res.z, res.state, data)
+        # two Allreduces of the (dim,) consensus variable per iteration
+        per_iter = 2 * K * wire.measure(res.z)
+        ups = np.full((steps,), per_iter, dtype=np.int64)
+        return RawRun(
+            theta=theta,
+            trajectory=res.history,
+            uplink=ups,
+            downlink=ups,
+            rounds_per_step=2,
+            event_kind="allreduce",
+            extras={"admm": res},
+            carry=res.state,
+        )
+
+
+TRANSPORTS = (
+    "sequential_server",
+    "stale_server",
+    "delay_line",
+    "allreduce",
+    "admm_consensus",
+)
 
 
 def make_transport(spec: str | Transport, **options) -> Transport:
-    """Resolve a transport spec; ``staleness=`` applies to delay_line."""
+    """Resolve a transport spec; ``options`` are transport-specific
+    (``staleness`` for delay_line; ``rho``/``g``/``g_lam`` for
+    admm_consensus)."""
     if isinstance(spec, Transport):
         if options:
             raise ValueError("transport options only apply to string specs")
@@ -383,10 +465,8 @@ def make_transport(spec: str | Transport, **options) -> Transport:
         _expect(options, ("staleness",))
         return UpdateTransport(staleness=options.get("staleness", 1))
     if spec == "admm_consensus":
-        raise NotImplementedError(
-            "transport 'admm_consensus' is not ported to repro_torch yet — "
-            "ROADMAP.md queue 1, item 7 (core/admm.py with AdmmTransport)"
-        )
+        _expect(options, ("rho", "g", "g_lam"))
+        return AdmmTransport(**options)
     raise ValueError(f"unknown transport {spec!r} — one of {TRANSPORTS}")
 
 

@@ -48,6 +48,9 @@ SIGNATURES = {
         "repro_decode_attention": (
             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
     },
+    "pdist_argmin": {
+        "repro_pdist_argmin": ([_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P], ctypes.c_int),
+    },
 }
 
 

@@ -137,3 +137,121 @@ def test_decode_attention_refuses_bad_operands(cuda):
         da_kernel.decode_attention(q, k.cpu(), k, vl)
     with pytest.raises(ValueError, match="valid_len"):
         da_kernel.decode_attention(q, k, k, vl.long())
+
+
+# (N, K, d): the JAX package's pdist test shapes, K = 1, the design limit
+# K 1024 × d 512, a dimension past one staged tile (d 130) and a chunk of
+# the KDD Cup 1999 shape
+PDIST_SHAPES = [
+    (500, 16, 8), (300, 7, 5), (260, 5, 3), (128, 32, 64), (1000, 3, 2), (65, 4, 4),
+    (777, 1, 9), (600, 1024, 512), (333, 40, 130), (8192, 1000, 42),
+]
+#: |kernel − plain| ≤ atol + rtol·|plain|: the JAX pdist test's jnp.allclose
+PDIST_ATOL = PDIST_RTOL = 1e-5
+
+
+def _pdist_gap_ok(X, C, metric, tol):
+    """Where the plain version's top-2 gap exceeds ``tol`` the indices must
+    agree; returns that mask (computed in chunks on the card)."""
+    from repro_torch.ml.clustering import pdist
+
+    m = {"l2": "l2sq"}.get(metric, metric)
+    ok = []
+    for s in range(0, X.shape[0], 1024):
+        D = pdist(X[s:s + 1024].float(), C.float(), m)
+        top = torch.topk(D, min(2, D.shape[1]), dim=1, largest=False).values
+        gap = top[:, 1] - top[:, 0] if D.shape[1] > 1 else torch.full_like(top[:, 0], 1e30)
+        ok.append(gap > tol[s:s + 1024])
+    return torch.cat(ok)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("metric", ["l2", "l1", "linf"])
+@pytest.mark.parametrize("shape", PDIST_SHAPES, ids=str)
+def test_pdist_argmin_kernel_vs_plain(cuda, shape, metric, dtype):
+    from repro_torch.kernels.pdist_argmin import kernel as pd_kernel
+    from repro_torch.kernels.pdist_argmin import ref as pd_ref
+
+    N, K, d = shape
+    g = torch.Generator(device=cuda).manual_seed(N + K + d)
+    X = torch.randn((N, d), generator=g, device=cuda).to(dtype)
+    C = torch.randn((K, d), generator=g, device=cuda).to(dtype)
+    before = kernels.LAUNCHES["pdist_argmin"]
+    idx, dist = pd_kernel.pdist_argmin(X, C, metric)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["pdist_argmin"] == before + 1
+    assert idx.dtype == torch.int32 and dist.dtype == torch.float32
+    ref_idx, ref_dist = [], []
+    for s in range(0, N, 1024):  # the plain version materialises (n, K, d)
+        i, dd = pd_ref.pdist_argmin_ref(X[s:s + 1024], C, metric)
+        ref_idx.append(i)
+        ref_dist.append(dd)
+    ref_idx, ref_dist = torch.cat(ref_idx), torch.cat(ref_dist)
+    tol = PDIST_ATOL + PDIST_RTOL * ref_dist.abs()
+    assert bool(((dist - ref_dist).abs() <= tol).all())
+    clear = _pdist_gap_ok(X, C, metric, tol)
+    assert bool((idx == ref_idx)[clear].all())
+    if metric == "linf":
+        # one rounding per term and an exact max: bitwise, ties included
+        assert torch.equal(idx, ref_idx) and torch.equal(dist, ref_dist)
+    elif dtype == torch.float32:
+        assert float(clear.float().mean()) > 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "l1", "linf"])
+def test_pdist_argmin_kernel_ties_take_the_first_index(cuda, metric):
+    from repro_torch.kernels.pdist_argmin import kernel as pd_kernel
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    X = torch.randn((1000, 20), generator=g, device=cuda)
+    C = torch.randn((40, 20), generator=g, device=cuda)
+    idx, dist = pd_kernel.pdist_argmin(X, C, metric)
+    # rows 40..79 repeat rows 0..39, and 80..119 once more, across tiles
+    idx3, dist3 = pd_kernel.pdist_argmin(X, torch.cat([C, C, C]), metric)
+    assert torch.equal(idx3, idx) and torch.equal(dist3, dist)
+
+
+@pytest.mark.cuda
+def test_pdist_argmin_refuses_bad_operands(cuda):
+    from repro_torch.kernels.pdist_argmin import kernel as pd_kernel
+    from repro_torch.kernels.pdist_argmin import ops as pd_ops
+
+    X = torch.zeros((10, 4), device=cuda)
+    C = torch.zeros((3, 4), device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        pd_kernel.pdist_argmin(X.double(), C.double())
+    with pytest.raises(ValueError, match="share a type"):
+        pd_kernel.pdist_argmin(X, C.bfloat16())
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pd_kernel.pdist_argmin(X, C.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        pd_kernel.pdist_argmin(X.t(), C)
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        pd_kernel.pdist_argmin(X, C[:, :3].contiguous())
+    with pytest.raises(ValueError, match="cosine"):
+        pd_kernel.pdist_argmin(X, C, "cosine")
+    Xt = torch.zeros((4, 10), device=cuda).t()  # (10, 4), not contiguous
+    idx, _ = pd_ops.pdist_argmin(Xt, C)  # the ops wrapper makes it contiguous
+    assert idx.shape == (10,)
+
+
+@pytest.mark.cuda
+def test_distributed_kmeans_on_card_launches_once_an_iteration(cuda):
+    """The §4.1 identity on the card and the kernel's launch count: one
+    per EM iteration and one for the final assignment."""
+    from repro_torch.ml import clustering
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    means = torch.randn((8, 6), generator=g, device=cuda) * 4.0
+    X = means[torch.randint(0, 8, (4 * 500,), generator=g, device=cuda)]
+    X = X + torch.randn(X.shape, generator=g, device=cuda)
+    C0 = X[torch.randperm(X.shape[0], generator=g, device=cuda)[:8]]
+    before = kernels.LAUNCHES["pdist_argmin"]
+    rd = clustering.distributed_kmeans(X.reshape(4, 500, 6), C0, num_clusters=8, iters=10)
+    assert kernels.LAUNCHES["pdist_argmin"] == before + 11
+    rc = clustering.kmeans(X, C0, num_clusters=8, metric="l2sq", iters=10)
+    assert torch.allclose(rd.centroids, rc.centroids, atol=1e-4)
+    assert float((rd.assignments == rc.assignments).float().mean()) > 0.999
+    assert float(rd.inertia) <= float(clustering.nearest(X, C0, "l2sq")[1].sum())

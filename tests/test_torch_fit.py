@@ -240,17 +240,21 @@ def test_default_device_needs_a_gpu():
         make_feature_shards(0, 2, 4, 3)
 
 
+# "admm" and "prox": the admm_consensus transport and ProxStrategy are
+# ported; what of their path is not yet is a tracer and a sweep over ρ
 @pytest.mark.parametrize("call", [
     lambda: tapi.fit(tapi.GradientDescent(t_lsq), None, executor="mesh", device="cpu"),
     lambda: tapi.fit(tapi.GradientDescent(t_lsq), None, sweep={"lr": [0.1]}, device="cpu"),
     lambda: tapi.fit(tapi.GradientDescent(t_lsq), None, tracer=object(), device="cpu"),
-    lambda: tapi.fit(tapi.GradientDescent(t_lsq), None, transport="admm_consensus",
-                     device="cpu"),
+    lambda: tapi.fit(tapi.ProxStrategy(lambda d: None, dim=3), None,
+                     transport="admm_consensus", steps=2, tracer=object(), device="cpu"),
     lambda: tapi.make_wire("dp:1.0,0.5"),
     lambda: tapi.make_wire("secagg"),
     lambda: tapi.make_wire("topk:0.1+ef>secagg"),
     lambda: tapi.LBFGS(t_lsq),
-    lambda: tapi.ProxStrategy(None),
+    lambda: tapi.fit(tapi.ProxStrategy(lambda d: None, dim=3), None,
+                     transport="admm_consensus", steps=2, sweep={"rho": [0.5, 1.0]},
+                     device="cpu"),
     lambda: tapi.OptimizerStrategy(None, None),
 ], ids=["mesh", "sweep", "tracer", "admm", "dp", "secagg", "chain", "lbfgs", "prox",
         "optimizer"])
