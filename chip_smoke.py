@@ -59,8 +59,42 @@
    k-windows through ``fit`` (ledger bytes checked), ``consensus_kmeans``
    (launches = iterations × sites × local EM steps) and ``kmeans_pp_init``
    at K = 1000 on one site.
-8. Prints one JSON line of per-kernel numbers, the card's name and power
-   limit, and last ``{"ok": true, "device": {...}}``.
+8. Flash-attention kernel phase: the kernel against its plain version
+   (``attention_ref``) in f32 and bf16 at the JAX package's five test
+   shapes (padding, window, bidirectional), a query offset with T < S, a
+   window that leaves rows with no key (they must be 0), tinyllama-1.1b's
+   heads at B 8 × T 2048 and qwen2-1.5b's at B 2 × T 4096, causal; limits
+   2e-5 (f32) and 3e-2 (bf16), the JAX package's own; two bq/bk choices
+   bitwise equal.  Times at the tinyllama shape in bf16 beside the bound
+   (causal operations at the bf16 tensor-core rate, or the bytes of q, k,
+   v and the output), the plain version and
+   ``F.scaled_dot_product_attention(..., is_causal=True, enable_gqa=True)``.
+9. Attention path: ``attn_apply(..., use_kernel=True)`` for each of
+   tinyllama-1.1b's 22 layers at full width (parameters from a seeded
+   ``torch.Generator`` on the card, bf16 compute) on a B 8 × T 2048 batch
+   of embedded, RMS-normed tokens from a numpy seed: exactly 22 flash
+   launches, each output row within 3e-2 and within 0.8 % in norm of the
+   plain ``_sdpa`` and of ``_sdpa_q_chunked`` (``attn_q_chunk=512``); the
+   output's rms; wall ms, device ms and the memory each call adds, for the
+   three paths.  Then the 22 layers again with f32 compute, within 2e-5,
+   and a planted control (the kernel with ``q_offset=-1``: each query
+   loses its own key) that both checks must catch in ≥ 99 % of the rows
+   of the prompt's second half, at the first and last layer.
+10. Top-k phase: ``count_ge`` and ``apply_threshold`` against their plain
+   versions, exactly (counts equal, masks bitwise), at the sizes of
+   tests/test_kernels_topk.py, 2^24 and tinyllama-1.1b's largest leaf (the
+   stacked (22, 2048, 5632) FFN projection, 253,755,392 f32), f32 and
+   bf16, unsorted thresholds with 0 among them, the mask also on a view
+   one element off 16 bytes; ``topk_sparsify`` on that leaf at k = 1 % (3
+   count and 1 mask launches, at least k survivors, every kept magnitude
+   at least every dropped one); times beside the byte bounds, the mask
+   beside ``F.hardshrink(x, nextafter(t, 0))`` (bitwise the same function
+   on f32), the whole function (graph-captured, so no host round trip)
+   beside ``torch.topk(x.abs().flatten(), k)``.
+11. Prints one JSON line of per-kernel numbers (nine kernels), the card's
+   name and power limit, and last ``{"ok": true, "device": {...}}``.
+
+No earlier phase is cut to make room for 8–10.
 
 Imports nothing of JAX.  Exits non-zero, with no result line, when there
 is no CUDA device or ``src/repro_torch`` is not beside it.  Any failed
@@ -990,6 +1024,380 @@ def family_phase(torch):
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------------
+# Cache-free attention and the approximate top-k: flash attention, count, mask
+# ----------------------------------------------------------------------------
+
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense (NVIDIA data sheet)
+#: (B, T, S, Hq, Hkv, D, causal, window, q_offset): the five shapes of
+#: tests/test_kernels_flash.py (padding, window, bidirectional among them),
+#: a query offset with T < S, a window that leaves rows with no key,
+#: tinyllama-1.1b's heads at B 8 × T 2048 and qwen2-1.5b's at B 2 × T 4096
+FLASH_SHAPES = [
+    (2, 64, 64, 4, 2, 32, True, 0, 0), (1, 128, 128, 8, 8, 64, True, 0, 0),
+    (2, 96, 96, 4, 1, 16, True, 0, 0), (2, 64, 64, 8, 2, 32, True, 24, 0),
+    (1, 48, 48, 4, 4, 64, False, 0, 0), (2, 40, 100, 4, 2, 32, True, 0, 60),
+    (2, 64, 64, 4, 2, 32, True, 8, 40),
+    (8, 2048, 2048, 32, 4, 64, True, 0, 0), (2, 4096, 4096, 12, 2, 128, True, 0, 0),
+]
+FLASH_MAIN = (8, 2048, 2048, 32, 4, 64, True, 0, 0)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # tests/test_kernels_flash.py:41,54
+ATTN_B, ATTN_T = 8, 2048  # the attention path's prompt batch
+ATTN_TOL = 3e-2  # max |Δ| of attn_apply outputs in bf16, the JAX package's bf16 limit
+#: max over rows of ||Δ|| / ||y_plain|| in bf16: twice the 0.41 % read on an
+#: H100 (NVIDIA H100 80GB HBM3, 700 W); the planted control's rows read >= 1.07 %
+ATTN_REL_TOL = 8e-3
+ATTN_TOL_F32 = 2e-5  # max |Δ| with f32 compute, the JAX package's f32 limit
+
+
+def flash_bound(shape, itemsize: int, rate: float):
+    """(ms, by, ops, bytes) for causal or dense attention at ``shape``: 4 D
+    operations per visible (query, key) pair and head, or q, k, v and the
+    output once, whichever takes longer."""
+    B, T, S, Hq, Hkv, D, causal, _, _ = shape
+    pairs = T * (T + 1) // 2 if causal and T == S else T * S
+    ops = 4 * B * Hq * D * pairs
+    nbytes = (2 * B * T * Hq * D + 2 * B * S * Hkv * D) * itemsize
+    t_ops, t_bytes = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations", ops, nbytes) if t_ops >= t_bytes else (
+        t_bytes, "bytes", ops, nbytes)
+
+
+def flash_kernel_phase(torch):
+    """The flash kernel against its plain version (``attention_ref``) at
+    every shape in f32 and bf16, bq/bk independence, then times at the
+    tinyllama shape in bf16."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fak, ops as fao, ref as far
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    err, checked = 0.0, 0
+    for shape in FLASH_SHAPES:
+        B, T, S, Hq, Hkv, D, causal, window, q_offset = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((B, T, Hq, D), generator=gen, device="cuda").to(dtype)
+            k = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(dtype)
+            v = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(dtype)
+            out = fak.flash_attention(q, k, v, causal=causal, window=window,
+                                      q_offset=q_offset)
+            plain = far.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                      causal=causal, window=window,
+                                      q_offset=q_offset).transpose(1, 2)
+            torch.cuda.synchronize()
+            check(out.shape == q.shape and out.dtype == dtype, f"flash out at {shape}")
+            check(bool(torch.isfinite(out).all()), f"flash non-finite at {shape} {dtype}")
+            e = float((out.float() - plain.float()).abs().max())
+            tol = FLASH_TOL[str(dtype).split(".")[1]]
+            check(e <= tol, f"flash attention {shape} {dtype}: |kernel − plain| {e} > {tol}")
+            dead = (plain.float() == 0).all(dim=-1)
+            check(bool((out[dead] == 0).all()), f"flash: a row with no key is not 0 at {shape}")
+            err = max(err, e)
+            checked += 1
+            print(f"flash check {shape} {str(dtype)[6:]}: max |kernel − plain| {e:.3g}, "
+                  f"{int(dead.sum())} (row, head) pairs see no key", flush=True)
+            del q, k, v, out, plain
+    torch.cuda.empty_cache()
+    print(f"flash phase: {checked} comparisons within 2e-5 (f32) / 3e-2 (bf16)", flush=True)
+
+    # time at the tinyllama shape, bf16, causal; bq/bk change nothing
+    B, T, S, Hq, Hkv, D = FLASH_MAIN[:6]
+    q = torch.randn((B, T, Hq, D), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").bfloat16()
+    o1 = fao.flash_attention(q, k, v, bq=128, bk=128)
+    o2 = fao.flash_attention(q, k, v, bq=64, bk=32)
+    check(torch.equal(o1, o2), "flash: the result depends on bq/bk")
+    print("flash bq/bk: (128, 128) and (64, 32) bitwise equal at the tinyllama shape",
+          flush=True)
+    b_ms, b_by, ops, nbytes = flash_bound(FLASH_MAIN, 2, BF16_OPS_PER_S)
+    f32_ms = flash_bound(FLASH_MAIN, 4, F32_OPS_PER_S)[0]
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    t = {
+        "ms": graph_ms(torch, lambda: fak.flash_attention(q, k, v), inner=3, reps=5),
+        "plain_ms": graph_ms(torch, lambda: far.attention_ref(qt, kt, vt), inner=1, reps=3),
+        "library_ms": graph_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), inner=10, reps=10),
+        "bound_ms": b_ms, "bound_by": b_by, "ops": ops, "bytes": nbytes,
+        "f32_bound_ms": f32_ms, "shape": list(FLASH_MAIN), "dtype": "bfloat16",
+    }
+    t["tflops"] = ops / (t["ms"] * 1e-3) / 1e12
+    print(f"time flash_attention main {FLASH_MAIN[:6]} bf16 causal: {t}", flush=True)
+    del q, k, v, qt, kt, vt, o1, o2
+    torch.cuda.empty_cache()
+    return err, t
+
+
+def row_errors(torch, y, ref):
+    """Per (b, t) row of two (B, T, d) outputs: max |y − ref| and
+    ||y − ref|| / ||ref||, in f32."""
+    d = y.float() - ref.float()
+    return d.abs().amax(dim=-1), d.norm(dim=-1) / ref.float().norm(dim=-1).clamp_min(1e-30)
+
+
+def attention_path_phase(torch):
+    """The main path of this slice: ``attn_apply(use_kernel=True)`` for each
+    of tinyllama-1.1b's 22 layers at full width on a B 8 × T 2048 batch of
+    embedded, RMS-normed prompt tokens; each output held against the plain
+    ``_sdpa`` and ``_sdpa_q_chunked`` (attn_q_chunk 512).
+
+    In bf16 each output row is held to max |Δ| <= 3e-2 and ||Δ|| / ||y||
+    <= 8e-3: late rows are small (rms ≈ 0.06) and a kernel that lost a key
+    there moves them by ≈ 1/sqrt(keys seen) relative, 1–3 %, far under 3e-2
+    absolute.  The path then runs again with f32 compute, held at 2e-5.  A
+    planted control (the kernel with ``q_offset=-1``: every query loses the
+    key at its own position) must fail both checks in nearly every row of
+    the prompt's second half.  Returns the kernel's launches on the bf16
+    run and the FFN leaf the top-k phase sparsifies."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import attention as attn, layers, transformer as tf
+    from repro_torch.utils.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(SERVE_ARCH)
+    L = cfg.num_layers
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    W = tf.compute_params(params, cfg)
+    leaf = params["seg0"]["l0"]["ffn"]["w_gate"]["kernel"]  # (22, 2048, 5632) f32
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(ATTN_B, ATTN_T))
+    ids = torch.from_numpy(tokens).cuda()
+    h = layers.embed(W["embed"], ids, compute_dtype=torch.bfloat16)
+    pos = torch.arange(ATTN_T, device="cuda").expand(ATTN_B, ATTN_T)
+    chunked = cfg.replace(attn_q_chunk=512)
+    paths = {
+        "kernel": lambda p, x: attn.attn_apply(p, cfg, x, positions=pos, use_kernel=True)[0],
+        "plain _sdpa": lambda p, x: attn.attn_apply(p, cfg, x, positions=pos)[0],
+        "_sdpa_q_chunked": lambda p, x: attn.attn_apply(p, chunked, x, positions=pos)[0],
+    }
+
+    def layer_input(tree, h_, li):
+        lp = tree_map(lambda a: a[li], tree["seg0"])["l0"]
+        return lp["mixer"], layers.rmsnorm(lp["mixer_norm"], h_, eps=cfg.rms_eps)
+
+    stats = {n: {"wall_ms": 0.0, "device_ms": 0.0, "peak_extra_gib": 0.0} for n in paths}
+    err = {n: {"max_abs": 0.0, "max_row_rel": 0.0} for n in paths if n != "kernel"}
+    y_rms, y_max = [], 0.0
+    for fn in paths.values():  # first calls (cuBLAS handles, the kernel's attribute)
+        fn(*layer_input(W, h, 0))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for li in range(L):
+        p, x = layer_input(W, h, li)
+        ys = {}
+        for name, fn in paths.items():
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            ys[name] = fn(p, x)
+            e1.record()
+            torch.cuda.synchronize()
+            s = stats[name]
+            s["wall_ms"] += (time.perf_counter() - t0) * 1e3
+            s["device_ms"] += e0.elapsed_time(e1)
+            s["peak_extra_gib"] = max(s["peak_extra_gib"],
+                                      (torch.cuda.max_memory_allocated() - base) / 2**30)
+        y = ys["kernel"]
+        check(y.shape == (ATTN_B, ATTN_T, cfg.d_model) and y.dtype == torch.bfloat16
+              and bool(torch.isfinite(y).all()), f"layer {li}: kernel output")
+        y_rms.append(float(y.float().pow(2).mean().sqrt()))
+        y_max = max(y_max, float(y.float().abs().max()))
+        for name, e in err.items():
+            a, r = row_errors(torch, y, ys[name])
+            e["max_abs"] = max(e["max_abs"], float(a.max()))
+            e["max_row_rel"] = max(e["max_row_rel"], float(r.max()))
+        del ys, y
+    launches = dict(kernels.LAUNCHES)
+    want = {n: (L if n == "flash_attention" else 0) for n in kernels.KERNEL_NAMES}
+    check(launches == want, f"attention path launches {launches}, expected {want}")
+    logits_gib = ATTN_B * cfg.num_heads * ATTN_T * ATTN_T * 4 / 2**30
+    print(f"attention path: tinyllama-1.1b, {L} layers × attn_apply on B {ATTN_B} × T "
+          f"{ATTN_T} (bf16, full width): {launches['flash_attention']} flash launches; "
+          f"kernel output rms {min(y_rms):.4g}–{max(y_rms):.4g} a layer, max |y| {y_max:.4g}; "
+          f"kernel against the plain paths: {json.dumps(err)} (limits: max |Δ| {ATTN_TOL}, "
+          f"max row ||Δ||/||y|| {ATTN_REL_TOL}); f32 logits of the plain path "
+          f"{logits_gib:.3f} GiB", flush=True)
+    print(f"attention path (sum over {L} layers; peak = most memory one call added):",
+          json.dumps(stats), flush=True)
+
+    # the same path with f32 compute (TF32 off), at the JAX package's f32 limit
+    h32 = layers.embed(params["embed"], ids, compute_dtype=torch.float32)
+    err32 = {n: 0.0 for n in err}
+    for li in range(L):
+        p, x = layer_input(params, h32, li)
+        ys = {name: fn(p, x) for name, fn in paths.items()}
+        for name in err32:
+            err32[name] = max(err32[name], float(row_errors(torch, ys["kernel"], ys[name])[0].max()))
+        del ys
+    print(f"attention path, f32 compute, {L} layers: max |kernel − plain| {json.dumps(err32)} "
+          f"(limit {ATTN_TOL_F32})", flush=True)
+
+    # planted control: each query loses its own key; the checks must see it
+    class DropOwnKey:
+        @staticmethod
+        def flash_attention(q, k, v, **kw):
+            return fa_ops.flash_attention(q, k, v, q_offset=-1, **kw)
+
+    late = slice(ATTN_T // 2, None)
+    control = {}
+    attn.fa_ops = DropOwnKey
+    try:
+        for tree, h_, tag in ((W, h, "bf16"), (params, h32, "f32")):
+            caught = []
+            for li in (0, L - 1):
+                p, x = layer_input(tree, h_, li)
+                a, r = row_errors(torch, paths["kernel"](p, x), paths["plain _sdpa"](p, x))
+                a, r = a[:, late], r[:, late]
+                hit = (a > ATTN_TOL_F32) if tag == "f32" else (r > ATTN_REL_TOL) | (a > ATTN_TOL)
+                caught.append(float(hit.float().mean()))
+                control[f"{tag} layer {li}"] = {
+                    "caught_share": caught[-1], "min_row_rel": float(r.min()),
+                    "median_row_rel": float(r.median()), "min_abs": float(a.min())}
+    finally:
+        attn.fa_ops = fa_ops
+    print(f"attention path, planted control (q_offset=-1: each query loses its own key), "
+          f"rows t >= {ATTN_T // 2}: {json.dumps(control)}", flush=True)
+
+    for name, e in err.items():
+        check(e["max_abs"] <= ATTN_TOL, f"|kernel − {name}| {e['max_abs']} > {ATTN_TOL}")
+        check(e["max_row_rel"] <= ATTN_REL_TOL,
+              f"row ||kernel − {name}|| / ||y|| {e['max_row_rel']} > {ATTN_REL_TOL}")
+        check(err32[name] <= ATTN_TOL_F32, f"f32 |kernel − {name}| {err32[name]} > {ATTN_TOL_F32}")
+    for key, c in control.items():
+        check(c["caught_share"] >= 0.99, f"the planted control passed the check ({key}): {c}")
+    check(stats["plain _sdpa"]["peak_extra_gib"] >= logits_gib,
+          f"the plain path did not hold its {logits_gib:.2f} GiB of logits")
+    check(stats["kernel"]["peak_extra_gib"] < logits_gib / 4,
+          f"the kernel path holds {stats['kernel']['peak_extra_gib']:.3f} GiB")
+    del W, params, h, h32
+    torch.cuda.empty_cache()
+    err["f32_max_abs"] = err32
+    return launches["flash_attention"], err, stats, leaf, control
+
+
+#: sizes of tests/test_kernels_topk.py:10, 2^24, and the largest leaf
+TOPK_SIZES = [(4096,), (128, 300), (10000,), (8192,), (513,), (1 << 24,)]
+TOPK_F_LEAF = 0.01
+
+
+def topk_phase(torch, leaf):
+    """``count_ge`` and ``apply_threshold`` against their plain versions,
+    exactly, at the JAX test sizes, 2^24 and tinyllama-1.1b's largest leaf,
+    f32 and bf16, unsorted thresholds with 0 among them; then
+    ``topk_sparsify`` on the leaf at k = 1 %, and times."""
+    from repro_torch import kernels
+    from repro_torch.kernels.topk_compress import kernel as tkk, ops as tko, ref as tkr
+
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    err = {"topk_count": 0, "topk_mask": 0.0}
+    for shape in TOPK_SIZES + ["leaf"]:
+        for dtype in (torch.float32, torch.bfloat16):
+            if shape == "leaf":
+                x = leaf.to(dtype)
+            else:
+                x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            top = float(x.abs().max())
+            t = torch.rand((tkr.NCAND,), generator=gen, device="cuda") * top
+            t[3], t[50] = 0.0, float(x.reshape(-1)[7].abs())
+            t = t[torch.randperm(tkr.NCAND, generator=gen, device="cuda")].contiguous()
+            counts = tkk.count_ge(x, t)
+            plain = tkr.count_ge_ref(x, t)
+            torch.cuda.synchronize()
+            err["topk_count"] = max(err["topk_count"], int((counts - plain).abs().max()))
+            check(torch.equal(counts, plain), f"topk count differs at {shape} {dtype}")
+            check(int(counts[t == 0].min()) == x.numel(), f"t = 0 count at {shape}")
+            bits = torch.int32 if dtype == torch.float32 else torch.int16
+            # four thresholds, and the first again on a view that is not on 16 bytes
+            for j, xj in ((0, x), (3, x), (50, x), (int(t.argmax()), x),
+                          (0, x.reshape(-1)[1:])):
+                o = tkk.apply_threshold(xj, t[j:j + 1].clone())
+                o_r = tkr.apply_threshold_ref(xj, t[j:j + 1])
+                torch.cuda.synchronize()
+                err["topk_mask"] = max(err["topk_mask"], float((o.float() - o_r.float()).abs().max()))
+                check(torch.equal(o.view(bits), o_r.view(bits)),
+                      f"topk mask differs at {shape} {dtype}, t = {float(t[j])}")
+            del o, o_r
+            print(f"topk check {shape} {str(dtype)[6:]} ({x.numel()} elements): counts "
+                  f"equal (largest {int(counts.max())}), 5 masks bitwise (one of them at an "
+                  f"offset of one element)", flush=True)
+            del x
+    torch.cuda.empty_cache()
+
+    # the function on the leaf, f32, k = 1 %
+    x = leaf
+    n = x.numel()
+    k = int(round(TOPK_F_LEAF * n))
+    kernels.reset_launches()
+    out = tko.topk_sparsify(x, k)
+    torch.cuda.synchronize()
+    launches = {"topk_count": kernels.LAUNCHES["topk_count"],
+                "topk_mask": kernels.LAUNCHES["topk_mask"]}
+    check(launches == {"topk_count": 3, "topk_mask": 1}, f"topk_sparsify launches {launches}")
+    check(sum(kernels.LAUNCHES.values()) == 4, f"topk_sparsify launches {kernels.LAUNCHES}")
+    kept = out != 0
+    survivors = int(kept.sum())
+    kept_min = float(x[kept].abs().min())
+    dropped_max = float(x[~kept].abs().max())
+    check(survivors >= k, f"topk_sparsify kept {survivors} < k = {k}")
+    check(kept_min >= dropped_max, f"kept |x| {kept_min} below dropped {dropped_max}")
+    check(torch.equal(out[kept], x[kept]), "topk_sparsify changed a kept value")
+    exact_t = float(torch.topk(x.abs().flatten(), k).values[-1])
+    print(f"topk_sparsify on the {tuple(x.shape)} FFN leaf ({n} f32), k = {k}: "
+          f"{survivors} kept ({survivors - k} above k), kept |x| ≥ {kept_min:.8g} ≥ dropped "
+          f"{dropped_max:.8g}; exact k-th |x| {exact_t:.8g}; launches {launches}", flush=True)
+    del out, kept
+
+    lo = torch.full((1,), exact_t, device="cuda")
+    # one library call with the mask's function on f32: |x| > nextafter(t, 0)
+    # is |x| >= t, and hardshrink writes +0.0 elsewhere (NaN aside; x has none)
+    lam = float(torch.nextafter(lo, torch.zeros_like(lo)))
+    check(torch.equal(tkk.apply_threshold(x, lo).view(torch.int32),
+                      F.hardshrink(x, lam).view(torch.int32)),
+          "hardshrink(x, nextafter(t, 0)) differs from the mask on the leaf")
+    cand = torch.linspace(0.0, float(x.abs().max()), tkr.NCAND, device="cuda")
+    cnt_bytes = 4 * n + tkr.NCAND * (4 + 8)
+    mask_bytes = 8 * n + 4
+    timings = {
+        "topk_count": {
+            "ms": graph_ms(torch, lambda: tkk.count_ge(x, cand), inner=3, reps=5),
+            "plain_ms": graph_ms(torch, lambda: tkr.count_ge_ref(x, cand), inner=1, reps=3),
+            "library_ms": None,
+            "bound_ms": cnt_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": cnt_bytes, "compares": tkr.NCAND * n,
+            "compare_ms_at_f32_rate": tkr.NCAND * n / F32_OPS_PER_S * 1e3,
+        },
+        "topk_mask": {
+            "ms": graph_ms(torch, lambda: tkk.apply_threshold(x, lo), inner=5, reps=5),
+            "plain_ms": graph_ms(torch, lambda: tkr.apply_threshold_ref(x, lo), inner=1, reps=5),
+            "library_ms": graph_ms(torch, lambda: F.hardshrink(x, lam), inner=5, reps=5),
+            "library": "F.hardshrink(x, nextafter(t, 0)), bitwise equal",
+            "bound_ms": mask_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": mask_bytes,
+        },
+    }
+    whole = {
+        "topk_sparsify_ms": graph_ms(torch, lambda: tko.topk_sparsify(x, k), inner=1, reps=5),
+        "torch_topk_ms": eager_ms(torch, lambda: torch.topk(x.abs().flatten(), k),
+                                  inner=1, reps=3),
+        "bound_ms": (3 * cnt_bytes + mask_bytes) / HBM_BYTES_PER_S * 1e3,
+        "n": n, "k": k,
+    }
+    for name, tm in timings.items():
+        print(f"time {name} leaf {tuple(x.shape)} f32: {tm}", flush=True)
+    print(f"time topk_sparsify (3 counts + 1 mask, graph-captured: no host round trip) "
+          f"against torch.topk(x.abs().flatten(), k): {whole}", flush=True)
+    torch.cuda.empty_cache()
+    return launches, timings, whole, err
+
+
 REPLACES = {
     "topk_encode": "src/repro/kernels/topk_compress/kernel.py:73",
     "topk_select": "src/repro/kernels/topk_compress/kernel.py:106",
@@ -997,10 +1405,16 @@ REPLACES = {
     "int8_quant": "src/repro/kernels/int8_quant/kernel.py:53",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:31",
     "pdist_argmin": "src/repro/kernels/pdist_argmin/kernel.py:20",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:28",
+    "topk_count": "src/repro/kernels/topk_compress/kernel.py:35",
+    "topk_mask": "src/repro/kernels/topk_compress/kernel.py:56",
 }
 SOURCES = {
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
     "pdist_argmin": "src/repro_torch/csrc/pdist_argmin.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "topk_count": "src/repro_torch/csrc/topk_sparsify.cu",
+    "topk_mask": "src/repro_torch/csrc/topk_sparsify.cu",
 }
 
 
@@ -1046,6 +1460,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     family_phase(torch)
     print("k-means iteration:", json.dumps(kmeans_stats), flush=True)
+    err["flash_attention"], timings[("flash_attention", "main")] = flash_kernel_phase(torch)
+    launches["flash_attention"], attn_err, attn_stats, leaf, attn_control = \
+        attention_path_phase(torch)
+    tk_launches, tk_timings, tk_whole, tk_err = topk_phase(torch, leaf)
+    del leaf
+    torch.cuda.empty_cache()
+    launches.update(tk_launches)
+    err.update(tk_err)
+    for name, t in tk_timings.items():
+        timings[(name, "main")] = t
+    print("attention path:", json.dumps({"errors": attn_err, **attn_stats,
+                                         "planted_control": attn_control}), flush=True)
+    print("topk_sparsify:", json.dumps(tk_whole), flush=True)
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was never launched on the main path")
 

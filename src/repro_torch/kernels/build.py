@@ -51,6 +51,14 @@ SIGNATURES = {
     "pdist_argmin": {
         "repro_pdist_argmin": ([_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P], ctypes.c_int),
     },
+    "flash_attention": {
+        "repro_flash_attention": (
+            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+    },
+    "topk_sparsify": {
+        "repro_count_ge": ([_P, _LL, _P, _P, _I, _P], ctypes.c_int),
+        "repro_apply_threshold": ([_P, _LL, _P, _P, _I, _P], ctypes.c_int),
+    },
 }
 
 

@@ -1,13 +1,15 @@
 """Grouped-query attention with RoPE and KV caches (port of
 ``repro.models.attention``).
 
-Train and prefill attention (``cache is None``, and the dense ``KVCache``
-branch) is the plain ``_sdpa`` with f32 logits, as the reference leaves it
-to XLA.  The single-token decode path routes through the decode-attention
-CUDA kernel (``decode_attn="cuda"``) or its plain PyTorch version
-(``"plain"``); ``decode_attn="off"`` keeps the ``_sdpa`` math on the dense
-cache.  The flash kernel (``use_kernel=True`` on the ``cache is None``
-branch), query-chunked attention and M-RoPE are not ported yet and raise.
+Train and prefill attention (``cache is None``) is the plain ``_sdpa``
+with f32 logits, as the reference leaves it to XLA; with
+``cfg.attn_q_chunk`` it is ``_sdpa_q_chunked``, and with
+``use_kernel=True`` and T >= 128 the flash-attention kernel
+(``kernels.flash_attention``: the CUDA kernel on a CUDA tensor, its plain
+version on the CPU).  The single-token decode path routes through the
+decode-attention CUDA kernel (``decode_attn="cuda"``) or its plain PyTorch
+version (``"plain"``); ``decode_attn="off"`` keeps the ``_sdpa`` math on
+the dense cache.  M-RoPE is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention import ref as da_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.cache import KVCache, PagedKVCache, paged_append, paged_view
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, dense, dense_init
@@ -48,6 +51,20 @@ def _sdpa(q, k, v, mask, *, scale):
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgts,bshd->bthgd", probs.to(v.dtype).float(), v.float())
     return out.reshape(B, T, H, D).to(q.dtype)
+
+
+def _sdpa_q_chunked(q, k, v, *, scale, q_chunk: int, window: int = 0):
+    """Causal attention over query chunks, one at a time — the plain path's
+    analogue of flash attention's memory behaviour: only (B, H, q_chunk, S)
+    logits are live at once.  q: (B, T, H, D); T must be a multiple of
+    q_chunk."""
+    T = q.shape[1]
+    outs = []
+    for i in range(T // q_chunk):
+        mask = causal_mask(q_chunk, T, offset=i * q_chunk, window=window,
+                           device=q.device)
+        outs.append(_sdpa(q[:, i * q_chunk:(i + 1) * q_chunk], k, v, mask, scale=scale))
+    return torch.cat(outs, dim=1)
 
 
 def causal_mask(T: int, S: int, *, offset: int = 0, window: int = 0,
@@ -155,16 +172,16 @@ def attn_apply(
 
     if cache is None:
         if use_kernel and T >= 128:
-            raise NotImplementedError(
-                "the flash-attention kernel is not ported yet: ROADMAP.md "
-                "queue 2, item 2")
-        qc = cfg.attn_q_chunk
-        if qc and T > qc and T % qc == 0:
-            raise NotImplementedError(
-                "query-chunked attention (_sdpa_q_chunked) is not ported yet: "
-                "ROADMAP.md queue 1, item 9")
-        mask = causal_mask(T, T, window=cfg.sliding_window, device=x.device)
-        out = _sdpa(q, k, v, mask, scale=scale)
+            out = fa_ops.flash_attention(
+                q, k, v, causal=True, window=cfg.sliding_window)
+        else:
+            qc = 0 if cfg.unroll_time_scans else cfg.attn_q_chunk
+            if qc and T > qc and T % qc == 0:
+                out = _sdpa_q_chunked(
+                    q, k, v, scale=scale, q_chunk=qc, window=cfg.sliding_window)
+            else:
+                mask = causal_mask(T, T, window=cfg.sliding_window, device=x.device)
+                out = _sdpa(q, k, v, mask, scale=scale)
         new_cache = None
     elif isinstance(cache, PagedKVCache):
         if T != 1:

@@ -111,7 +111,8 @@ class ModelConfig:
     attn_q_chunk: int = 0
 
     # cost-probe controls of the reference (telemetry.costprobe); kept so a
-    # config carries across, not read by the port
+    # config carries across.  The port reads only unroll_time_scans, which
+    # turns attn_q_chunk off as there
     scan_layers: bool = True
     segment_repeats: tuple = ()
     unroll_time_scans: bool = False

@@ -255,3 +255,201 @@ def test_distributed_kmeans_on_card_launches_once_an_iteration(cuda):
     assert torch.allclose(rd.centroids, rc.centroids, atol=1e-4)
     assert float((rd.assignments == rc.assignments).float().mean()) > 0.999
     assert float(rd.inertia) <= float(clustering.nearest(X, C0, "l2sq")[1].sum())
+
+
+# (B, T, S, Hq, Hkv, D, causal, window, q_offset): the five shapes of
+# tests/test_kernels_flash.py, a query offset with T < S, a window with
+# fully masked rows, D 8, tinyllama-1.1b's heads (G 8, D 64) and
+# qwen2-1.5b's (G 6, D 128) at a few tiles, a ragged T and S
+FLASH_SHAPES = [
+    (2, 64, 64, 4, 2, 32, True, 0, 0), (1, 128, 128, 8, 8, 64, True, 0, 0),
+    (2, 96, 96, 4, 1, 16, True, 0, 0), (2, 64, 64, 8, 2, 32, True, 24, 0),
+    (1, 48, 48, 4, 4, 64, False, 0, 0), (2, 40, 100, 4, 2, 32, True, 0, 60),
+    (2, 64, 64, 4, 2, 32, True, 8, 40), (1, 70, 70, 2, 1, 8, True, 0, 0),
+    (1, 512, 512, 32, 4, 64, True, 0, 0), (1, 300, 300, 12, 2, 128, True, 0, 0),
+    (2, 200, 131, 6, 3, 16, False, 50, 0),
+]
+#: |kernel − plain| limits: the JAX package's flash-test tolerances
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+def _flash_inputs(device, shape, dtype):
+    B, T, S, Hq, Hkv, D = shape[:6]
+    g = torch.Generator(device=device).manual_seed(sum(shape[:6]))
+    q = torch.randn((B, T, Hq, D), generator=g, device=device).to(dtype)
+    k = torch.randn((B, S, Hkv, D), generator=g, device=device).to(dtype)
+    v = torch.randn((B, S, Hkv, D), generator=g, device=device).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
+def test_flash_attention_kernel_vs_plain(cuda, shape, dtype):
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    causal, window, q_offset = shape[6:]
+    q, k, v = _flash_inputs(cuda, shape, dtype)
+    before = kernels.LAUNCHES["flash_attention"]
+    out = fa_kernel.flash_attention(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    plain = fa_ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                 causal=causal, window=window,
+                                 q_offset=q_offset).transpose(1, 2)
+    assert out.dtype == dtype and out.shape == q.shape
+    assert bool(torch.isfinite(out).all())
+    assert float((out.float() - plain.float()).abs().max()) <= FLASH_TOL[dtype]
+    # rows that see no key give 0, as the plain version's do
+    dead = (plain.float() == 0).all(dim=-1)
+    assert bool((out[dead] == 0).all())
+
+
+@pytest.mark.cuda
+def test_flash_attention_reads_strided_layouts(cuda):
+    """q, k, v as views of one fused projection (the model's layout before
+    any copy) give the same result as contiguous copies, bitwise; the ops
+    wrapper's bq/bk change nothing."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    B, T, Hq, Hkv, D = 2, 150, 8, 2, 32
+    g = torch.Generator(device=cuda).manual_seed(7)
+    fused = torch.randn((B, T, (Hq + 2 * Hkv) * D), generator=g, device=cuda)
+    q = fused[..., :Hq * D].view(B, T, Hq, D)
+    k = fused[..., Hq * D:(Hq + Hkv) * D].view(B, T, Hkv, D)
+    v = fused[..., (Hq + Hkv) * D:].view(B, T, Hkv, D)
+    assert not q.is_contiguous()
+    out = fa_ops.flash_attention(q, k, v)
+    assert torch.equal(out, fa_ops.flash_attention(q.contiguous(), k.contiguous(),
+                                                   v.contiguous()))
+    assert torch.equal(out, fa_ops.flash_attention(q, k, v, bq=32, bk=64))
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_bad_operands(cuda):
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    q = torch.zeros((1, 16, 4, 32), device=cuda)
+    k = torch.zeros((1, 16, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa_kernel.flash_attention(q.double(), k.double(), k.double())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa_kernel.flash_attention(q, k.bfloat16(), k.bfloat16())
+    with pytest.raises(ValueError, match="no kernel for D=48"):
+        fa_kernel.flash_attention(q.new_zeros((1, 16, 4, 48)), k.new_zeros((1, 16, 2, 48)),
+                                  k.new_zeros((1, 16, 2, 48)))
+    with pytest.raises(ValueError, match="does not match"):
+        fa_kernel.flash_attention(q[:, :, :3], k, k)
+    with pytest.raises(ValueError, match="last dimension is contiguous"):
+        fa_kernel.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, k)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fa_kernel.flash_attention(q, k.cpu(), k)
+
+
+@pytest.mark.cuda
+def test_attn_apply_flash_branch_on_card(cuda):
+    """``attn_apply(use_kernel=True)`` launches the kernel once and agrees
+    with the plain ``_sdpa`` and the q-chunked path within the bf16 limit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tf
+    from repro_torch.utils.tree import tree_map
+
+    cfg = get_config("tinyllama-1.1b").reduced()
+    p = tf.compute_params(tf.init_params(torch.Generator(device=cuda).manual_seed(0), cfg),
+                          cfg.replace(compute_dtype="bfloat16"))
+    lp = tree_map(lambda x: x[0], p["seg0"])["l0"]["mixer"]
+    x = torch.randn((2, 256, cfg.d_model), generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda).bfloat16()
+    pos = torch.arange(256, device=cuda).expand(2, 256)
+    before = kernels.LAUNCHES["flash_attention"]
+    y, _ = attn.attn_apply(lp, cfg, x, positions=pos, use_kernel=True)
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    y_plain, _ = attn.attn_apply(lp, cfg, x, positions=pos)
+    y_chunk, _ = attn.attn_apply(lp, cfg.replace(attn_q_chunk=64), x, positions=pos)
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    assert float((y.float() - y_plain.float()).abs().max()) <= 3e-2
+    assert float((y.float() - y_chunk.float()).abs().max()) <= 3e-2
+
+
+TOPK_SIZES = [1, 4096, 128 * 300, 10000, 8191, 513, (1 << 20) + 3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", TOPK_SIZES)
+def test_topk_count_and_mask_vs_plain(cuda, n, dtype):
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((n,), generator=g, device=cuda).to(dtype)
+    x[::7] = -x[::7].abs()
+    # unsorted thresholds, 0 among them, and exact element values
+    t = torch.rand((tk_ref.NCAND,), generator=g, device=cuda) * 3.0
+    t[5], t[77] = 0.0, x[0].abs().float()
+    t = t[torch.randperm(tk_ref.NCAND, generator=g, device=cuda)].contiguous()
+    before = dict(kernels.LAUNCHES)
+    counts = tk_kernel.count_ge(x, t)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["topk_count"] == before["topk_count"] + 1
+    assert counts.dtype == torch.int64
+    assert torch.equal(counts, tk_ref.count_ge_ref(x, t))
+    for thr in (t[0:1], t[5:6], t[77:78]):
+        o = tk_kernel.apply_threshold(x, thr.contiguous())
+        o_r = tk_ref.apply_threshold_ref(x, thr)
+        assert o.dtype == dtype and o.shape == x.shape
+        bits = torch.int32 if dtype == torch.float32 else torch.int16
+        assert torch.equal(o.view(bits), o_r.view(bits))  # +0.0 for dropped entries
+    assert kernels.LAUNCHES["topk_mask"] == before["topk_mask"] + 3
+
+
+@pytest.mark.cuda
+def test_topk_sparsify_on_card(cuda):
+    from repro_torch.kernels.topk_compress import ops as tk_ops
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((300, 1001), generator=g, device=cuda)
+    k = 3000
+    before = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # the rounds never wait on the host
+    try:
+        out = tk_ops.topk_sparsify(x, k)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["topk_count"] == before["topk_count"] + 3
+    assert kernels.LAUNCHES["topk_mask"] == before["topk_mask"] + 1
+    kept = out != 0
+    assert int(kept.sum()) >= k
+    assert float(x[kept].abs().min()) >= float(x[~kept].abs().max())
+    assert torch.equal(out[kept], x[kept])
+    cpu = tk_ops.topk_sparsify(x.cpu(), k)
+    assert torch.equal(out.cpu().view(torch.int32), cpu.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_topk_count_and_mask_refuse_bad_operands(cuda):
+    x = torch.zeros((300,), device=cuda)
+    t = torch.zeros((tk_ref.NCAND,), device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tk_kernel.count_ge(x.double(), t)
+    with pytest.raises(ValueError, match="128 contiguous float32"):
+        tk_kernel.count_ge(x, t[:64])
+    with pytest.raises(ValueError, match="contiguous tensor"):
+        tk_kernel.count_ge(x.view(2, 150).t(), t)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tk_kernel.apply_threshold(x.cpu(), t[:1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_topk_mask_of_a_view_at_an_offset(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    base = torch.randn((4099,), generator=g, device=cuda).to(dtype)
+    thr = torch.full((1,), 0.5, device=cuda)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    for off in (1, 2, 3):
+        x = base[off:]  # contiguous, not on 16 bytes
+        o = tk_kernel.apply_threshold(x, thr)
+        assert torch.equal(o.view(bits), tk_ref.apply_threshold_ref(x, thr).view(bits))

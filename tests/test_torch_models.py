@@ -368,20 +368,58 @@ def test_decode_routing_and_plan():
 
 
 def test_unported_attention_paths_raise():
+    """What the port still refuses: M-RoPE, and the decode kernel on a CPU
+    tensor.  The flash and query-chunked branches of the cache-free path
+    run (``test_attn_apply_cache_free_branches_match_jax``)."""
     tc = TConfig(**TINY)
     p = t_tf.init_params(torch.Generator().manual_seed(0), tc, device="cpu")
     lp = pytree.tree_map(lambda x: x[0], p["seg0"])["l0"]["mixer"]
     x = torch.zeros((1, 128, tc.d_model))
     pos = torch.arange(128)[None]
-    with pytest.raises(NotImplementedError, match="queue 2, item 2"):
-        t_attn.attn_apply(lp, tc, x, positions=pos, use_kernel=True)
-    with pytest.raises(NotImplementedError, match="_sdpa_q_chunked"):
-        t_attn.attn_apply(lp, tc.replace(attn_q_chunk=32), x, positions=pos)
+    with pytest.raises(NotImplementedError, match="M-RoPE"):
+        t_attn.attn_apply(lp, tc.replace(mrope_sections=(2, 1, 1)), x, positions=pos)
     y, _ = t_attn.attn_apply(lp, tc, x[:, :8], positions=pos[:, :8], use_kernel=True)
     assert y.shape == (1, 8, tc.d_model)  # below 128 tokens the plain path, as there
     with pytest.raises(ValueError, match="decode_attn='cuda'"):
         t_attn._decode_attend(torch.zeros(1, 4, 8), torch.zeros(1, 4, 2, 8),
                               torch.zeros(1, 4, 2, 8), 1, impl="cuda")
+
+
+#: cache-free branches of ``attn_apply``: (tokens, use_kernel, config changes)
+CACHE_FREE = {
+    "flash": (128, True, {}),
+    "flash-short": (96, True, {}),  # below 128 tokens: the plain _sdpa, as there
+    "q-chunked": (128, False, {"attn_q_chunk": 32}),
+    "q-chunk-unrolled": (128, False, {"attn_q_chunk": 32, "unroll_time_scans": True}),
+    "flash-window": (160, True, {"sliding_window": 48}),
+    "q-chunked-window": (128, False, {"attn_q_chunk": 64, "sliding_window": 40}),
+}
+
+
+@pytest.mark.parametrize("branch", list(CACHE_FREE))
+def test_attn_apply_cache_free_branches_match_jax(model, branch):
+    """The flash branch (``use_kernel=True``, T >= 128: the kernel's plain
+    version here, the Pallas kernel in interpret mode there) and
+    ``_sdpa_q_chunked`` against the reference's ``attn_apply``."""
+    jc, tc, jp, tp = model
+    T, use_kernel, changes = CACHE_FREE[branch]
+    jc, tc = jc.replace(**changes), tc.replace(**changes)
+    jl = jax.tree.map(lambda x: x[0], jp["seg0"])["l0"]["mixer"]
+    tl = pytree.tree_map(lambda x: x[0], tp["seg0"])["l0"]["mixer"]
+    rng = _rng(T + len(branch))
+    x = rng.normal(size=(2, T, jc.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(T, dtype=np.int32), (2, T))
+    jy, _ = j_attn.attn_apply(jl, jc, jnp.asarray(x), positions=jnp.asarray(pos),
+                              use_kernel=use_kernel)
+    ty, tcache = t_attn.attn_apply(tl, tc, torch.from_numpy(x),
+                                   positions=torch.from_numpy(pos.copy()),
+                                   use_kernel=use_kernel)
+    assert tcache is None and ty.shape == (2, T, tc.d_model)
+    _close(jy, ty)
+    # every cache-free branch computes the same attention
+    plain, _ = t_attn.attn_apply(tl, tc.replace(attn_q_chunk=0), torch.from_numpy(x),
+                                 positions=torch.from_numpy(pos.copy()))
+    _close(plain, ty)
 
 
 def test_attn_apply_decode_impls_agree(model):

@@ -50,6 +50,7 @@ def test_import_loads_no_jax_and_builds_nothing():
         "import repro_torch.kernels.int8_quant.ops\n"
         "import repro_torch.kernels.decode_attention.ops\n"
         "import repro_torch.kernels.pdist_argmin.ops\n"
+        "import repro_torch.kernels.flash_attention.ops\n"
         "import repro_torch.ml, repro_torch.core.admm\n"
         "import repro_torch.serve, repro_torch.models, repro_torch.configs\n"
         "import repro_torch.launch.serve\n"
