@@ -21,20 +21,27 @@
    (d) sequential_server × dense.  Checks that the loss falls, that each
    kernel was launched steps × eligible leaves times, the ledger bytes,
    and that (a) and (b) with ``use_kernel=False`` are bitwise the same fit.
-4. Decode-attention kernel phase: the kernel against its plain version
-   (``decode_attention_plain``) in f32 and bf16 at the JAX package's test
-   shapes, the serving shape (B 16, S 1024, Hq 32, Hkv 4, D 64) and qwen2's
-   heads (G 6, D 128), every row seeing valid lengths 0, 1, S and one that
-   is no multiple of a tile; limits 2e-5 (f32) and 3e-2 (bf16), the JAX
-   package's own.  Times at the serving shape beside the byte bound, the
-   plain version and ``F.scaled_dot_product_attention(..., enable_gqa=True)``.
+4. Decode-attention kernel phase: the kernels (split over S, then the
+   merge) against their plain version (``decode_attention_plain``) in f32
+   and bf16 at the JAX package's test shapes, the serving shape (B 16, S
+   1024, Hq 32, Hkv 4, D 64) and qwen2's heads (G 6, D 128), every row
+   seeing valid lengths 0, 1, S and one that is no multiple of a tile;
+   limits 2e-5 (f32) and 3e-2 (bf16), the JAX package's own.  The split
+   kernel's partials and the merge each against their plain versions
+   (``decode_partials_plain``, ``decode_merge_plain``); a CUDA graph of the
+   pair replays bitwise to the eager result.  Times, in turns with
+   ``F.scaled_dot_product_attention(..., enable_gqa=True)`` (median and
+   min–max of 6 runs), at the serving shape with rows full and at the
+   serving run's lengths (48–640), beside the byte bound and the plain
+   version; the merge alone.
 5. Serving: ``repro_torch.serve.ContinuousLMEngine`` as
    ``python -m repro_torch.launch.serve --continuous`` builds it, for
    tinyllama-1.1b at full width and depth (bf16 compute, f32 parameters
    from a seeded ``torch.Generator`` on the card), 16 slots, page size 16,
    max_seq 1024, 48 greedy requests with prompts of 32–512 and 16–128 new
-   tokens (seeded numpy).  Checks every ticket, the kernel's launches
-   (decode steps × 22) and hits, and the ledger bytes; holds one captured
+   tokens (seeded numpy).  Checks every ticket, the split kernel's and the
+   merge's launches (decode steps × 22 each) and hits, and the ledger
+   bytes; holds one captured
    decode step's logits with the kernel against ``use_kernel=False``; prints
    tokens/s, step ms, time to first token, peak memory and set-up time, and
    where that step's time goes (host wall and enqueue, device time as a
@@ -59,24 +66,30 @@
    k-windows through ``fit`` (ledger bytes checked), ``consensus_kmeans``
    (launches = iterations × sites × local EM steps) and ``kmeans_pp_init``
    at K = 1000 on one site.
-8. Flash-attention kernel phase: the kernel against its plain version
-   (``attention_ref``) in f32 and bf16 at the JAX package's five test
-   shapes (padding, window, bidirectional), a query offset with T < S, a
-   window that leaves rows with no key (they must be 0), tinyllama-1.1b's
-   heads at B 8 × T 2048 and qwen2-1.5b's at B 2 × T 4096, causal; limits
-   2e-5 (f32) and 3e-2 (bf16), the JAX package's own; two bq/bk choices
-   bitwise equal.  Times at the tinyllama shape in bf16 beside the bound
-   (causal operations at the bf16 tensor-core rate, or the bytes of q, k,
-   v and the output), the plain version and
-   ``F.scaled_dot_product_attention(..., is_causal=True, enable_gqa=True)``.
+8. Flash-attention kernel phase: the two kernels, routed by type (f32 to
+   the CUDA-core kernel, bf16 to the tensor-core one), against their plain
+   version (``attention_ref``) at the JAX package's five test shapes
+   (padding, window, bidirectional), a query offset with T < S, a window
+   that leaves rows with no key (they must be 0), tinyllama-1.1b's heads at
+   B 8 × T 2048 and qwen2-1.5b's at B 2 × T 4096, causal; limits 2e-5 (f32)
+   and 3e-2 (bf16), the JAX package's own; the bf16 kernel also against
+   ``attention_bf16p`` (its own arithmetic); two bq/bk choices bitwise
+   equal.  Times in turns (median and min–max of 6 runs) of the
+   tensor-core kernel, the CUDA-core kernel on the same bf16 inputs and
+   ``F.scaled_dot_product_attention(..., is_causal=True, enable_gqa=True)``
+   at both heads' shapes, and of the f32 route at the tinyllama shape,
+   beside the bound (causal operations at the type's rate, or the bytes of
+   q, k, v and the output) and the plain version.
 9. Attention path: ``attn_apply(..., use_kernel=True)`` for each of
    tinyllama-1.1b's 22 layers at full width (parameters from a seeded
    ``torch.Generator`` on the card, bf16 compute) on a B 8 × T 2048 batch
-   of embedded, RMS-normed tokens from a numpy seed: exactly 22 flash
-   launches, each output row within 3e-2 and within 0.8 % in norm of the
+   of embedded, RMS-normed tokens from a numpy seed: exactly 22 launches of
+   the tensor-core kernel, each output row within 3e-2 and within 0.8 % in
+   norm of the
    plain ``_sdpa`` and of ``_sdpa_q_chunked`` (``attn_q_chunk=512``); the
    output's rms; wall ms, device ms and the memory each call adds, for the
-   three paths.  Then the 22 layers again with f32 compute, within 2e-5,
+   three paths.  Then the 22 layers again with f32 compute (22 launches of
+   the CUDA-core kernel), within 2e-5,
    and a planted control (the kernel with ``q_offset=-1``: each query
    loses its own key) that both checks must catch in ≥ 99 % of the rows
    of the prompt's second half, at the first and last layer.
@@ -91,8 +104,9 @@
    beside ``F.hardshrink(x, nextafter(t, 0))`` (bitwise the same function
    on f32), the whole function (graph-captured, so no host round trip)
    beside ``torch.topk(x.abs().flatten(), k)``.
-11. Prints one JSON line of per-kernel numbers (nine kernels), the card's
-   name and power limit, and last ``{"ok": true, "device": {...}}``.
+11. Prints the redesigned kernels' times in turns, one JSON line of
+   per-kernel numbers (eleven kernels), the card's name and power limit,
+   and last ``{"ok": true, "device": {...}}``.
 
 No earlier phase is cut to make room for 8–10.
 
@@ -127,6 +141,29 @@ def smi_line() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log: str) -> list:
+    """Registers, static shared memory and spills of each kernel entry in
+    an ``nvcc -Xptxas -v`` log (dynamic shared memory is the launch's)."""
+    import re
+
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"entry": m.group(1)}
+            out.append(cur)
+        elif cur is not None:
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spill:
+                cur["spill_stores"], cur["spill_loads"] = int(spill[1]), int(spill[2])
+            regs = re.search(r"Used (\d+) registers", line)
+            if regs:
+                cur["registers"] = int(regs[1])
+                smem = re.search(r"(\d+) bytes smem", line)
+                cur["static_smem"] = int(smem[1]) if smem else 0
+    return out
 
 
 def check(cond, what: str):
@@ -179,6 +216,42 @@ def eager_ms(torch, fn, *, inner: int, reps: int = 20) -> float:
         e1.synchronize()
         times.append(e0.elapsed_time(e1) / inner)
     return statistics.median(times)
+
+
+def turns_ms(torch, fns: dict, *, inner: int, rounds: int = 3) -> dict:
+    """Device time of one call of each function in ``fns`` (name -> fn),
+    timed in turns within this call: a CUDA graph of ``inner`` calls is
+    captured for each, and each round replays them in the order of ``fns``
+    and then reversed (library, kernel, kernel, library).  One replay is
+    one run; returns {name: {"median", "min", "max", "runs"}} in ms."""
+    graphs = {}
+    for name, fn in fns.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name]):
+            for _ in range(inner):
+                fn()
+        graphs[name].replay()
+    torch.cuda.synchronize()
+    runs = {name: [] for name in fns}
+    order = list(fns) + list(reversed(list(fns)))
+    for _ in range(rounds):
+        for name in order:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            graphs[name].replay()
+            e1.record()
+            e1.synchronize()
+            runs[name].append(e0.elapsed_time(e1) / inner)
+    del graphs
+    torch.cuda.empty_cache()
+    return {name: {"median": statistics.median(v), "min": min(v), "max": max(v),
+                   "runs": len(v)} for name, v in runs.items()}
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -379,16 +452,46 @@ DECODE_MAIN = (16, 1024, 32, 4, 64)
 DECODE_TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # tests/test_kernels_decode.py:27,80
 
 
+#: the serving run's valid lengths: prompts of 32–512 plus up to 128 new tokens
+DECODE_SERVE_LENS = (48, 640)
+
+
+def decode_partials_close(torch, got, want, tol: float) -> float:
+    """The split kernel's partials against the plain ones: an empty split
+    is exactly (−1e30, 0, 0); elsewhere m within 1e-4, l within 1e-4
+    relative and acc / l within ``tol``.  Returns max |Δ(acc / l)|."""
+    (ga, gml), (wa, wml) = got, want
+    empty = wml[..., 1] == 0
+    check(bool((gml[..., 0][empty] == -1e30).all() and (gml[..., 1][empty] == 0).all()
+               and (ga[empty] == 0).all()), "decode partials: an empty split is not empty")
+    full = ~empty
+    if not bool(full.any()):  # every row of this case has length 0
+        return 0.0
+    dm = float((gml[..., 0] - wml[..., 0])[full].abs().max())
+    dl = float(((gml[..., 1] - wml[..., 1]) / wml[..., 1].clamp_min(1e-30))[full].abs().max())
+    da = float((ga / gml[..., 1:].clamp_min(1e-30) - wa / wml[..., 1:].clamp_min(1e-30))[full]
+               .abs().max())
+    check(dm <= 1e-4 and dl <= 1e-4 and da <= tol,
+          f"decode partials: |Δm| {dm}, |Δl|/l {dl}, |Δ(acc/l)| {da}")
+    return da
+
+
 def decode_kernel_phase(torch):
+    """The split kernel and the merge against their plain versions at every
+    shape, type and length, graph replay, then times in turns with SDPA at
+    the serving shape with every row full and at the serving run's
+    lengths."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import kernel as dak, ref as dar
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(1)
-    err = 0.0
+    err = {"decode_attention": 0.0, "decode_attention_merge": 0.0}
     checked = 0
     for shape in DECODE_SHAPES:
         B, S, Hq, Hkv, D = shape
+        chunk, n_split = dak.plan_splits(B, Hkv, S, sms)
         # every row sees 0, 1, S and a length that is no multiple of a tile
         lens = [0, 1, S, S - 1 - S // 3]
         check(lens[3] % 32 != 0, f"length {lens[3]} is a multiple of a tile")
@@ -396,47 +499,108 @@ def decode_kernel_phase(torch):
             q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(dtype)
             k = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(dtype)
             v = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(dtype)
-            worst = 0.0
+            tol = DECODE_TOL[str(dtype).split(".")[1]]
+            worst = worst_merge = 0.0
             for shift in range(4):
                 vl = torch.tensor([lens[(b + shift) % 4] for b in range(B)],
                                   dtype=torch.int32, device="cuda")
                 out = dak.decode_attention(q, k, v, vl)
                 plain = dar.decode_attention_plain(q, k, v, vl)
+                split_plain = dar.decode_attention_split_plain(q, k, v, vl, chunk)
                 torch.cuda.synchronize()
                 check(out.shape == q.shape and out.dtype == dtype, f"decode out at {shape}")
                 check(bool(torch.isfinite(out).all()), f"decode non-finite at {shape} {dtype}")
                 e = float((out.float() - plain.float()).abs().max())
-                tol = DECODE_TOL[str(dtype).split(".")[1]]
                 check(e <= tol, f"decode attention {shape} {dtype}: |kernel - plain| {e} > {tol}")
+                e_split = float((split_plain.float() - plain.float()).abs().max())
+                check(e_split <= tol, f"decode split plain {shape} {dtype}: {e_split} > {tol}")
                 zero = vl == 0
                 check(bool((out[zero] == 0).all()), f"decode valid_len 0 not 0 at {shape}")
                 worst = max(worst, e)
+                # each kernel against its plain version
+                parts = dak.decode_partials(q, k, v, vl, chunk)
+                decode_partials_close(torch, parts, dar.decode_partials_plain(
+                    q, k, v, vl, chunk), tol)
+                merged = dak.decode_merge(*parts, dtype)
+                e_m = float((merged.float() - dar.decode_merge_plain(*parts, dtype).float())
+                            .abs().max())
+                check(e_m <= tol, f"decode merge {shape} {dtype}: {e_m} > {tol}")
+                worst_merge = max(worst_merge, e_m)
                 checked += 1
-            err = max(err, worst)
-            print(f"decode check {shape} {dtype}: max |kernel - plain| {worst:.3g} "
-                  f"(lengths {lens})", flush=True)
-    print(f"decode phase: {checked} comparisons within 2e-5 (f32) / 3e-2 (bf16)", flush=True)
+            err["decode_attention"] = max(err["decode_attention"], worst)
+            err["decode_attention_merge"] = max(err["decode_attention_merge"], worst_merge)
+            print(f"decode check {shape} {dtype}: {n_split} splits of {chunk}; max |kernel - "
+                  f"plain| {worst:.3g}, merge {worst_merge:.3g} (lengths {lens})", flush=True)
+    print(f"decode phase: {checked} comparisons within 2e-5 (f32) / 3e-2 (bf16); split "
+          f"partials and merge each held to their plain versions", flush=True)
 
-    # time at the serving shape, bf16, every row full
     B, S, Hq, Hkv, D = DECODE_MAIN
+    chunk, n_split = dak.plan_splits(B, Hkv, S, sms)
     q = torch.randn((B, Hq, D), generator=gen, device="cuda").bfloat16()
     k = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").bfloat16()
     v = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").bfloat16()
+    # a CUDA graph of the pair replays to the eager result, and reads the
+    # lengths on the device at each replay
     vl = torch.full((B,), S, dtype=torch.int32, device="cuda")
-    mask = (torch.arange(S, device="cuda")[None, :] < vl[:, None])[:, None, None, :]
-    q4, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
-    nbytes = 2 * int(vl.sum()) * Hkv * D * 2 + 2 * q.numel() * 2 + vl.numel() * 4
-    ops = 4 * Hq * int(vl.sum()) * D
-    b_ms, b_by = bound_ms(nbytes, ops)
-    t = {
-        "ms": graph_ms(torch, lambda: dak.decode_attention(q, k, v, vl), inner=50),
-        "plain_ms": graph_ms(torch, lambda: dar.decode_attention_plain(q, k, v, vl), inner=50),
-        "library_ms": graph_ms(torch, lambda: F.scaled_dot_product_attention(
-            q4, kt, vt, attn_mask=mask, enable_gqa=True), inner=50),
-        "bound_ms": b_ms, "bound_by": b_by, "shape": list(DECODE_MAIN), "bytes": nbytes,
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        dak.decode_attention(q, k, v, vl)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_g = dak.decode_attention(q, k, v, vl)
+    for lens in ([S] * B, torch.linspace(0, S, B).int().tolist()):
+        vl.copy_(torch.tensor(lens, dtype=torch.int32))
+        graph.replay()
+        eager = dak.decode_attention(q, k, v, vl)
+        torch.cuda.synchronize()
+        check(torch.equal(out_g, eager), f"decode graph replay differs from eager at {lens}")
+    del graph, out_g
+    print(f"decode graph replay: bitwise the eager result, lengths full and 0..{S}", flush=True)
+
+    timings = {}
+    for label, lens in (("main", [S] * B),
+                        ("serve lengths", torch.linspace(*DECODE_SERVE_LENS, B).int().tolist())):
+        vl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        mask = (torch.arange(S, device="cuda")[None, :] < vl[:, None])[:, None, None, :]
+        q4, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+        nbytes = 2 * int(vl.sum()) * Hkv * D * 2 + 2 * q.numel() * 2 + vl.numel() * 4
+        ops = 4 * Hq * int(vl.sum()) * D
+        b_ms, b_by = bound_ms(nbytes, ops)
+        t = turns_ms(torch, {
+            "library": lambda: F.scaled_dot_product_attention(
+                q4, kt, vt, attn_mask=mask, enable_gqa=True),
+            "kernel": lambda: dak.decode_attention(q, k, v, vl),
+        }, inner=50, rounds=3)
+        timings[label] = {
+            "ms": t["kernel"]["median"], "ms_runs": t["kernel"],
+            "library_ms": t["library"]["median"], "library_runs": t["library"],
+            "plain_ms": graph_ms(torch, lambda: dar.decode_attention_plain(q, k, v, vl),
+                                 inner=20, reps=5),
+            "bound_ms": b_ms, "bound_by": b_by, "shape": list(DECODE_MAIN), "bytes": nbytes,
+            "valid_keys": int(vl.sum()), "lengths": [min(lens), max(lens)],
+            "splits": n_split, "chunk": chunk, "launches_a_call": 2,
+        }
+        print(f"time decode_attention {label} {DECODE_MAIN} bf16 (split + merge, in turns "
+              f"with SDPA): {timings[label]}", flush=True)
+
+    # the merge alone, on the main shape's partials
+    vl = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    parts = dak.decode_partials(q, k, v, vl, chunk)
+    m_bytes = sum(x.numel() * 4 for x in parts) + q.numel() * 2
+    t = turns_ms(torch, {"kernel": lambda: dak.decode_merge(*parts, torch.bfloat16)},
+                 inner=50, rounds=3)
+    merge_t = {
+        "ms": t["kernel"]["median"], "ms_runs": t["kernel"], "library_ms": None,
+        "plain_ms": graph_ms(torch, lambda: dar.decode_merge_plain(*parts, torch.bfloat16),
+                             inner=20, reps=5),
+        "bound_ms": m_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "bytes": m_bytes,
+        "splits": n_split,
     }
-    print(f"time decode_attention main {DECODE_MAIN} bf16: {t}", flush=True)
-    return err, t
+    print(f"time decode_attention_merge main ({B * Hq} rows × {n_split} partials of D {D}): "
+          f"{merge_t}", flush=True)
+    return err, timings, merge_t
 
 
 SERVE_ARCH = "tinyllama-1.1b"
@@ -576,8 +740,12 @@ def serve_phase(torch):
     check(launches["decode_attention"] == steps * n_layers,
           f"decode_attention launched {launches['decode_attention']} times, "
           f"expected {steps} steps × {n_layers}")
-    check(all(n == 0 for name, n in launches.items() if name != "decode_attention"),
-          f"serving launched wire kernels: {launches}")
+    check(launches["decode_attention_merge"] == steps * n_layers,
+          f"decode_attention_merge launched {launches['decode_attention_merge']} times, "
+          f"expected {steps} steps × {n_layers}")
+    check(all(n == 0 for name, n in launches.items()
+              if name not in ("decode_attention", "decode_attention_merge")),
+          f"serving launched other kernels: {launches}")
     check(engine.kernel_hits == {"cuda": stats["tokens"], "plain": 0},
           f"kernel_hits {engine.kernel_hits} vs {stats['tokens']} decode tokens")
     check(stats["tokens"] == int(gens.sum()) - SERVE_REQUESTS,
@@ -1063,27 +1231,39 @@ def flash_bound(shape, itemsize: int, rate: float):
         t_bytes, "bytes", ops, nbytes)
 
 
+FLASH_QWEN = (2, 4096, 4096, 12, 2, 128, True, 0, 0)  # qwen2-1.5b's heads
+
+
 def flash_kernel_phase(torch):
-    """The flash kernel against its plain version (``attention_ref``) at
-    every shape in f32 and bf16, bq/bk independence, then times at the
-    tinyllama shape in bf16."""
+    """Each flash kernel against its plain version (``attention_ref``) at
+    every shape, f32 through the CUDA-core kernel and bf16 through the
+    tensor-core kernel (``kernel.ROUTES``), bq/bk independence, then times
+    in turns with SDPA at tinyllama-1.1b's and qwen2-1.5b's heads."""
     import torch.nn.functional as F
 
+    from repro_torch import kernels
     from repro_torch.kernels.flash_attention import kernel as fak, ops as fao, ref as far
 
+    print("flash routes: " + ", ".join(f"{str(dt)[6:]} -> {name}"
+                                       for dt, name in fak.ROUTES.items()), flush=True)
+    tr = lambda x: x.transpose(1, 2)  # noqa: E731
     gen = torch.Generator(device="cuda").manual_seed(5)
-    err, checked = 0.0, 0
+    err = {name: 0.0 for name in fak.ROUTES.values()}
+    err_bf16p, checked = 0.0, 0
     for shape in FLASH_SHAPES:
         B, T, S, Hq, Hkv, D, causal, window, q_offset = shape
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
         for dtype in (torch.float32, torch.bfloat16):
+            name = fak.route(dtype)
             q = torch.randn((B, T, Hq, D), generator=gen, device="cuda").to(dtype)
             k = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(dtype)
             v = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(dtype)
-            out = fak.flash_attention(q, k, v, causal=causal, window=window,
-                                      q_offset=q_offset)
-            plain = far.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                      causal=causal, window=window,
-                                      q_offset=q_offset).transpose(1, 2)
+            before = dict(kernels.LAUNCHES)
+            out = fak.flash_attention(q, k, v, **kw)
+            check(kernels.LAUNCHES[name] == before[name] + 1
+                  and sum(kernels.LAUNCHES.values()) == sum(before.values()) + 1,
+                  f"flash {dtype} did not launch {name} once")
+            plain = tr(far.attention_ref(tr(q), tr(k), tr(v), **kw))
             torch.cuda.synchronize()
             check(out.shape == q.shape and out.dtype == dtype, f"flash out at {shape}")
             check(bool(torch.isfinite(out).all()), f"flash non-finite at {shape} {dtype}")
@@ -1092,40 +1272,83 @@ def flash_kernel_phase(torch):
             check(e <= tol, f"flash attention {shape} {dtype}: |kernel − plain| {e} > {tol}")
             dead = (plain.float() == 0).all(dim=-1)
             check(bool((out[dead] == 0).all()), f"flash: a row with no key is not 0 at {shape}")
-            err = max(err, e)
+            extra = ""
+            if dtype == torch.bfloat16:  # and the kernel's own arithmetic (P in bf16)
+                e_p = float((out.float() - tr(far.attention_bf16p(tr(q), tr(k), tr(v), **kw))
+                             .float()).abs().max())
+                check(e_p <= tol, f"flash tc {shape}: |kernel − attention_bf16p| {e_p} > {tol}")
+                err_bf16p = max(err_bf16p, e_p)
+                extra = f", against attention_bf16p {e_p:.3g}"
+            err[name] = max(err[name], e)
             checked += 1
-            print(f"flash check {shape} {str(dtype)[6:]}: max |kernel − plain| {e:.3g}, "
-                  f"{int(dead.sum())} (row, head) pairs see no key", flush=True)
+            print(f"flash check {shape} {str(dtype)[6:]} ({name}): max |kernel − plain| "
+                  f"{e:.3g}{extra}, {int(dead.sum())} (row, head) pairs see no key", flush=True)
             del q, k, v, out, plain
     torch.cuda.empty_cache()
     print(f"flash phase: {checked} comparisons within 2e-5 (f32) / 3e-2 (bf16)", flush=True)
 
-    # time at the tinyllama shape, bf16, causal; bq/bk change nothing
+    timings = {}
+    for label, shape in (("main", FLASH_MAIN), ("qwen2-1.5b", FLASH_QWEN)):
+        B, T, S, Hq, Hkv, D = shape[:6]
+        q = torch.randn((B, T, Hq, D), generator=gen, device="cuda").bfloat16()
+        k = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").bfloat16()
+        v = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").bfloat16()
+        if label == "main":  # bq/bk change nothing
+            check(torch.equal(fao.flash_attention(q, k, v, bq=128, bk=128),
+                              fao.flash_attention(q, k, v, bq=64, bk=32)),
+                  "flash: the result depends on bq/bk")
+            print("flash bq/bk: (128, 128) and (64, 32) bitwise equal at the tinyllama shape",
+                  flush=True)
+        qt, kt, vt = tr(q), tr(k), tr(v)
+        t = turns_ms(torch, {
+            "library": lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True),
+            "tensor_cores": lambda: fak.flash_attention(q, k, v),
+            "cuda_cores": lambda: fak.flash_attention_cuda_cores(q, k, v),
+        }, inner=2, rounds=3)
+        b_ms, b_by, ops, nbytes = flash_bound(shape, 2, BF16_OPS_PER_S)
+        timings[("flash_attention_tc", label)] = {
+            "ms": t["tensor_cores"]["median"], "ms_runs": t["tensor_cores"],
+            "cuda_cores_bf16_runs": t["cuda_cores"],
+            "library_ms": t["library"]["median"], "library_runs": t["library"],
+            "plain_ms": graph_ms(torch, lambda: far.attention_bf16p(qt, kt, vt),
+                                 inner=1, reps=3),
+            "bound_ms": b_ms, "bound_by": b_by, "ops": ops, "bytes": nbytes,
+            "tflops": ops / (t["tensor_cores"]["median"] * 1e-3) / 1e12,
+            "shape": list(shape), "dtype": "bfloat16",
+        }
+        print(f"time flash_attention_tc {label} {shape[:6]} bf16 causal (in turns with SDPA "
+              f"and the CUDA-core kernel on the same inputs): "
+              f"{timings[('flash_attention_tc', label)]}", flush=True)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+
+    # the f32 route at the tinyllama shape
     B, T, S, Hq, Hkv, D = FLASH_MAIN[:6]
-    q = torch.randn((B, T, Hq, D), generator=gen, device="cuda").bfloat16()
-    k = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").bfloat16()
-    v = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").bfloat16()
-    o1 = fao.flash_attention(q, k, v, bq=128, bk=128)
-    o2 = fao.flash_attention(q, k, v, bq=64, bk=32)
-    check(torch.equal(o1, o2), "flash: the result depends on bq/bk")
-    print("flash bq/bk: (128, 128) and (64, 32) bitwise equal at the tinyllama shape",
-          flush=True)
-    b_ms, b_by, ops, nbytes = flash_bound(FLASH_MAIN, 2, BF16_OPS_PER_S)
-    f32_ms = flash_bound(FLASH_MAIN, 4, F32_OPS_PER_S)[0]
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    t = {
-        "ms": graph_ms(torch, lambda: fak.flash_attention(q, k, v), inner=3, reps=5),
+    q = torch.randn((B, T, Hq, D), generator=gen, device="cuda")
+    k = torch.randn((B, S, Hkv, D), generator=gen, device="cuda")
+    v = torch.randn((B, S, Hkv, D), generator=gen, device="cuda")
+    qt, kt, vt = tr(q), tr(k), tr(v)
+    t = turns_ms(torch, {
+        "library": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True),
+        "kernel": lambda: fak.flash_attention(q, k, v),
+    }, inner=1, rounds=3)
+    b_ms, b_by, ops, nbytes = flash_bound(FLASH_MAIN, 4, F32_OPS_PER_S)
+    timings[("flash_attention", "main")] = {
+        "ms": t["kernel"]["median"], "ms_runs": t["kernel"],
+        "library_ms": t["library"]["median"], "library_runs": t["library"],
         "plain_ms": graph_ms(torch, lambda: far.attention_ref(qt, kt, vt), inner=1, reps=3),
-        "library_ms": graph_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), inner=10, reps=10),
         "bound_ms": b_ms, "bound_by": b_by, "ops": ops, "bytes": nbytes,
-        "f32_bound_ms": f32_ms, "shape": list(FLASH_MAIN), "dtype": "bfloat16",
+        "tflops": ops / (t["kernel"]["median"] * 1e-3) / 1e12,
+        "shape": list(FLASH_MAIN), "dtype": "float32",
     }
-    t["tflops"] = ops / (t["ms"] * 1e-3) / 1e12
-    print(f"time flash_attention main {FLASH_MAIN[:6]} bf16 causal: {t}", flush=True)
-    del q, k, v, qt, kt, vt, o1, o2
+    print(f"time flash_attention main {FLASH_MAIN[:6]} f32 causal (in turns with SDPA): "
+          f"{timings[('flash_attention', 'main')]}", flush=True)
+    del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
-    return err, t
+    err["flash_attention_tc_vs_bf16p"] = err_bf16p
+    return err, timings
 
 
 def row_errors(torch, y, ref):
@@ -1214,11 +1437,12 @@ def attention_path_phase(torch):
             e["max_row_rel"] = max(e["max_row_rel"], float(r.max()))
         del ys, y
     launches = dict(kernels.LAUNCHES)
-    want = {n: (L if n == "flash_attention" else 0) for n in kernels.KERNEL_NAMES}
+    want = {n: (L if n == "flash_attention_tc" else 0) for n in kernels.KERNEL_NAMES}
     check(launches == want, f"attention path launches {launches}, expected {want}")
     logits_gib = ATTN_B * cfg.num_heads * ATTN_T * ATTN_T * 4 / 2**30
     print(f"attention path: tinyllama-1.1b, {L} layers × attn_apply on B {ATTN_B} × T "
-          f"{ATTN_T} (bf16, full width): {launches['flash_attention']} flash launches; "
+          f"{ATTN_T} (bf16, full width): {launches['flash_attention_tc']} tensor-core flash "
+          f"launches; "
           f"kernel output rms {min(y_rms):.4g}–{max(y_rms):.4g} a layer, max |y| {y_max:.4g}; "
           f"kernel against the plain paths: {json.dumps(err)} (limits: max |Δ| {ATTN_TOL}, "
           f"max row ||Δ||/||y|| {ATTN_REL_TOL}); f32 logits of the plain path "
@@ -1229,12 +1453,16 @@ def attention_path_phase(torch):
     # the same path with f32 compute (TF32 off), at the JAX package's f32 limit
     h32 = layers.embed(params["embed"], ids, compute_dtype=torch.float32)
     err32 = {n: 0.0 for n in err}
+    kernels.reset_launches()
     for li in range(L):
         p, x = layer_input(params, h32, li)
         ys = {name: fn(p, x) for name, fn in paths.items()}
         for name in err32:
             err32[name] = max(err32[name], float(row_errors(torch, ys["kernel"], ys[name])[0].max()))
         del ys
+    launches32 = dict(kernels.LAUNCHES)
+    want = {n: (L if n == "flash_attention" else 0) for n in kernels.KERNEL_NAMES}
+    check(launches32 == want, f"f32 attention path launches {launches32}, expected {want}")
     print(f"attention path, f32 compute, {L} layers: max |kernel − plain| {json.dumps(err32)} "
           f"(limit {ATTN_TOL_F32})", flush=True)
 
@@ -1278,7 +1506,8 @@ def attention_path_phase(torch):
     del W, params, h, h32
     torch.cuda.empty_cache()
     err["f32_max_abs"] = err32
-    return launches["flash_attention"], err, stats, leaf, control
+    return ({"flash_attention_tc": launches["flash_attention_tc"],
+             "flash_attention": launches32["flash_attention"]}, err, stats, leaf, control)
 
 
 #: sizes of tests/test_kernels_topk.py:10, 2^24, and the largest leaf
@@ -1404,15 +1633,19 @@ REPLACES = {
     "int8_absmax": "src/repro/kernels/int8_quant/kernel.py:34",
     "int8_quant": "src/repro/kernels/int8_quant/kernel.py:53",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:31",
+    "decode_attention_merge": "src/repro/kernels/decode_attention/kernel.py:74",
     "pdist_argmin": "src/repro/kernels/pdist_argmin/kernel.py:20",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:28",
+    "flash_attention_tc": "src/repro/kernels/flash_attention/kernel.py:28",
     "topk_count": "src/repro/kernels/topk_compress/kernel.py:35",
     "topk_mask": "src/repro/kernels/topk_compress/kernel.py:56",
 }
 SOURCES = {
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
+    "decode_attention_merge": "src/repro_torch/csrc/decode_attention.cu",
     "pdist_argmin": "src/repro_torch/csrc/pdist_argmin.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention_tc": "src/repro_torch/csrc/flash_attention_tc.cu",
     "topk_count": "src/repro_torch/csrc/topk_sparsify.cu",
     "topk_mask": "src/repro_torch/csrc/topk_sparsify.cu",
 }
@@ -1442,11 +1675,25 @@ def main() -> int:
           + ")", flush=True)
     for name in build.SIGNATURES:
         print(build.build_info(name)["log"].strip(), flush=True)
+    for name in ("flash_attention_tc", "decode_attention"):
+        print(f"ptxas {name}: " + json.dumps(ptxas_summary(build.build_info(name)["log"])),
+              flush=True)
+    tc, dec = build.library("flash_attention_tc"), build.library("decode_attention")
+    print("dynamic shared memory (bytes): flash_attention_tc " + json.dumps(
+        {f"D {d}": tc.repro_flash_attention_tc_smem(d) for d in (8, 16, 32, 64, 128)})
+        + ", decode split bf16 G 8 " + json.dumps(
+            {f"D {d}": dec.repro_decode_attention_smem(d, 8, 1) for d in (8, 16, 32, 64, 128)}),
+        flush=True)
 
     err, timings = kernel_phase(torch)
-    err["decode_attention"], timings[("decode_attention", "main")] = decode_kernel_phase(torch)
+    decode_err, decode_t, merge_t = decode_kernel_phase(torch)
+    err.update(decode_err)
+    timings[("decode_attention", "main")] = decode_t["main"]
+    timings[("decode_attention_merge", "main")] = merge_t
     launches = main_path(torch)
-    launches["decode_attention"] = serve_phase(torch)["decode_attention"]
+    served = serve_phase(torch)
+    for name in ("decode_attention", "decode_attention_merge"):
+        launches[name] = served[name]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     Xs, C0 = make_kdd_shaped(torch, 0)
@@ -1460,9 +1707,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     family_phase(torch)
     print("k-means iteration:", json.dumps(kmeans_stats), flush=True)
-    err["flash_attention"], timings[("flash_attention", "main")] = flash_kernel_phase(torch)
-    launches["flash_attention"], attn_err, attn_stats, leaf, attn_control = \
-        attention_path_phase(torch)
+    flash_err, flash_t = flash_kernel_phase(torch)
+    err.update(flash_err)
+    timings.update(flash_t)
+    flash_launches, attn_err, attn_stats, leaf, attn_control = attention_path_phase(torch)
+    launches.update(flash_launches)
     tk_launches, tk_timings, tk_whole, tk_err = topk_phase(torch, leaf)
     del leaf
     torch.cuda.empty_cache()
@@ -1473,6 +1722,9 @@ def main() -> int:
     print("attention path:", json.dumps({"errors": attn_err, **attn_stats,
                                          "planted_control": attn_control}), flush=True)
     print("topk_sparsify:", json.dumps(tk_whole), flush=True)
+    print("redesigned kernels, times in turns with the library call:", json.dumps({
+        "decode_attention": decode_t, "decode_attention_merge": merge_t,
+        **{f"{n} {label}": t for (n, label), t in flash_t.items()}}), flush=True)
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was never launched on the main path")
 

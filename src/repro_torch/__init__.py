@@ -11,13 +11,14 @@ Ported so far: ``api.fit`` on the local executor with ``GradientDescent`` /
 ``thresh`` / ``topk`` / ``int8`` wires (±ef), fault plans, and the four
 wire-encode kernels (``kernels/topk_compress``, ``kernels/int8_quant``) as
 hand-written CUDA (``csrc/wire_kernels.cu``); continuous-batching LM
-serving (``serve``, ``models``) with decode attention in CUDA
-(``csrc/decode_attention.cu``); the §4 clustering family (``ml.clustering``,
+serving (``serve``, ``models``) with decode attention in CUDA, split
+over the keys and merged (``csrc/decode_attention.cu``); the §4 clustering family (``ml.clustering``,
 ``ml.kwindows``, consensus ADMM in ``core.admm``) with the nearest-centroid
 E-step in CUDA (``csrc/pdist_argmin.cu``); the cache-free attention core
 (``models.attention.attn_apply`` with ``use_kernel=True``, and
-``_sdpa_q_chunked``) with flash attention in CUDA
-(``csrc/flash_attention.cu``), and ``kernels.topk_compress.ops.topk_sparsify``
+``_sdpa_q_chunked``) with flash attention in CUDA (bf16 on the tensor
+cores, ``csrc/flash_attention_tc.cu``; f32 on the CUDA cores,
+``csrc/flash_attention.cu``), and ``kernels.topk_compress.ops.topk_sparsify``
 with its count and mask in CUDA (``csrc/topk_sparsify.cu``).  Kernels are built with ``nvcc``
 on first use.  What is not ported raises ``NotImplementedError`` naming
 its ``ROADMAP.md`` item.

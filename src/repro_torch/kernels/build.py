@@ -46,7 +46,9 @@ SIGNATURES = {
     },
     "decode_attention": {
         "repro_decode_attention": (
-            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+        "repro_decode_merge": ([_P, _P, _P, _I, _I, _I, _I, _P], ctypes.c_int),
+        "repro_decode_attention_smem": ([_I, _I, _I], ctypes.c_int),
     },
     "pdist_argmin": {
         "repro_pdist_argmin": ([_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P], ctypes.c_int),
@@ -54,6 +56,11 @@ SIGNATURES = {
     "flash_attention": {
         "repro_flash_attention": (
             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+    },
+    "flash_attention_tc": {
+        "repro_flash_attention_tc": (
+            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+        "repro_flash_attention_tc_smem": ([_I], ctypes.c_int),
     },
     "topk_sparsify": {
         "repro_count_ge": ([_P, _LL, _P, _P, _I, _P], ctypes.c_int),

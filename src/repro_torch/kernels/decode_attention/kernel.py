@@ -3,10 +3,13 @@
 Replaces ``repro.kernels.decode_attention.kernel``'s ``_decode_kernel``:
 one query token per row against a dense KV cache view, the G query heads
 of a GQA group sharing each staged K/V tile.  Where the Pallas kernel walks
-(B, Hkv, Sp/bk) in order with an additive (B, Sp) bias row, this kernel runs
-one block per (kv head, row), reads the row's valid length from the device
-itself and stops at it, so neither the bias row nor padding of S exists.
-Bound by bytes: the valid rows of K and V, read once.
+(B, Hkv, Sp/bk) in order with an additive (B, Sp) bias row, the split
+kernel runs one block per (kv head, row, run of ``chunk`` keys), reads the
+row's valid length from the device itself and stops at it, so neither the
+bias row nor padding of S exists; its f32 partials (m, l, acc) are merged
+by a second kernel (``decode_attention_merge``).  ``plan_splits`` picks the
+run from S and the card's SM count.  Bound by bytes: the valid rows of K
+and V, read once.
 """
 
 from __future__ import annotations
@@ -21,6 +24,29 @@ from repro_torch.kernels import build
 GROUPS = (1, 2, 4, 6, 8)
 HEAD_DIMS = (8, 16, 32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
+#: K/V rows a block stages at a time; a split covers a multiple of it
+TILE = 64
+#: blocks an SM the split aims for
+BLOCKS_PER_SM = 2
+_SMS: dict = {}
+
+
+def plan_splits(B: int, Hkv: int, S: int, sms: int) -> tuple[int, int]:
+    """``(chunk, n_split)``: the keys a split covers (``TILE`` times a power
+    of two) and ceil(S / chunk), so that B·Hkv·n_split blocks reach
+    ``BLOCKS_PER_SM`` blocks on each of ``sms`` SMs where S allows it."""
+    want = -(-BLOCKS_PER_SM * sms // (B * Hkv))
+    chunk = TILE
+    while chunk * 2 * want <= S:
+        chunk *= 2
+    return chunk, -(-S // chunk)
+
+
+def _sm_count(device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
 def _check(x, what: str, device=None, *, rows: bool = True) -> None:
@@ -37,11 +63,8 @@ def _check(x, what: str, device=None, *, rows: bool = True) -> None:
         raise ValueError(f"decode attention {what}: base pointer is not 16-byte aligned")
 
 
-def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     valid_len: torch.Tensor) -> torch.Tensor:
-    """Launch on CUDA ``q`` (B, Hq, D), ``k``/``v`` (B, S, Hkv, D) of one
-    type (f32 or bf16) and ``valid_len`` (B,) int32: the (B, Hq, D)
-    attention output in q's type."""
+def _checked(q, k, v, valid_len) -> None:
+    """Raise unless the operands are ones the split kernel takes."""
     _check(q, "q")
     _check(k, "k", q.device)
     _check(v, "v", q.device)
@@ -70,14 +93,73 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(
             f"decode attention valid_len: expected int32 ({B},), got "
             f"{valid_len.dtype} {tuple(valid_len.shape)}")
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid_len: torch.Tensor) -> torch.Tensor:
+    """Launch on CUDA ``q`` (B, Hq, D), ``k``/``v`` (B, S, Hkv, D) of one
+    type (f32 or bf16) and ``valid_len`` (B,) int32: the (B, Hq, D)
+    attention output in q's type: the split kernel, then the merge."""
+    _checked(q, k, v, valid_len)
+    B, _, _ = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    chunk, n_split = plan_splits(B, Hkv, S, _sm_count(q.device))
+    if n_split > 65535:
+        raise ValueError(f"decode attention: S={S} needs {n_split} splits (grid.z)")
+    part_acc, part_ml = _split(q, k, v, valid_len, chunk, n_split)
+    return decode_merge(part_acc, part_ml, q.dtype).view(q.shape)
+
+
+def _split(q, k, v, valid_len, chunk: int, n_split: int):
+    """Launch the split kernel on checked operands: the f32 partials
+    ``(part_acc (B·Hq, n_split, D), part_ml (B·Hq, n_split, 2))``."""
+    B, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    part_acc = torch.empty((B * Hq, n_split, D), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((B * Hq, n_split, 2), dtype=torch.float32, device=q.device)
     lib = build.library("decode_attention")
-    out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         status = lib.repro_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_len.data_ptr(),
-            out.data_ptr(), B, S, Hkv, G, D, int(q.dtype == torch.bfloat16),
-            build.stream_of(q),
+            part_acc.data_ptr(), part_ml.data_ptr(), B, S, Hkv, Hq // Hkv, D, chunk, n_split,
+            int(q.dtype == torch.bfloat16), build.stream_of(q),
         )
     build.check(status, "decode attention")
     kernels.LAUNCHES["decode_attention"] += 1
+    return part_acc, part_ml
+
+
+def decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    valid_len: torch.Tensor, chunk: int):
+    """The split kernel alone, on the operands ``decode_attention`` takes,
+    with splits of ``chunk`` keys (a positive multiple of ``TILE``):
+    ``(part_acc, part_ml)`` as ``ref.decode_partials_plain`` gives them."""
+    S = k.shape[1]
+    if not (isinstance(chunk, int) and chunk >= TILE and chunk % TILE == 0):
+        raise ValueError(f"decode attention: chunk {chunk} is no multiple of {TILE}")
+    _checked(q, k, v, valid_len)
+    return _split(q, k, v, valid_len, chunk, -(-S // chunk))
+
+
+def decode_merge(part_acc: torch.Tensor, part_ml: torch.Tensor, dtype) -> torch.Tensor:
+    """Launch the merge on the split kernel's partials: the (B·Hq, D)
+    rows in ``dtype``, viewed as ``(B, Hq, D)`` by the caller."""
+    rows, n_split, D = part_acc.shape
+    for x, last in ((part_acc, D), (part_ml, 2)):
+        _check(x, "partials", part_acc.device)
+        if x.dtype != torch.float32 or x.shape != (rows, n_split, last):
+            raise ValueError(
+                f"decode attention partials: expected float32 ({rows}, {n_split}, {last}), "
+                f"got {x.dtype} {tuple(x.shape)}")
+    if dtype not in _DTYPES or D not in HEAD_DIMS:
+        raise ValueError(f"decode attention merge: no kernel for {dtype}, D={D}")
+    out = torch.empty((rows, D), dtype=dtype, device=part_acc.device)
+    lib = build.library("decode_attention")
+    with torch.cuda.device(part_acc.device):
+        status = lib.repro_decode_merge(
+            part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(), rows, n_split, D,
+            int(dtype == torch.bfloat16), build.stream_of(part_acc),
+        )
+    build.check(status, "decode attention merge")
+    kernels.LAUNCHES["decode_attention_merge"] += 1
     return out

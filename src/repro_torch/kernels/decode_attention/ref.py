@@ -52,3 +52,48 @@ def decode_attention_plain(q, k, v, valid_len) -> torch.Tensor:
     acc = torch.einsum("bhgs,bshd->bhgd", p, v.float())
     out = acc / torch.where(l > 0.0, l, 1.0)
     return out.reshape(B, Hq, D).to(q.dtype)
+
+
+def decode_partials_plain(q, k, v, valid_len, chunk: int):
+    """The split kernel's arithmetic: for each run of ``chunk`` keys (any
+    ``chunk`` >= 1 here), the f32 partial over its keys below valid_len —
+    m (−1e30 where the run has none), l = Σ exp(s − m) and the unnormalised
+    acc = Σ exp(s − m) v, masked p exactly 0.  Returns ``(part_acc
+    (B·Hq, n_split, D), part_ml (B·Hq, n_split, 2))``, n_split =
+    ceil(S / chunk), as the kernel writes them."""
+    B, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    n_split = -(-S // chunk)
+    pad = n_split * chunk - S
+    mask = _key_mask(valid_len, B, S, q.device)
+    mask = torch.nn.functional.pad(mask, (0, pad), value=False)
+    mask = mask.reshape(B, 1, 1, n_split, chunk)
+    qg = q.reshape(B, Hkv, G, D).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) * (D ** -0.5)
+    s = torch.nn.functional.pad(s, (0, pad)).reshape(B, Hkv, G, n_split, chunk)
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
+    acc = torch.einsum("bhgnc,bnchd->bhgnd", p, vf.reshape(B, n_split, chunk, Hkv, D))
+    part_ml = torch.stack([m, p.sum(dim=-1)], dim=-1)
+    return acc.reshape(B * Hq, n_split, D), part_ml.reshape(B * Hq, n_split, 2)
+
+
+def decode_merge_plain(part_acc, part_ml, dtype) -> torch.Tensor:
+    """The merge kernel's arithmetic: w_i = exp(m_i − max_i m_i), out =
+    Σ w_i acc_i / Σ w_i l_i (by 1 where that is 0), rounded once to
+    ``dtype``; (B·Hq, D)."""
+    m, l = part_ml[..., 0], part_ml[..., 1]
+    w = torch.exp(m - m.amax(dim=-1, keepdim=True))
+    den = (w * l).sum(dim=-1, keepdim=True)
+    acc = (w[..., None] * part_acc).sum(dim=-2)
+    return (acc / torch.where(den > 0.0, den, 1.0)).to(dtype)
+
+
+def decode_attention_split_plain(q, k, v, valid_len, chunk: int) -> torch.Tensor:
+    """Split-and-merge decode attention over runs of ``chunk`` keys: the
+    two kernels' arithmetic end to end, (B, Hq, D) in q's type."""
+    part_acc, part_ml = decode_partials_plain(q, k, v, valid_len, chunk)
+    return decode_merge_plain(part_acc, part_ml, q.dtype).reshape(q.shape)

@@ -2,10 +2,12 @@
 
 Counterpart of ``repro.kernels.flash_attention.ops.flash_attention``:
 q (B, T, Hq, D), k/v (B, S, Hkv, D), the semantics of the model's cache-free
-``_sdpa`` path.  The CUDA kernel runs for CUDA tensors and reads the layout
+``_sdpa`` path.  For CUDA tensors the kernel that ``kernel.route`` names for
+the type runs (bf16: tensor cores; f32: CUDA cores), reading the layout
 through its strides, so none of the JAX wrapper's transposes and padding
-to block multiples exist; the plain version (``ref.attention_ref``) runs
-for CPU tensors; any other device raises.
+to block multiples exist.  For CPU tensors that kernel's plain version runs
+(``ref.attention_bf16p`` for bf16, ``ref.attention_ref`` for f32); any
+other device raises.
 """
 
 from __future__ import annotations
@@ -14,6 +16,9 @@ import torch
 
 from repro_torch.kernels.flash_attention import kernel, ref
 
+#: kernel name -> its plain version, in the (B, H, T, D) layout
+PLAIN = {"flash_attention": ref.attention_ref, "flash_attention_tc": ref.attention_bf16p}
+
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0,
@@ -21,14 +26,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """(B, T, Hq, D) attention of q over k/v in q's type.
 
     ``bq`` and ``bk`` are the JAX wrapper's block sizes, kept for the
-    signature; they change no result here (the kernel's tiles are fixed,
-    the plain version has none)."""
+    signature; they change no result here (the kernels' tiles are fixed,
+    and so are their plain versions')."""
     if q.device.type == "cuda":
         return kernel.flash_attention(q, k, v, causal=causal, window=window,
                                       q_offset=q_offset)
     if q.device.type == "cpu":
-        out = ref.attention_ref(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=causal, window=window, q_offset=q_offset)
+        plain = PLAIN[kernel.route(q.dtype)]
+        out = plain(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    causal=causal, window=window, q_offset=q_offset)
         return out.transpose(1, 2)
     raise ValueError(f"flash attention: no kernel for device {q.device}")

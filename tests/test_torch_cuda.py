@@ -76,11 +76,12 @@ def test_wrappers_refuse_bad_operands(cuda):
 
 
 # (B, S, Hq, Hkv, D): the JAX package's decode test shapes, the serving
-# shape of tinyllama-1.1b (G 8, D 64) and qwen2-1.5b's heads (G 6, D 128)
+# shape of tinyllama-1.1b (G 8, D 64) and qwen2-1.5b's heads (G 6, D 128),
+# and S within one tile (a single split)
 DECODE_SHAPES = [
     (2, 256, 8, 2, 32), (1, 512, 4, 4, 64), (3, 128, 4, 1, 16),
     (2, 300, 8, 4, 32), (4, 1024, 32, 4, 64), (3, 200, 12, 2, 128),
-    (2, 70, 2, 2, 8),
+    (2, 70, 2, 2, 8), (3, 40, 4, 2, 16),
 ]
 #: |kernel - plain| limits: the JAX package's own decode-test tolerances
 DECODE_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
@@ -103,10 +104,11 @@ def _decode_inputs(device, shape, dtype, seed):
 @pytest.mark.parametrize("shape", DECODE_SHAPES, ids=str)
 def test_decode_attention_kernel_vs_plain(cuda, shape, dtype):
     q, k, v, vl = _decode_inputs(cuda, shape, dtype, sum(shape))
-    before = kernels.LAUNCHES["decode_attention"]
+    before = dict(kernels.LAUNCHES)
     out = da_kernel.decode_attention(q, k, v, vl)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["decode_attention"] == before + 1
+    assert kernels.LAUNCHES["decode_attention"] == before["decode_attention"] + 1
+    assert kernels.LAUNCHES["decode_attention_merge"] == before["decode_attention_merge"] + 1
     plain = da_ref.decode_attention_plain(q, k, v, vl)
     assert out.dtype == dtype and out.shape == q.shape
     assert bool(torch.isfinite(out).all())
@@ -137,6 +139,87 @@ def test_decode_attention_refuses_bad_operands(cuda):
         da_kernel.decode_attention(q, k.cpu(), k, vl)
     with pytest.raises(ValueError, match="valid_len"):
         da_kernel.decode_attention(q, k, k, vl.long())
+    with pytest.raises(ValueError, match="no multiple of 64"):
+        da_kernel.decode_partials(q, k, k, vl, 8)
+    parts = (torch.zeros((16, 2, 64), device=cuda), torch.zeros((16, 2, 2), device=cuda))
+    with pytest.raises(ValueError, match="float32"):
+        da_kernel.decode_merge(parts[0].bfloat16(), parts[1], torch.float32)
+    with pytest.raises(ValueError, match=r"\(16, 2, 2\)"):
+        da_kernel.decode_merge(parts[0], parts[1][:, :, :1].contiguous(), torch.float32)
+    with pytest.raises(ValueError, match="no kernel"):
+        da_kernel.decode_merge(*parts, torch.float16)
+
+
+#: (B, S, Hq, Hkv, D, chunk): a split of one tile, splits past every row's
+#: length, and a ragged last split
+SPLIT_CASES = [(2, 256, 8, 2, 32, 64), (3, 300, 12, 2, 128, 128), (4, 1024, 32, 4, 64, 192),
+               (2, 130, 2, 2, 8, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+def test_decode_split_and_merge_vs_plain(cuda, case, dtype):
+    """The split kernel's partials against ``decode_partials_plain`` and the
+    merge against ``decode_merge_plain`` on the same partials."""
+    *shape, chunk = case
+    q, k, v, vl = _decode_inputs(cuda, tuple(shape), dtype, sum(case))
+    vl[-1] = min(int(vl[-1]), chunk - 1)  # the later splits of that row are empty
+    before = dict(kernels.LAUNCHES)
+    part_acc, part_ml = da_kernel.decode_partials(q, k, v, vl, chunk)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["decode_attention"] == before["decode_attention"] + 1
+    want_acc, want_ml = da_ref.decode_partials_plain(q, k, v, vl, chunk)
+    empty = want_ml[..., 1] == 0
+    assert bool(empty.any()) and bool((~empty).any())
+    assert bool((part_ml[..., 0][empty] == -1e30).all() and (part_ml[..., 1][empty] == 0).all())
+    assert bool((part_acc[empty] == 0).all())
+    full = ~empty
+    assert float((part_ml[..., 0] - want_ml[..., 0])[full].abs().max()) <= 1e-4
+    rel_l = (part_ml[..., 1] - want_ml[..., 1]) / want_ml[..., 1].clamp_min(1e-30)
+    assert float(rel_l[full].abs().max()) <= 1e-4
+    got = part_acc / part_ml[..., 1:].clamp_min(1e-30)
+    want = want_acc / want_ml[..., 1:].clamp_min(1e-30)
+    assert float((got - want)[full].abs().max()) <= DECODE_TOL[dtype]
+    out = da_kernel.decode_merge(part_acc, part_ml, dtype)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["decode_attention_merge"] == before["decode_attention_merge"] + 1
+    assert out.dtype == dtype and out.shape == (q.shape[0] * q.shape[1], q.shape[2])
+    plain = da_ref.decode_merge_plain(part_acc, part_ml, dtype)
+    assert float((out.float() - plain.float()).abs().max()) <= DECODE_TOL[dtype]
+    full_plain = da_ref.decode_attention_plain(q, k, v, vl).reshape(out.shape)
+    assert float((out.float() - full_plain.float()).abs().max()) <= DECODE_TOL[dtype]
+    assert bool((out.view(q.shape)[vl == 0] == 0).all())
+
+
+@pytest.mark.cuda
+def test_decode_attention_replays_in_a_cuda_graph(cuda):
+    """The split kernel and the merge captured in a CUDA graph replay to
+    the eager result, bitwise, and read the valid lengths at each replay."""
+    shape = (16, 1024, 32, 4, 64)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert da_kernel.plan_splits(16, 4, 1024, sms)[1] > 1
+    q, k, v, _ = _decode_inputs(cuda, shape, torch.bfloat16, 5)
+    vl = torch.full((16,), 1024, dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        da_kernel.decode_attention(q, k, v, vl)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = dict(kernels.LAUNCHES)
+    with torch.cuda.graph(graph):
+        out = da_kernel.decode_attention(q, k, v, vl)
+    assert kernels.LAUNCHES["decode_attention"] == before["decode_attention"] + 1
+    assert kernels.LAUNCHES["decode_attention_merge"] == before["decode_attention_merge"] + 1
+    for lens in ([1024] * 16, [0, 1, 63, 64, 65, 191, 192, 193, 500, 640, 700, 900, 1000,
+                               1023, 1024, 2]):
+        vl.copy_(torch.tensor(lens, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, da_kernel.decode_attention(q, k, v, vl))
+        plain = da_ref.decode_attention_plain(q, k, v, vl)
+        assert float((out.float() - plain.float()).abs().max()) <= DECODE_TOL[torch.bfloat16]
 
 
 # (N, K, d): the JAX package's pdist test shapes, K = 1, the design limit
@@ -291,40 +374,79 @@ def test_flash_attention_kernel_vs_plain(cuda, shape, dtype):
 
     causal, window, q_offset = shape[6:]
     q, k, v = _flash_inputs(cuda, shape, dtype)
-    before = kernels.LAUNCHES["flash_attention"]
+    name = fa_kernel.route(dtype)
+    before = dict(kernels.LAUNCHES)
     out = fa_kernel.flash_attention(q, k, v, causal=causal, window=window,
                                     q_offset=q_offset)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["flash_attention"] == before + 1
-    plain = fa_ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                 causal=causal, window=window,
-                                 q_offset=q_offset).transpose(1, 2)
+    assert kernels.LAUNCHES[name] == before[name] + 1
+    assert sum(kernels.LAUNCHES.values()) == sum(before.values()) + 1
+    tr = lambda x: x.transpose(1, 2)  # noqa: E731
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    plain = tr(fa_ref.attention_ref(tr(q), tr(k), tr(v), **kw))
     assert out.dtype == dtype and out.shape == q.shape
     assert bool(torch.isfinite(out).all())
     assert float((out.float() - plain.float()).abs().max()) <= FLASH_TOL[dtype]
+    if dtype == torch.bfloat16:  # and the tensor-core kernel's own arithmetic
+        own = tr(fa_ref.attention_bf16p(tr(q), tr(k), tr(v), **kw))
+        assert float((out.float() - own.float()).abs().max()) <= FLASH_TOL[dtype]
     # rows that see no key give 0, as the plain version's do
     dead = (plain.float() == 0).all(dim=-1)
     assert bool((out[dead] == 0).all())
 
 
 @pytest.mark.cuda
-def test_flash_attention_reads_strided_layouts(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [8, 32, 128])
+def test_flash_attention_reads_strided_layouts(cuda, dtype, D):
     """q, k, v as views of one fused projection (the model's layout before
-    any copy) give the same result as contiguous copies, bitwise; the ops
-    wrapper's bq/bk change nothing."""
+    any copy) give the same result as contiguous copies, bitwise; so does a
+    q whose base is one element off 16 bytes (the bf16 kernel stages it by
+    plain loads); the ops wrapper's bq/bk change nothing."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
-    B, T, Hq, Hkv, D = 2, 150, 8, 2, 32
+    B, T, Hq, Hkv = 2, 150, 8, 2
     g = torch.Generator(device=cuda).manual_seed(7)
-    fused = torch.randn((B, T, (Hq + 2 * Hkv) * D), generator=g, device=cuda)
+    fused = torch.randn((B, T, (Hq + 2 * Hkv) * D), generator=g, device=cuda).to(dtype)
     q = fused[..., :Hq * D].view(B, T, Hq, D)
     k = fused[..., Hq * D:(Hq + Hkv) * D].view(B, T, Hkv, D)
     v = fused[..., (Hq + Hkv) * D:].view(B, T, Hkv, D)
     assert not q.is_contiguous()
+    before = kernels.LAUNCHES[fa_kernel.route(dtype)]
     out = fa_ops.flash_attention(q, k, v)
     assert torch.equal(out, fa_ops.flash_attention(q.contiguous(), k.contiguous(),
                                                    v.contiguous()))
     assert torch.equal(out, fa_ops.flash_attention(q, k, v, bq=32, bk=64))
+    base = torch.randn((B * T * Hq * D + 1,), generator=g, device=cuda).to(dtype)
+    q_off = base[1:].view(B, T, Hq, D)
+    assert q_off.data_ptr() % 16
+    assert torch.equal(fa_ops.flash_attention(q_off, k, v),
+                       fa_ops.flash_attention(q_off.contiguous(), k, v))
+    assert kernels.LAUNCHES[fa_kernel.route(dtype)] == before + 5
+
+
+@pytest.mark.cuda
+def test_flash_attention_counts_each_route(cuda):
+    """f32 launches the CUDA-core kernel, bf16 the tensor-core one, each
+    counted under its own name; the CUDA-core kernel on bf16 (how the smoke
+    run times it beside the other) agrees within the bf16 limit."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    assert fa_kernel.ROUTES == {torch.float32: "flash_attention",
+                                torch.bfloat16: "flash_attention_tc"}
+    q, k, v = _flash_inputs(cuda, (2, 256, 256, 8, 2, 64), torch.bfloat16)
+    before = dict(kernels.LAUNCHES)
+    tc = fa_kernel.flash_attention(q, k, v)
+    assert kernels.LAUNCHES["flash_attention_tc"] == before["flash_attention_tc"] + 1
+    assert kernels.LAUNCHES["flash_attention"] == before["flash_attention"]
+    cores = fa_kernel.flash_attention_cuda_cores(q, k, v)
+    assert kernels.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    fa_kernel.flash_attention(q.float(), k.float(), v.float())
+    assert kernels.LAUNCHES["flash_attention"] == before["flash_attention"] + 2
+    assert kernels.LAUNCHES["flash_attention_tc"] == before["flash_attention_tc"] + 1
+    torch.cuda.synchronize()
+    assert float((tc.float() - cores.float()).abs().max()) <= FLASH_TOL[torch.bfloat16]
 
 
 @pytest.mark.cuda
@@ -346,6 +468,16 @@ def test_flash_attention_refuses_bad_operands(cuda):
         fa_kernel.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, k)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fa_kernel.flash_attention(q, k.cpu(), k)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa_kernel.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa_kernel.flash_attention(q.bfloat16(), k, k.bfloat16())
+    with pytest.raises(ValueError, match="no kernel for D=24"):
+        fa_kernel.flash_attention(q.new_zeros((1, 16, 4, 24)).bfloat16(),
+                                  k.new_zeros((1, 16, 2, 24)).bfloat16(),
+                                  k.new_zeros((1, 16, 2, 24)).bfloat16())
+    with pytest.raises(ValueError, match="window"):
+        fa_kernel.flash_attention(q.bfloat16(), k.bfloat16(), k.bfloat16(), window=-1)
 
 
 @pytest.mark.cuda
@@ -364,12 +496,12 @@ def test_attn_apply_flash_branch_on_card(cuda):
     x = torch.randn((2, 256, cfg.d_model), generator=torch.Generator(device=cuda).manual_seed(1),
                     device=cuda).bfloat16()
     pos = torch.arange(256, device=cuda).expand(2, 256)
-    before = kernels.LAUNCHES["flash_attention"]
+    before = kernels.LAUNCHES["flash_attention_tc"]
     y, _ = attn.attn_apply(lp, cfg, x, positions=pos, use_kernel=True)
-    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    assert kernels.LAUNCHES["flash_attention_tc"] == before + 1
     y_plain, _ = attn.attn_apply(lp, cfg, x, positions=pos)
     y_chunk, _ = attn.attn_apply(lp, cfg.replace(attn_q_chunk=64), x, positions=pos)
-    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    assert kernels.LAUNCHES["flash_attention_tc"] == before + 1
     assert float((y.float() - y_plain.float()).abs().max()) <= 3e-2
     assert float((y.float() - y_chunk.float()).abs().max()) <= 3e-2
 

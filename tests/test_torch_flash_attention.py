@@ -22,6 +22,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.flash_attention import ops as j_ops  # noqa: E402
 from repro.kernels.flash_attention import ref as j_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as t_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as t_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as t_ref  # noqa: E402
 
@@ -140,3 +141,71 @@ def test_flash_routes_by_device():
     q = torch.zeros((1, 8, 2, 8), device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
         t_ops.flash_attention(q, q, q)
+
+
+def test_route_is_a_fixed_function_of_the_type():
+    """bf16 goes to the tensor-core kernel, f32 to the CUDA-core one, and
+    no other type has a kernel; the CPU path takes the routed kernel's
+    plain version."""
+    assert t_kernel.route(torch.bfloat16) == "flash_attention_tc"
+    assert t_kernel.route(torch.float32) == "flash_attention"
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            t_kernel.route(dtype)
+    assert t_ops.PLAIN == {"flash_attention": t_ref.attention_ref,
+                           "flash_attention_tc": t_ref.attention_bf16p}
+    from repro_torch import kernels
+
+    assert set(t_kernel.ROUTES.values()) <= set(kernels.KERNEL_NAMES)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cpu_path_takes_the_routed_plain_version(dtype):
+    (_, _, _), (tq, tk, tv) = _both(*_inputs(21, 2, 96, 96, 4, 2, 32),
+                                     dtype="bf16" if dtype == torch.bfloat16 else np.float32)
+    out = t_ops.flash_attention(tq, tk, tv, window=40)
+    plain = t_ops.PLAIN[t_kernel.route(dtype)]
+    t = lambda a: a.transpose(1, 2)  # noqa: E731
+    assert torch.equal(out, t(plain(t(tq), t(tk), t(tv), window=40)))
+
+
+# (B, T, S, Hq, Hkv, D, causal, window, q_offset): the JAX test shapes, a
+# query offset with T < S, rows that see no key, D 8 and D 128
+BF16P_CASES = [c + (0,) for c in SHAPES] + [
+    (2, 40, 100, 4, 2, 32, True, 0, 60), (1, 64, 64, 4, 2, 32, True, 8, 40),
+    (1, 70, 70, 2, 1, 8, True, 0, 0), (1, 130, 130, 4, 2, 128, True, 0, 0),
+]
+
+
+@pytest.mark.parametrize("case", BF16P_CASES, ids=str)
+def test_bf16p_plain_matches_ref_and_jax_kernel(case):
+    """The tensor-core kernel's arithmetic (online softmax over 64-key
+    tiles, P rounded to bf16 for P·V, l summed in f32) against
+    ``attention_ref`` and the JAX kernel in interpret mode, in bf16 at the
+    JAX package's bf16 limit; rows that see no key are exactly 0."""
+    B, T, S, Hq, Hkv, D, causal, window, q_offset = case
+    (jq, jk, jv), (tq, tk, tv) = _both(*_inputs(sum(case[:6]) + 7, B, T, S, Hq, Hkv, D),
+                                       dtype="bf16")
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    t = lambda a: a.transpose(1, 2)  # noqa: E731
+    out = t(t_ref.attention_bf16p(t(tq), t(tk), t(tv), **kw))
+    assert out.dtype == torch.bfloat16 and out.shape == tq.shape
+    ref = t(t_ref.attention_ref(t(tq), t(tk), t(tv), **kw))
+    assert float((out.float() - ref.float()).abs().max()) < BF16_TOL
+    jout = j_ops.flash_attention(jq, jk, jv, bq=32, bk=32, **kw)
+    assert _max_diff(jout, out) < BF16_TOL
+    dead = (ref.float() == 0).all(dim=-1)
+    assert bool((out[dead] == 0).all())
+    if q_offset == 40:  # the window leaves rows 31.. without a key
+        assert bool(dead[0, 31:].all())
+
+
+def test_bf16p_rounds_p_where_attention_ref_does_not():
+    """On f32 inputs the two plain versions differ only by P's rounding to
+    bf16 in P·V: within bf16's relative step of each other, and not equal."""
+    (_, _, _), (tq, tk, tv) = _both(*_inputs(4, 1, 128, 128, 4, 2, 64))
+    t = lambda a: a.transpose(1, 2)  # noqa: E731
+    a = t_ref.attention_ref(t(tq), t(tk), t(tv))
+    b = t_ref.attention_bf16p(t(tq), t(tk), t(tv))
+    diff = float((a - b).abs().max())
+    assert 0.0 < diff < 2.0 ** -8 * float(tv.abs().max())
