@@ -47,25 +47,33 @@
    where that step's time goes (host wall and enqueue, device time as a
    CUDA graph, aten operations dispatched, and the parts on the device).
    Then the CLI itself, briefly.
-6. Nearest-centroid kernel phase: the kernel against its plain version
-   (``pdist_argmin_ref``) under l2, l1 and l∞, f32 and bf16, at the JAX
+6. Nearest-centroid kernel phase: the two kernels, routed by metric (l2
+   to the tensor-core kernel, l1 and l∞ to the CUDA-core one), against
+   their plain version (``pdist_argmin_ref``), f32 and bf16, at the JAX
    package's test shapes, K = 1, K 1024 × d 512, duplicated centroid rows
-   (ties take the first index) and the first 8,192 points of the main
-   shape; distances within atol 1e-5 + rtol 1e-5·|plain|, indices equal
-   wherever the top-2 gap clears that.  Times at the main shape (4,898,432
-   × 42 against 1,000, l2) beside the operation bound, the plain version on
-   the 8,192-point chunk and ``torch.cdist(X, C).min(dim=1)``.
+   (ties take the first index), the first 8,192 points of the main shape
+   and an adversarial input for the l2 route (‖x‖² ≈ 1e6, centroids in
+   pairs 1e-3 apart: the rows its guard re-checked are printed);
+   distances within atol 1e-5 + rtol 1e-5·|plain|, indices equal
+   wherever the top-2 gap clears that.  Times in turns (median and
+   min–max of 6 runs) at the main shape (4,898,432 × 42 against 1,000,
+   l2, f32) of the tensor-core route, the CUDA-core kernel on the same
+   inputs and ``torch.cdist(X, C).min(dim=1)`` (eager), beside the 3xTF32
+   operation bound and the f32 one; the CUDA-core kernel under l1 at
+   ``kmeans(metric="l1")``'s shape in turns with ``torch.cdist(p=1)``.
 7. Clustering: ``repro_torch.ml.clustering.distributed_kmeans`` at the KDD
    Cup 1999 shape (16 sites × 306,152 × 42, K = 1000, 20 iterations; a
-   planted mixture made on the card from a seed): exactly 21 kernel
-   launches, inertia below C0's, the §4.1 identity against centralized
-   k-means on the union (empty clusters kept, as ``distributed_kmeans``
-   keeps them; ``kmeans`` itself, which zeroes them, is run and reported),
-   and where an iteration's time goes (E-step, M-step, profiled device
-   busy time against wall).  Then, at a reduced 16 × 20,000 × 42:
-   k-windows through ``fit`` (ledger bytes checked), ``consensus_kmeans``
-   (launches = iterations × sites × local EM steps) and ``kmeans_pp_init``
-   at K = 1000 on one site.
+   planted mixture made on the card from a seed): exactly 21 launches of
+   the tensor-core route and none of the CUDA-core one, the rows the
+   guard re-checked in each E-step, inertia below C0's, the §4.1 identity
+   against centralized k-means on the union (empty clusters kept, as
+   ``distributed_kmeans`` keeps them; ``kmeans`` itself, which zeroes
+   them, is run and reported), and where an iteration's time goes (E-step,
+   M-step, profiled device busy time against wall).  Then, at a reduced
+   16 × 20,000 × 42: k-windows through ``fit`` (ledger bytes checked),
+   ``consensus_kmeans`` (launches = iterations × sites × local EM steps),
+   ``kmeans_pp_init`` at K = 1000 on one site, and ``kmeans`` under l1 and
+   l∞ (the CUDA-core route's path: iterations + 1 launches each).
 8. Flash-attention kernel phase: the two kernels, routed by type (f32 to
    the CUDA-core kernel, bf16 to the tensor-core one), against their plain
    version (``attention_ref``) at the JAX package's five test shapes
@@ -100,12 +108,13 @@
    bf16, unsorted thresholds with 0 among them, the mask also on a view
    one element off 16 bytes; ``topk_sparsify`` on that leaf at k = 1 % (3
    count and 1 mask launches, at least k survivors, every kept magnitude
-   at least every dropped one); times beside the byte bounds, the mask
-   beside ``F.hardshrink(x, nextafter(t, 0))`` (bitwise the same function
-   on f32), the whole function (graph-captured, so no host round trip)
-   beside ``torch.topk(x.abs().flatten(), k)``.
+   at least every dropped one); times beside the byte bounds, the mask in
+   turns with ``F.hardshrink(x, nextafter(t, 0))`` (bitwise the same
+   function on f32; median and min–max of 6 runs), the whole function
+   (graph-captured, so no host round trip) beside
+   ``torch.topk(x.abs().flatten(), k)``.
 11. Prints the redesigned kernels' times in turns, one JSON line of
-   per-kernel numbers (eleven kernels), the card's name and power limit,
+   per-kernel numbers (twelve kernels), the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
 No earlier phase is cut to make room for 8–10.
@@ -218,14 +227,19 @@ def eager_ms(torch, fn, *, inner: int, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def turns_ms(torch, fns: dict, *, inner: int, rounds: int = 3) -> dict:
+def turns_ms(torch, fns: dict, *, inner: int, rounds: int = 3, eager=()) -> dict:
     """Device time of one call of each function in ``fns`` (name -> fn),
     timed in turns within this call: a CUDA graph of ``inner`` calls is
     captured for each, and each round replays them in the order of ``fns``
     and then reversed (library, kernel, kernel, library).  One replay is
-    one run; returns {name: {"median", "min", "max", "runs"}} in ms."""
+    one run; returns {name: {"median", "min", "max", "runs"}} in ms.  The
+    names in ``eager`` (calls too large or too host-bound to capture) run
+    as one direct call a run between the same CUDA events instead."""
     graphs = {}
     for name, fn in fns.items():
+        if name in eager:
+            fn()
+            continue
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -244,10 +258,13 @@ def turns_ms(torch, fns: dict, *, inner: int, rounds: int = 3) -> dict:
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
-            graphs[name].replay()
+            if name in eager:
+                fns[name]()
+            else:
+                graphs[name].replay()
             e1.record()
             e1.synchronize()
-            runs[name].append(e0.elapsed_time(e1) / inner)
+            runs[name].append(e0.elapsed_time(e1) / (1 if name in eager else inner))
     del graphs
     torch.cuda.empty_cache()
     return {name: {"median": statistics.median(v), "min": min(v), "max": max(v),
@@ -877,13 +894,33 @@ def pdist_compare(torch, X, C, metric, out=None):
     return err, clear_n, X.shape[0]
 
 
+TF32_OPS_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense (NVIDIA data sheet)
+#: the adversarial input: ‖x‖² ≈ 1e6 around centroids in pairs 1e-3 apart,
+#: where the expanded form ‖x‖² − 2x·c + ‖c‖² cancels (N, pairs, d)
+PDIST_ADVERSARIAL = (4099, 32, 42)
+
+
+def make_adversarial(torch, dtype, seed: int = 7):
+    N, pairs, d = PDIST_ADVERSARIAL
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    base = torch.full((d,), 1000.0 / d**0.5, device="cuda")
+    centers = base + torch.randn((pairs, d), generator=gen, device="cuda")
+    step = torch.randn((pairs, d), generator=gen, device="cuda")
+    step = 1e-3 * step / step.norm(dim=1, keepdim=True)
+    C = torch.cat([centers, centers + step]).to(dtype)
+    X = (base + torch.randn((N, d), generator=gen, device="cuda")).to(dtype)
+    return X, C
+
+
 def pdist_kernel_phase(torch, Xs, C0):
-    """The nearest-centroid kernel against its plain version at every shape,
-    metric and type, then times at the main shape."""
+    """The nearest-centroid kernels (l2 → tensor cores, l1 and l∞ → CUDA
+    cores) against their plain version at every shape, metric and type,
+    the adversarial input, then times at the main shape in turns."""
     from repro_torch.kernels.pdist_argmin import kernel as pdk, ref as pdr
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    err, checked = 0.0, 0
+    err = {"pdist_argmin": 0.0, "pdist_argmin_tc": 0.0}
+    checked = 0
     chunk = Xs.reshape(-1, KDD_D)[:PDIST_CHUNK]
     for shape in PDIST_SHAPES + [("main", KDD_K, KDD_D)]:
         N, K, d = shape
@@ -903,39 +940,99 @@ def pdist_kernel_phase(torch, Xs, C0):
                     i1, d1 = pdk.pdist_argmin(X, C[:K].contiguous(), metric)
                     check(torch.equal(i3, i1) and torch.equal(d3, d1),
                           f"pdist_argmin ties {metric} {dtype}: not the first index")
-                err = max(err, e)
+                err[pdk.route(metric)] = max(err[pdk.route(metric)], e)
                 checked += 1
-                print(f"pdist check {shape} {metric} {str(dtype)[6:]}: max |kernel − plain| "
-                      f"{e:.4g}, index compared on {clear}/{n} points", flush=True)
+                print(f"pdist check {shape} {metric} ({pdk.route(metric)}) {str(dtype)[6:]}: "
+                      f"max |kernel − plain| {e:.4g}, index compared on {clear}/{n} points",
+                      flush=True)
+    # the adversarial input: the guard must bring the l2 route back to the
+    # direct form's answer
+    for dtype in (torch.float32, torch.bfloat16):
+        X, C = make_adversarial(torch, dtype)
+        out = pdk.nearest_l2_tc(X, C)
+        e, clear, n = pdist_compare(torch, X, C, "l2", out=out[:2])
+        rechecked = int(out[2])
+        check(rechecked > 0, f"pdist adversarial {dtype}: the guard re-checked no row")
+        err["pdist_argmin_tc"] = max(err["pdist_argmin_tc"], e)
+        checked += 1
+        print(f"pdist check adversarial {PDIST_ADVERSARIAL} l2 {str(dtype)[6:]}: max |kernel − "
+              f"plain| {e:.4g}, index compared on {clear}/{n} points; the guard re-checked "
+              f"{rechecked} rows", flush=True)
     torch.cuda.synchronize()
     print(f"pdist phase: {checked} comparisons within atol {PDIST_ATOL} + rtol "
           f"{PDIST_RTOL}·|plain|, indices equal wherever the top-2 gap is clear", flush=True)
 
-    # times at the main shape (4,898,432 × 42 against 1,000, l2, f32)
+    # times at the main shape (4,898,432 × 42 against 1,000, l2, f32), in
+    # turns: the tensor-core route, the CUDA-core kernel (the earlier l2
+    # route) on the same inputs, the bf16 route, and torch.cdist + min (it
+    # materialises the 19.6 GB distance matrix: eager)
     X = Xs.reshape(-1, KDD_D)
     N = X.shape[0]
     nbytes = (N * KDD_D + KDD_K * KDD_D) * 4 + N * 8
     # what the function needs: one multiply-add (2 operations) per term of
-    # x·c, as the expanded form ‖x‖² − 2x·c + ‖c‖² does, plus the norms.
-    # The kernel's direct form Σ(x − c)² issues 3·N·K·d (a subtract and a
-    # multiply-add per term); that is its design, not the function's bound.
+    # x·c, as the expanded form does, plus the norms; the tensor-core route
+    # computes x·c as three TF32 products, so its bound is 3 × 2·N·K·d at
+    # the TF32 rate; the f32 bound (the same operations at the CUDA cores'
+    # rate) is kept beside it
     ops = 2 * N * KDD_K * KDD_D + 2 * (N + KDD_K) * KDD_D
-    b_ms, b_by = bound_ms(nbytes, ops)
-    # the library call materialises the 19.6 GB distance matrix: eager, 3 runs
-    lib_ms = eager_ms(torch, lambda: torch.cdist(X, C0).min(dim=1), inner=1, reps=3)
+    f32_ms, _ = bound_ms(nbytes, ops)
+    tc_ops = 3 * 2 * N * KDD_K * KDD_D
+    tc_ms = max(tc_ops / TF32_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    bound_by = "operations" if tc_ops / TF32_OPS_PER_S >= nbytes / HBM_BYTES_PER_S else "bytes"
     torch.cuda.empty_cache()
-    t = {
-        "ms": graph_ms(torch, lambda: pdk.pdist_argmin(X, C0, "l2"), inner=3, reps=5),
-        "plain_ms": eager_ms(torch, lambda: pdr.pdist_argmin_ref(chunk, C0, "l2"),
-                             inner=1, reps=5),
+    Xb, Cb = X.bfloat16(), C0.bfloat16()  # the bf16 route: one product at 989 TFLOP/s
+    t = turns_ms(torch, {
+        "library": lambda: torch.cdist(X, C0).min(dim=1),
+        "kernel": lambda: pdk.nearest_l2_tc(X, C0),
+        "cuda_cores": lambda: pdk.pdist_argmin_cuda_cores(X, C0, "l2"),
+        "kernel_bf16": lambda: pdk.nearest_l2_tc(Xb, Cb),
+    }, inner=3, rounds=3, eager=("library",))
+    bf16_ops = 2 * N * KDD_K * KDD_D
+    bf16_bytes = (N * KDD_D + KDD_K * KDD_D) * 2 + N * 8
+    bf16_bound = max(bf16_ops / BF16_OPS_PER_S, bf16_bytes / HBM_BYTES_PER_S) * 1e3
+    bf16_rechecked = int(pdk.nearest_l2_tc(Xb, Cb)[2])
+    del Xb, Cb
+    torch.cuda.empty_cache()
+    plain_ms = eager_ms(torch, lambda: pdr.pdist_argmin_ref(chunk, C0, "l2"), inner=1, reps=5)
+    rechecked = int(pdk.nearest_l2_tc(X, C0)[2])
+    tc = {
+        "ms": t["kernel"]["median"], "turns": t, "plain_ms": plain_ms,
         "plain_shape": [PDIST_CHUNK, KDD_D, KDD_K],
-        "library_ms": lib_ms, "library": "torch.cdist(X, C).min(dim=1)",
-        "bound_ms": b_ms, "bound_by": b_by, "shape": [N, KDD_D, KDD_K], "bytes": nbytes,
-        "ops": ops, "direct_form_ops": 3 * N * KDD_K * KDD_D,
+        "library_ms": t["library"]["median"], "library": "torch.cdist(X, C).min(dim=1)",
+        "bound_ms": tc_ms, "bound_by": bound_by, "bound_f32_ms": f32_ms,
+        "shape": [N, KDD_D, KDD_K], "bytes": nbytes, "ops_3xtf32": tc_ops,
+        "earlier_ms": t["cuda_cores"]["median"],
+        "earlier": "pdist_argmin_cuda_cores(X, C, 'l2'), the earlier l2 route, same turns",
+        "rechecked_rows": rechecked, "rechecked_share": rechecked / N,
+        "bf16_ms": t["kernel_bf16"]["median"], "bf16_bound_ms": bf16_bound,
+        "bf16_rechecked_rows": bf16_rechecked,
     }
+    print(f"time pdist_argmin_tc main (l2, f32): {tc}", flush=True)
+
+    # the CUDA-core route at its path's shape: kmeans(metric="l1") of the
+    # reduced family (16 × 20,000 × 42 points against 32 centroids)
+    Xr = X[:SITES * SMALL_N]
+    Cr = C0[:32].contiguous()
+    nr = Xr.shape[0]
+    r_bytes = (nr * KDD_D + 32 * KDD_D) * 4 + nr * 8
+    # a subtract and an add per term (the absolute value is an operand
+    # modifier on the CUDA cores)
+    r_ms, r_by = bound_ms(r_bytes, 2 * nr * 32 * KDD_D)
+    t1 = turns_ms(torch, {
+        "library": lambda: torch.cdist(Xr, Cr, p=1).min(dim=1),
+        "kernel": lambda: pdk.pdist_argmin_cuda_cores(Xr, Cr, "l1"),
+    }, inner=5, rounds=3)
+    cc = {
+        "ms": t1["kernel"]["median"], "turns": t1,
+        "plain_ms": eager_ms(torch, lambda: pdr.pdist_argmin_ref(Xr[:PDIST_CHUNK], Cr, "l1"),
+                             inner=1, reps=5),
+        "plain_shape": [PDIST_CHUNK, KDD_D, 32],
+        "library_ms": t1["library"]["median"], "library": "torch.cdist(X, C, p=1).min(dim=1)",
+        "bound_ms": r_ms, "bound_by": r_by, "shape": [nr, KDD_D, 32], "metric": "l1",
+    }
+    print(f"time pdist_argmin (CUDA cores) at kmeans(metric='l1')'s shape: {cc}", flush=True)
     torch.cuda.empty_cache()
-    print(f"time pdist_argmin main: {t}", flush=True)
-    return err, t
+    return err, tc, cc
 
 
 #: the §4.1 limits.  On the H100 the sound run read a relative inertia
@@ -983,6 +1080,7 @@ def kmeans_phase(torch, Xs, C0):
     centralized k-means on the union with a planted faulty Allreduce as its
     control, and where an EM iteration's time goes."""
     from repro_torch import kernels
+    from repro_torch.kernels.pdist_argmin import kernel as pdk
     from repro_torch.ml import clustering
 
     check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmuls are on")
@@ -990,15 +1088,35 @@ def kmeans_phase(torch, Xs, C0):
     inertia0 = float(clustering.nearest(Xall, C0, "l2sq")[1].sum())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # each E-step's count of rows the guard re-checked, kept on the card
+    # and read after the run
+    rechecks, sound_l2_tc = [], pdk.nearest_l2_tc
+
+    def recording_l2_tc(X_, C_):
+        out = sound_l2_tc(X_, C_)
+        rechecks.append(out[2])
+        return out
+
+    pdk.nearest_l2_tc = recording_l2_tc
     kernels.reset_launches()
     t0 = time.perf_counter()
-    res = clustering.distributed_kmeans(Xs, C0, num_clusters=KDD_K, iters=KDD_ITERS)
-    torch.cuda.synchronize()
+    try:
+        res = clustering.distributed_kmeans(Xs, C0, num_clusters=KDD_K, iters=KDD_ITERS)
+        torch.cuda.synchronize()
+    finally:
+        pdk.nearest_l2_tc = sound_l2_tc
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    want = {n: (KDD_ITERS + 1 if n == "pdist_argmin" else 0) for n in kernels.KERNEL_NAMES}
+    # l2sq takes the tensor-core route: one launch an E-step, none of the
+    # CUDA-core kernel
+    want = {n: (KDD_ITERS + 1 if n == "pdist_argmin_tc" else 0) for n in kernels.KERNEL_NAMES}
     check(launches == want, f"distributed_kmeans launches {launches}, expected {want}")
+    rechecked = [int(r) for r in rechecks]
+    check(len(rechecked) == KDD_ITERS + 1, f"{len(rechecked)} E-steps recorded")
+    print(f"distributed_kmeans: rows the guard re-checked in each of the {KDD_ITERS + 1} "
+          f"E-steps (of {Xall.shape[0]}): {rechecked}; share {min(rechecked) / Xall.shape[0]:.6f}"
+          f"–{max(rechecked) / Xall.shape[0]:.6f}", flush=True)
     inertia = float(res.inertia)
     check(bool(torch.isfinite(res.centroids).all()) and res.centroids.shape == (KDD_K, KDD_D),
           "centroids not finite of shape (1000, 42)")
@@ -1103,8 +1221,10 @@ def kmeans_phase(torch, Xs, C0):
     check(not identity_holds(planted), f"§4.1 check passes a faulty Allreduce: {planted}")
     del bad, central, a, C
     torch.cuda.empty_cache()
-    return launches["pdist_argmin"], full_err, {"iteration_ms": it_ms, "estep_ms": e_ms,
-                                      "mstep_ms": m_ms, "peak_gib": peak / 2**30}
+    return launches["pdist_argmin_tc"], full_err, {
+        "iteration_ms": it_ms, "estep_ms": e_ms, "mstep_ms": m_ms, "peak_gib": peak / 2**30,
+        "idle_share": 1 - busy / p_wall if busy > 0 else None,
+        "rechecked_share_max": max(rechecked) / Xall.shape[0]}
 
 
 def family_phase(torch):
@@ -1150,12 +1270,12 @@ def family_phase(torch):
     C, admm = clustering.consensus_kmeans(Xs, C0, iters=iters, local_em_iters=em)
     torch.cuda.synchronize()
     ck_s = time.perf_counter() - t0
-    check(kernels.LAUNCHES["pdist_argmin"] == iters * SITES * em,
-          f"consensus_kmeans launches {kernels.LAUNCHES['pdist_argmin']} != "
+    check(kernels.LAUNCHES["pdist_argmin_tc"] == iters * SITES * em,
+          f"consensus_kmeans launches {kernels.LAUNCHES['pdist_argmin_tc']} != "
           f"{iters} × {SITES} × {em}")
     check(bool(torch.isfinite(C).all()) and C.shape == (Kc, KDD_D), "consensus centroids")
     print(f"consensus_kmeans K {Kc}, {iters} ADMM iterations × {em} local EM steps: "
-          f"{ck_s:.4f} s, {kernels.LAUNCHES['pdist_argmin']} kernel launches, residuals "
+          f"{ck_s:.4f} s, {kernels.LAUNCHES['pdist_argmin_tc']} kernel launches, residuals "
           f"{admm.history[-1].tolist()}", flush=True)
 
     # centralized kmeans as the JAX package defines it: l2 (argmin over
@@ -1165,7 +1285,7 @@ def family_phase(torch):
     km = clustering.kmeans(Xall, C0, num_clusters=Kc, metric="l2", iters=iters)
     torch.cuda.synchronize()
     km_s = time.perf_counter() - t0
-    check(kernels.LAUNCHES["pdist_argmin"] == iters + 1, "kmeans launches")
+    check(kernels.LAUNCHES["pdist_argmin_tc"] == iters + 1, "kmeans launches")
     km0 = float(clustering.nearest(Xall, C0, "l2sq")[1].sum())
     check(bool(torch.isfinite(km.centroids).all()) and float(km.inertia) < km0,
           f"kmeans inertia {float(km.inertia)} not below C0's {km0}")
@@ -1178,7 +1298,7 @@ def family_phase(torch):
     Cpp = clustering.kmeans_pp_init(torch.Generator(device="cuda").manual_seed(4), Xs[0], KDD_K)
     torch.cuda.synchronize()
     pp_s = time.perf_counter() - t0
-    check(kernels.LAUNCHES["pdist_argmin"] == KDD_K - 1, "kmeans_pp_init launches")
+    check(kernels.LAUNCHES["pdist_argmin_tc"] == KDD_K - 1, "kmeans_pp_init launches")
     check(bool((clustering.nearest(Cpp, Xs[0], "l2sq")[1] == 0).all()),
           "kmeans++ centers are not data points")
     rand = Xs[0][torch.randperm(SMALL_N, generator=gen, device="cuda")[:KDD_K]]
@@ -1188,8 +1308,31 @@ def family_phase(torch):
     print(f"kmeans_pp_init K {KDD_K} on one site ({SMALL_N} points): {pp_s:.4f} s, "
           f"{KDD_K - 1} launches; inertia {i_pp:.6g} vs {i_rand:.6g} for random rows",
           flush=True)
+
+    # kmeans under l1 and l∞, as the JAX package's kmeans takes them: the
+    # CUDA-core route's path (each E-step one launch of it; the inertia,
+    # squared l2, one launch of the tensor-core route)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    kms = {m: clustering.kmeans(Xall, C0, num_clusters=Kc, metric=m, iters=iters)
+           for m in ("l1", "linf")}
+    torch.cuda.synchronize()
+    kml_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    want = {n: {"pdist_argmin": 2 * (iters + 1), "pdist_argmin_tc": 2}.get(n, 0)
+            for n in kernels.KERNEL_NAMES}
+    check(launches == want, f"kmeans l1 + linf launches {launches}, expected {want}")
+    for m, r in kms.items():
+        obj0 = float(clustering.nearest(Xall, C0, m)[1].sum())
+        obj = float(clustering.nearest(Xall, r.centroids, m)[1].sum())
+        check(bool(torch.isfinite(r.centroids).all()) and r.centroids.shape == (Kc, KDD_D)
+              and obj < obj0, f"kmeans {m}: objective {obj} not below C0's {obj0}")
+        print(f"kmeans K {Kc}, {iters} iterations, metric {m}: objective (sum of {m} "
+              f"distances) {obj0:.6g} -> {obj:.6g}", flush=True)
+    print(f"kmeans l1 + linf: {kml_s:.4f} s, launches {launches}", flush=True)
     del Xs
     torch.cuda.empty_cache()
+    return launches["pdist_argmin"]
 
 
 # ----------------------------------------------------------------------------
@@ -1603,14 +1746,17 @@ def topk_phase(torch, leaf):
             "bytes": cnt_bytes, "compares": tkr.NCAND * n,
             "compare_ms_at_f32_rate": tkr.NCAND * n / F32_OPS_PER_S * 1e3,
         },
-        "topk_mask": {
-            "ms": graph_ms(torch, lambda: tkk.apply_threshold(x, lo), inner=5, reps=5),
-            "plain_ms": graph_ms(torch, lambda: tkr.apply_threshold_ref(x, lo), inner=1, reps=5),
-            "library_ms": graph_ms(torch, lambda: F.hardshrink(x, lam), inner=5, reps=5),
-            "library": "F.hardshrink(x, nextafter(t, 0)), bitwise equal",
-            "bound_ms": mask_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "bytes": mask_bytes,
-        },
+    }
+    # the mask in turns with F.hardshrink (library, kernel, kernel, library)
+    mask_t = turns_ms(torch, {"library": lambda: F.hardshrink(x, lam),
+                              "kernel": lambda: tkk.apply_threshold(x, lo)}, inner=5, rounds=3)
+    timings["topk_mask"] = {
+        "ms": mask_t["kernel"]["median"], "turns": mask_t,
+        "plain_ms": graph_ms(torch, lambda: tkr.apply_threshold_ref(x, lo), inner=1, reps=5),
+        "library_ms": mask_t["library"]["median"],
+        "library": "F.hardshrink(x, nextafter(t, 0)), bitwise equal",
+        "bound_ms": mask_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "bytes": mask_bytes,
     }
     whole = {
         "topk_sparsify_ms": graph_ms(torch, lambda: tko.topk_sparsify(x, k), inner=1, reps=5),
@@ -1635,6 +1781,7 @@ REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:31",
     "decode_attention_merge": "src/repro/kernels/decode_attention/kernel.py:74",
     "pdist_argmin": "src/repro/kernels/pdist_argmin/kernel.py:20",
+    "pdist_argmin_tc": "src/repro/kernels/pdist_argmin/kernel.py:20",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:28",
     "flash_attention_tc": "src/repro/kernels/flash_attention/kernel.py:28",
     "topk_count": "src/repro/kernels/topk_compress/kernel.py:35",
@@ -1644,6 +1791,7 @@ SOURCES = {
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
     "decode_attention_merge": "src/repro_torch/csrc/decode_attention.cu",
     "pdist_argmin": "src/repro_torch/csrc/pdist_argmin.cu",
+    "pdist_argmin_tc": "src/repro_torch/csrc/pdist_argmin_tc.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "flash_attention_tc": "src/repro_torch/csrc/flash_attention_tc.cu",
     "topk_count": "src/repro_torch/csrc/topk_sparsify.cu",
@@ -1675,7 +1823,7 @@ def main() -> int:
           + ")", flush=True)
     for name in build.SIGNATURES:
         print(build.build_info(name)["log"].strip(), flush=True)
-    for name in ("flash_attention_tc", "decode_attention"):
+    for name in ("flash_attention_tc", "decode_attention", "pdist_argmin_tc"):
         print(f"ptxas {name}: " + json.dumps(ptxas_summary(build.build_info(name)["log"])),
               flush=True)
     tc, dec = build.library("flash_attention_tc"), build.library("decode_attention")
@@ -1700,12 +1848,15 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"KDD Cup 1999-shaped data {tuple(Xs.shape)} f32 on the card "
           f"({Xs.numel() * 4 / 1e9:.3f} GB) in {time.perf_counter() - t0:.4f} s", flush=True)
-    err["pdist_argmin"], timings[("pdist_argmin", "main")] = pdist_kernel_phase(torch, Xs, C0)
-    launches["pdist_argmin"], full_err, kmeans_stats = kmeans_phase(torch, Xs, C0)
-    err["pdist_argmin"] = max(err["pdist_argmin"], full_err)
+    pdist_err, pdist_tc_t, pdist_cc_t = pdist_kernel_phase(torch, Xs, C0)
+    err.update(pdist_err)
+    timings[("pdist_argmin_tc", "main")] = pdist_tc_t
+    timings[("pdist_argmin", "main")] = pdist_cc_t
+    launches["pdist_argmin_tc"], full_err, kmeans_stats = kmeans_phase(torch, Xs, C0)
+    err["pdist_argmin_tc"] = max(err["pdist_argmin_tc"], full_err)
     del Xs, C0
     torch.cuda.empty_cache()
-    family_phase(torch)
+    launches["pdist_argmin"] = family_phase(torch)
     print("k-means iteration:", json.dumps(kmeans_stats), flush=True)
     flash_err, flash_t = flash_kernel_phase(torch)
     err.update(flash_err)
@@ -1724,7 +1875,9 @@ def main() -> int:
     print("topk_sparsify:", json.dumps(tk_whole), flush=True)
     print("redesigned kernels, times in turns with the library call:", json.dumps({
         "decode_attention": decode_t, "decode_attention_merge": merge_t,
-        **{f"{n} {label}": t for (n, label), t in flash_t.items()}}), flush=True)
+        **{f"{n} {label}": t for (n, label), t in flash_t.items()},
+        "pdist_argmin_tc": pdist_tc_t["turns"], "pdist_argmin l1": pdist_cc_t["turns"],
+        "topk_mask": tk_timings["topk_mask"]["turns"]}), flush=True)
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was never launched on the main path")
 

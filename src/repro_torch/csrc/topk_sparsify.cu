@@ -25,9 +25,14 @@
 // registers, are summed per block in shared memory and added to the
 // 64-bit result with one atomic per block and threshold: integer sums, so
 // the result is exact and independent of order.  The mask is a streaming
-// pass with 16-byte loads and stores and a scalar loop for the tail; where
-// x or o does not start on 16 bytes (a view at an offset), the scalar loop
-// takes all of x.
+// pass: each thread issues its two 16-byte loads before its first store,
+// on a grid that covers x once (one block for each 512 vectors), and a
+// scalar loop takes the tail; where x or o does not start on 16 bytes (a
+// view at an offset), the scalar loop takes all of x.  On the H100 this
+// one-shot grid ran at F.hardshrink's speed, where a persistent grid of
+// every resident block (with one or four loads in flight), the evict-first
+// hints on loads or stores, and the threshold staged once a block through
+// shared memory were slower.
 //
 // Bound.  Bytes: the count reads x once (4 or 2 bytes an element), the
 // mask reads and writes it once.  The count as written does 128 compares
@@ -111,25 +116,44 @@ __device__ __forceinline__ T keep_or_zero(T v, float thr) {
   return fabsf(to_f32<T>(v)) >= thr ? v : T(0.0f);  // T(0) is +0.0
 }
 
+// 16-byte loads of a thread in flight at once, all issued before any store
+constexpr int kMaskLoads = 2;
+
+// One pass over x: block b owns the kThreads * kMaskLoads 16-byte vectors
+// from b * kThreads * kMaskLoads on (vector u of a thread kThreads apart,
+// so each load is coalesced); the grid covers the vectors once.  The
+// scalar part (the tail, or all of x when x or o is not on 16 bytes)
+// strides over the same grid.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 mask_kernel(const T* __restrict__ x, long long n, const float* __restrict__ t,
             T* __restrict__ o, int aligned) {
   using V = Vec<T>;
-  const float thr = *t;
+  const float thr = __ldg(t);
   const long long nvec = aligned ? n / V::kN : 0;
-  const long long stride = (long long)gridDim.x * kThreads;
-  const long long first = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long base = (long long)blockIdx.x * kThreads * kMaskLoads + threadIdx.x;
   const uint4* xv = reinterpret_cast<const uint4*>(x);
   uint4* ov = reinterpret_cast<uint4*>(o);
-  for (long long i = first; i < nvec; i += stride) {
-    uint4 raw = xv[i];
-    V& e = *reinterpret_cast<V*>(&raw);
+  uint4 raw[kMaskLoads];
 #pragma unroll
-    for (int u = 0; u < V::kN; ++u) e.v[u] = keep_or_zero<T>(e.v[u], thr);
-    ov[i] = raw;
+  for (int u = 0; u < kMaskLoads; ++u) {
+    const long long j = base + u * kThreads;
+    if (j < nvec) raw[u] = xv[j];
   }
-  for (long long i = nvec * V::kN + first; i < n; i += stride) o[i] = keep_or_zero<T>(x[i], thr);
+#pragma unroll
+  for (int u = 0; u < kMaskLoads; ++u) {
+    const long long j = base + u * kThreads;
+    if (j < nvec) {
+      V& e = *reinterpret_cast<V*>(&raw[u]);
+#pragma unroll
+      for (int q = 0; q < V::kN; ++q) e.v[q] = keep_or_zero<T>(e.v[q], thr);
+      ov[j] = raw[u];
+    }
+  }
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long i = nvec * V::kN + (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += stride)
+    o[i] = keep_or_zero<T>(x[i], thr);
 }
 
 int grid_for(long long work, long long per_block) {
@@ -140,6 +164,14 @@ int grid_for(long long work, long long per_block) {
   const long long cap = 8LL * sms;
   if (blocks > cap) blocks = cap;
   return (int)(blocks < 1 ? 1 : blocks);
+}
+
+// The mask's grid: one block for each kThreads * kMaskLoads vectors (or
+// scalar elements where x is not on 16 bytes), at least one.
+long long mask_grid(long long work) {
+  const long long per_block = (long long)kThreads * kMaskLoads;
+  const long long blocks = (work + per_block - 1) / per_block;
+  return blocks < 1 ? 1 : blocks;
 }
 
 }  // namespace
@@ -169,12 +201,13 @@ int repro_apply_threshold(const void* x, long long n, const float* t, void* o,
   if (n < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int aligned = (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(o)) % 16 == 0;
-  const int grid = grid_for(aligned ? n / (is_bf16 ? 8 : 4) + 1 : n, kThreads);
+  const long long grid = mask_grid(aligned ? n / (is_bf16 ? 8 : 4) : n);
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (is_bf16)
-    mask_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+    mask_kernel<__nv_bfloat16><<<(unsigned)grid, kThreads, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x), n, t, static_cast<__nv_bfloat16*>(o), aligned);
   else
-    mask_kernel<float><<<grid, kThreads, 0, st>>>(
+    mask_kernel<float><<<(unsigned)grid, kThreads, 0, st>>>(
         static_cast<const float*>(x), n, t, static_cast<float*>(o), aligned);
   return (int)cudaGetLastError();
 }

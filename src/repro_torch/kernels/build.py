@@ -53,6 +53,11 @@ SIGNATURES = {
     "pdist_argmin": {
         "repro_pdist_argmin": ([_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P], ctypes.c_int),
     },
+    "pdist_argmin_tc": {
+        "repro_pdist_argmin_tc": (
+            [_P, _P, _P, _P, _LL, _I, _I, _I, _P, _P, _P, _P, _P], ctypes.c_int),
+        "repro_pdist_argmin_tc_image_bytes": ([_I, _I, _I], ctypes.c_longlong),
+    },
     "flash_attention": {
         "repro_flash_attention": (
             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),

@@ -1,12 +1,25 @@
-"""CUDA launch of the nearest-centroid kernel (``csrc/pdist_argmin.cu``).
+"""CUDA launch of nearest-centroid assignment: two kernels, routed by metric.
 
-Replaces ``repro.kernels.pdist_argmin.kernel``'s ``_pdist_kernel``.  Where
-the Pallas kernel keeps all of C resident in VMEM and walks point blocks
-padded to ``bn``, this kernel stages C through shared memory in tiles of
-16 centroids × 128 coordinates, runs one thread per point and masks the
-ragged tail itself, so nothing is padded.  l2 is the direct form Σ(x − c)²
-on the CUDA cores, not the TPU kernel's expanded form on its matrix unit.
-Bound by arithmetic: 3·N·K·d f32 operations.
+Both replace ``repro.kernels.pdist_argmin.kernel``'s ``_pdist_kernel``.
+Where the Pallas kernel keeps all of C resident in VMEM and walks point
+blocks padded to ``bn``, these kernels stream C through shared memory in
+tiles and mask the ragged tail of X themselves, so X is never padded.
+
+The route is a fixed function of the metric (``ROUTES``), not a fallback:
+
+- l2 → ``csrc/pdist_argmin_tc.cu``: the TPU kernel's expanded form
+  ‖x‖² − 2x·c + ‖c‖² with the cross term on the tensor cores (``wgmma``;
+  3xTF32 in f32, one bf16 product in bf16), the best and second-best
+  kept in registers, the winner's distance recomputed in the direct form,
+  and the rows whose top-2 gap is inside the expanded form's error bound
+  re-run in the direct form by a second kernel; counted as
+  ``pdist_argmin_tc``.  Bound by the products: 3·2·N·K·d at 495 TF32
+  TFLOP/s (bf16: 2·N·K·d at 989).
+- l1, l∞ → ``csrc/pdist_argmin.cu``: one thread per point on the CUDA
+  cores, C in 16 × 128 tiles; neither metric has a matrix-product form.
+  Counted as ``pdist_argmin``.  ``pdist_argmin_cuda_cores`` runs it under
+  l2 as well (the direct form Σ(x − c)²), to time it beside the
+  tensor-core route.
 """
 
 from __future__ import annotations
@@ -18,6 +31,17 @@ from repro_torch.kernels import build
 from repro_torch.kernels.pdist_argmin.ref import METRICS
 
 _DTYPES = (torch.float32, torch.bfloat16)
+#: metric -> the kernel that runs it (its ``kernels.LAUNCHES`` name)
+ROUTES = {"l2": "pdist_argmin_tc", "l1": "pdist_argmin", "linf": "pdist_argmin"}
+#: centroids a tensor-core n-tile (``kBN`` in the source); C is padded to it
+TILE_N = 64
+
+
+def route(metric: str) -> str:
+    """The kernel that runs ``metric``."""
+    if metric not in ROUTES:
+        raise ValueError(metric)
+    return ROUTES[metric]
 
 
 def _check(x, what: str, device=None) -> None:
@@ -32,10 +56,7 @@ def _check(x, what: str, device=None) -> None:
             f"pdist_argmin {what}: expected float32 or bfloat16, got {x.dtype}")
 
 
-def pdist_argmin(X: torch.Tensor, C: torch.Tensor, metric: str = "l2"):
-    """Launch on CUDA ``X`` (N, d) and ``C`` (K, d) of one type (f32 or
-    bf16): ``(idx int32 (N,), dist f32 (N,))``, the first index of each
-    point's nearest centroid and its distance (l2 squared)."""
+def _validate(X, C, metric: str):
     _check(X, "X")
     _check(C, "C", X.device)
     if C.dtype != X.dtype:
@@ -45,9 +66,27 @@ def pdist_argmin(X: torch.Tensor, C: torch.Tensor, metric: str = "l2"):
         raise ValueError(metric)
     N, d = X.shape
     K = C.shape[0]
-    if C.shape[1] != d or N < 1 or not 1 <= K < 2**31 or not 1 <= d < 2**31:
+    if C.shape[1] != d or N < 1 or not 1 <= K < 2**31 - TILE_N or not 1 <= d < 2**31:
         raise ValueError(
             f"pdist_argmin: unsupported shapes X {tuple(X.shape)}, C {tuple(C.shape)}")
+    return N, K, d
+
+
+def pdist_argmin(X: torch.Tensor, C: torch.Tensor, metric: str = "l2"):
+    """Launch on CUDA ``X`` (N, d) and ``C`` (K, d) of one type (f32 or
+    bf16) the kernel ``route(metric)`` names: ``(idx int32 (N,), dist f32
+    (N,))``, the first index of each point's nearest centroid and its
+    distance (l2 squared)."""
+    _validate(X, C, metric)
+    if route(metric) == "pdist_argmin_tc":
+        return nearest_l2_tc(X, C)[:2]
+    return pdist_argmin_cuda_cores(X, C, metric)
+
+
+def pdist_argmin_cuda_cores(X: torch.Tensor, C: torch.Tensor, metric: str = "l2"):
+    """The CUDA-core kernel (``csrc/pdist_argmin.cu``) under any metric,
+    l2 in the direct form: ``(idx int32 (N,), dist f32 (N,))``."""
+    N, K, d = _validate(X, C, metric)
     lib = build.library("pdist_argmin")
     idx = torch.empty((N,), dtype=torch.int32, device=X.device)
     dist = torch.empty((N,), dtype=torch.float32, device=X.device)
@@ -59,3 +98,33 @@ def pdist_argmin(X: torch.Tensor, C: torch.Tensor, metric: str = "l2"):
     build.check(status, "pdist_argmin")
     kernels.LAUNCHES["pdist_argmin"] += 1
     return idx, dist
+
+
+def nearest_l2_tc(X: torch.Tensor, C: torch.Tensor):
+    """The tensor-core l2 route (``csrc/pdist_argmin_tc.cu``: the tile
+    preparation, the product kernel and the direct-form recheck, on the
+    current stream with no host synchronisation): ``(idx int32 (N,), dist
+    f32 (N,), rechecked int32 (1,))``, the last the number of rows the
+    guard re-ran in the direct form."""
+    N, K, d = _validate(X, C, "l2")
+    if N >= 2**31:
+        raise ValueError(f"pdist_argmin: {N} points, the l2 route takes < 2^31")
+    bf16 = int(X.dtype == torch.bfloat16)
+    lib = build.library("pdist_argmin_tc")
+    dev = X.device
+    image = torch.empty((lib.repro_pdist_argmin_tc_image_bytes(K, d, bf16),),
+                        dtype=torch.uint8, device=dev)
+    c2 = torch.empty((-(-K // TILE_N) * TILE_N,), dtype=torch.float32, device=dev)
+    scratch = torch.zeros((2,), dtype=torch.int32, device=dev)  # max ‖c‖², flag count
+    flagged = torch.empty((N,), dtype=torch.int32, device=dev)
+    idx = torch.empty((N,), dtype=torch.int32, device=dev)
+    dist = torch.empty((N,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        status = lib.repro_pdist_argmin_tc(
+            X.data_ptr(), C.data_ptr(), idx.data_ptr(), dist.data_ptr(), N, K, d, bf16,
+            image.data_ptr(), c2.data_ptr(), scratch.data_ptr(), flagged.data_ptr(),
+            build.stream_of(X),
+        )
+    build.check(status, "pdist_argmin_tc")
+    kernels.LAUNCHES["pdist_argmin_tc"] += 1
+    return idx, dist, scratch[1:]

@@ -1,8 +1,10 @@
 """Nearest-centroid assignment, kernel-backed.
 
-Counterpart of ``repro.kernels.pdist_argmin.ops.pdist_argmin``: the CUDA
-kernel for CUDA tensors, its plain version (``ref.pdist_argmin_ref``) for
-CPU ones, and an error for any other device.  Unlike the JAX wrapper
+Counterpart of ``repro.kernels.pdist_argmin.ops.pdist_argmin``: for CUDA
+tensors the kernel that ``kernel.route`` names for the metric (l2: tensor
+cores; l1, l∞: CUDA cores), for CPU ones the plain version
+(``ref.pdist_argmin_ref``, the direct form both kernels are held to), and an
+error for any other device.  Unlike the JAX wrapper
 nothing is padded: the kernel masks its own ragged tail.
 """
 

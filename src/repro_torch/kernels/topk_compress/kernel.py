@@ -15,10 +15,10 @@ integer atomic per warp.  Bound by bytes: 12 n (encode) or 8 n (select).
 kernel walks padded (nb, 8, 1024) tiles in order carrying f32 counts:
 each warp lane owns four of the 128 thresholds, the elements reach it by
 shuffles, and the counts are integers (one 64-bit atomic per block and
-threshold), exact at any size.  The mask is one streaming pass, 16 bytes
-at a time where x starts on 16 bytes.  Neither pads: the kernels mask
-their own ragged tails.  Bound by bytes: 4 n (2 n
-in bf16) a count, twice that a mask.
+threshold), exact at any size.  The mask is one streaming pass over a grid
+that covers x once, each thread with two 16-byte loads in flight where x
+starts on 16 bytes.  Neither pads: the kernels mask their own ragged
+tails.  Bound by bytes: 4 n (2 n in bf16) a count, twice that a mask.
 """
 
 from __future__ import annotations

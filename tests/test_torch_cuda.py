@@ -260,10 +260,12 @@ def test_pdist_argmin_kernel_vs_plain(cuda, shape, metric, dtype):
     g = torch.Generator(device=cuda).manual_seed(N + K + d)
     X = torch.randn((N, d), generator=g, device=cuda).to(dtype)
     C = torch.randn((K, d), generator=g, device=cuda).to(dtype)
-    before = kernels.LAUNCHES["pdist_argmin"]
+    before = dict(kernels.LAUNCHES)
     idx, dist = pd_kernel.pdist_argmin(X, C, metric)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["pdist_argmin"] == before + 1
+    name = pd_kernel.route(metric)
+    assert kernels.LAUNCHES[name] == before[name] + 1
+    assert sum(kernels.LAUNCHES.values()) == sum(before.values()) + 1
     assert idx.dtype == torch.int32 and dist.dtype == torch.float32
     ref_idx, ref_dist = [], []
     for s in range(0, N, 1024):  # the plain version materialises (n, K, d)
@@ -331,13 +333,100 @@ def test_distributed_kmeans_on_card_launches_once_an_iteration(cuda):
     X = means[torch.randint(0, 8, (4 * 500,), generator=g, device=cuda)]
     X = X + torch.randn(X.shape, generator=g, device=cuda)
     C0 = X[torch.randperm(X.shape[0], generator=g, device=cuda)[:8]]
-    before = kernels.LAUNCHES["pdist_argmin"]
+    before = kernels.LAUNCHES["pdist_argmin_tc"]
     rd = clustering.distributed_kmeans(X.reshape(4, 500, 6), C0, num_clusters=8, iters=10)
-    assert kernels.LAUNCHES["pdist_argmin"] == before + 11
+    assert kernels.LAUNCHES["pdist_argmin_tc"] == before + 11
     rc = clustering.kmeans(X, C0, num_clusters=8, metric="l2sq", iters=10)
     assert torch.allclose(rd.centroids, rc.centroids, atol=1e-4)
     assert float((rd.assignments == rc.assignments).float().mean()) > 0.999
     assert float(rd.inertia) <= float(clustering.nearest(X, C0, "l2sq")[1].sum())
+
+
+def _pdist_plain(X, C, metric):
+    from repro_torch.kernels.pdist_argmin import ref as pd_ref
+
+    out = [pd_ref.pdist_argmin_ref(X[s:s + 1024], C, metric) for s in range(0, X.shape[0], 1024)]
+    return torch.cat([i for i, _ in out]), torch.cat([d for _, d in out])
+
+
+def _adversarial(cuda, dtype, seed=7, N=4099, pairs=32, d=42):
+    """Points with ‖x‖² ≈ 1e6 around centroids in pairs 1e-3 apart (in
+    bf16 the pair's step rounds to one unit in the last place): the
+    expanded form cancels, the direct form does not."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    base = torch.full((d,), 1000.0 / d**0.5, device=cuda)
+    centers = base + torch.randn((pairs, d), generator=g, device=cuda)
+    step = torch.randn((pairs, d), generator=g, device=cuda)
+    step = 1e-3 * step / step.norm(dim=1, keepdim=True)
+    C = torch.cat([centers, centers + step]).to(dtype)
+    X = (base + torch.randn((N, d), generator=g, device=cuda)).to(dtype)
+    return X, C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_pdist_argmin_tc_adversarial(cuda, dtype):
+    """Where the expanded form cancels (‖x‖ ≫ ‖x − c‖), the guard re-runs
+    the rows in the direct form: the l2 route agrees with the plain
+    version, indices equal wherever the top-2 gap clears the tolerance."""
+    from repro_torch.kernels.pdist_argmin import kernel as pd_kernel
+
+    X, C = _adversarial(cuda, dtype)
+    idx, dist, rechecked = pd_kernel.nearest_l2_tc(X, C)
+    ref_idx, ref_dist = _pdist_plain(X, C, "l2")
+    tol = PDIST_ATOL + PDIST_RTOL * ref_dist.abs()
+    assert bool(((dist - ref_dist).abs() <= tol).all())
+    clear = _pdist_gap_ok(X, C, "l2", tol)
+    assert bool((idx == ref_idx)[clear].all())
+    assert 0 < int(rechecked) <= X.shape[0]
+
+
+@pytest.mark.cuda
+def test_pdist_argmin_routes_by_metric(cuda):
+    """l2 takes the tensor-core kernel, l1 and l∞ the CUDA-core one; each
+    call moves its route's counter by one and no other."""
+    from repro_torch.kernels.pdist_argmin import kernel as pd_kernel
+    from repro_torch.kernels.pdist_argmin import ops as pd_ops
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    X = torch.randn((300, 9), generator=g, device=cuda)
+    C = torch.randn((70, 9), generator=g, device=cuda)
+    assert pd_kernel.ROUTES == {"l2": "pdist_argmin_tc", "l1": "pdist_argmin",
+                                "linf": "pdist_argmin"}
+    for metric, name in pd_kernel.ROUTES.items():
+        before = dict(kernels.LAUNCHES)
+        pd_ops.pdist_argmin(X, C, metric=metric)
+        assert kernels.LAUNCHES[name] == before[name] + 1
+        assert sum(kernels.LAUNCHES.values()) == sum(before.values()) + 1
+    before = dict(kernels.LAUNCHES)
+    pd_kernel.pdist_argmin_cuda_cores(X, C, "l2")  # the direct form, for timing
+    assert kernels.LAUNCHES["pdist_argmin"] == before["pdist_argmin"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_pdist_argmin_tc_replays_in_a_cuda_graph(cuda, dtype):
+    """The three launches of the l2 route need no host synchronisation: a
+    CUDA graph of a call replays bitwise to the eager result, the
+    re-checked rows' count included."""
+    from repro_torch.kernels.pdist_argmin import kernel as pd_kernel
+
+    X, C = _adversarial(cuda, dtype, N=2000)
+    X = torch.cat([X, torch.randn((3000, X.shape[1]), device=cuda).to(dtype) * 300.0])
+    idx, dist, rechecked = pd_kernel.nearest_l2_tc(X, C)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pd_kernel.nearest_l2_tc(X, C)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pd_kernel.nearest_l2_tc(X, C)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], idx) and torch.equal(out[1].view(torch.int32),
+                                                     dist.view(torch.int32))
+    assert torch.equal(out[2], rechecked) and int(rechecked) > 0
 
 
 # (B, T, S, Hq, Hkv, D, causal, window, q_offset): the five shapes of
@@ -585,3 +674,21 @@ def test_topk_mask_of_a_view_at_an_offset(cuda, dtype):
         x = base[off:]  # contiguous, not on 16 bytes
         o = tk_kernel.apply_threshold(x, thr)
         assert torch.equal(o.view(bits), tk_ref.apply_threshold_ref(x, thr).view(bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", TOPK_SIZES)
+def test_topk_mask_matches_hardshrink(cuda, n):
+    """On f32 the mask is F.hardshrink(x, nextafter(t, 0)) bit for bit:
+    |x| > nextafter(t, 0) is |x| >= t, and both write +0.0 elsewhere; so on
+    a view at an offset (the scalar path)."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=cuda).manual_seed(n + 1)
+    base = torch.randn((n + 3,), generator=g, device=cuda)
+    for x in (base[:n], base[3:]):
+        for t in (0.5, float(x.abs().max()), 1e-3):
+            thr = torch.full((1,), t, device=cuda)
+            lam = float(torch.nextafter(thr, torch.zeros_like(thr)))
+            o = tk_kernel.apply_threshold(x, thr)
+            assert torch.equal(o.view(torch.int32), F.hardshrink(x, lam).view(torch.int32))

@@ -141,3 +141,97 @@ def test_pdist_argmin_refuses_other_devices_and_metrics():
         t_ops.pdist_argmin(X, X)
     with pytest.raises(ValueError, match="cosine"):
         t_ref.pdist_argmin_ref(torch.zeros((4, 3)), torch.zeros((2, 3)), "cosine")
+
+
+# ----------------------------------------------------------------------------
+# The l2 route on the card (csrc/pdist_argmin_tc.cu) runs the expanded form
+# on the tensor cores with a guard.  Its arithmetic, emulated in plain
+# PyTorch (ref.pdist_argmin_tc_emulated), is held here to the JAX kernel
+# and to the direct form; an adversarial case shows that the guard is what
+# keeps it on the direct form's answer.
+# ----------------------------------------------------------------------------
+
+
+def adversarial_inputs(seed, N=400, pairs=16, d=8):
+    """Points with ‖x‖² ≈ 1e6 around centroids that come in pairs 1e-3
+    apart: the expanded form loses the pair's order to cancellation, the
+    direct form keeps it."""
+    rng = np.random.default_rng(seed)
+    base = np.full(d, 1000.0 / np.sqrt(d))
+    centers = base + rng.normal(size=(pairs, d))
+    step = rng.normal(size=(pairs, d))
+    step *= 1e-3 / np.linalg.norm(step, axis=1, keepdims=True)
+    C = np.concatenate([centers, centers + step]).astype(np.float32)
+    X = (base + rng.normal(size=(N, d))).astype(np.float32)
+    return X, C
+
+
+def clear_rows(D, C, tol):
+    """Points whose gap between the nearest and the second-nearest distinct
+    centroid (by the f64 distances D) exceeds ``tol``: there no rounding
+    can flip the index."""
+    _, cls = np.unique(np.asarray(C, dtype=np.float64), axis=0, return_inverse=True)
+    cls = cls.reshape(-1)
+    D = np.asarray(D, dtype=np.float64)
+    win = np.argmin(D, axis=1)
+    other = np.where(cls[None, :] == cls[win][:, None], np.inf, D)
+    return np.min(other, axis=1) - D[np.arange(len(D)), win] > tol
+
+
+TC_CASES = ([("cases", N, K, d, "f32") for N, K, d, _ in CASES]
+            + [("cases", 500, 16, 8, "bf16"), ("cases", 128, 32, 64, "bf16"),
+               ("cases", 300, 1, 5, "f32"),
+               ("adversarial", 400, 32, 8, "f32"), ("planted control", 400, 32, 8, "f32")])
+
+
+@pytest.mark.parametrize("case", TC_CASES, ids=str)
+def test_tc_route_emulation(case):
+    """The guarded expanded form gives the direct form's indices wherever
+    the top-2 gap clears the tolerance, and distances within atol 1e-5 +
+    rtol 1e-5 of the JAX kernel (interpret mode) and of the direct form;
+    at the JAX test's shapes the guard re-checks few rows.  On the
+    adversarial inputs the guard re-checks the rows it must; the planted
+    control, the same emulation without the guard, must give a wrong
+    index there, or the adversarial case could not catch a missing guard."""
+    kind, N, K, d, dt = case
+    dtype = torch.float32 if dt == "f32" else torch.bfloat16
+    if kind == "cases":
+        X, C = inputs(N, K, d, N + K)
+    else:
+        X, C = adversarial_inputs(7, N, K // 2, d)
+    Xt, Ct = torch.from_numpy(X).to(dtype), torch.from_numpy(C).to(dtype)
+    Xw, Cw = Xt.float().numpy(), Ct.float().numpy()  # the values both sides see
+    idx, dist, flagged = t_ref.pdist_argmin_tc_emulated(Xt, Ct, guard=kind != "planted control")
+    r_idx, r_dist = t_ref.pdist_argmin_ref(Xt, Ct, "l2")
+    assert idx.dtype == torch.int32 and dist.dtype == torch.float32 and idx.shape == (N,)
+    D = ((Xw[:, None, :].astype(np.float64) - Cw[None, :, :]) ** 2).sum(-1)
+    tol = ATOL + RTOL * np.abs(r_dist.numpy())
+    clear = clear_rows(D, Cw, tol) if K > 1 else np.ones(N, dtype=bool)
+    same = idx.numpy() == r_idx.numpy()
+    if kind == "planted control":
+        assert not same[clear].all(), "the unguarded expanded form kept every index"
+        return
+    assert same[clear].all()
+    np.testing.assert_allclose(dist.numpy(), r_dist.numpy(), rtol=RTOL, atol=ATOL)
+    if kind == "adversarial":
+        # every row whose nearest centroid has its pair partner next to it
+        # is inside the bound, and the guard re-ran it
+        assert clear.mean() > 0.9 and bool(flagged[torch.from_numpy(clear)].all())
+        return
+    assert float(flagged.float().mean()) < 0.05  # the guard is selective
+    j_idx, j_dist = j_ops.pdist_argmin(jnp.asarray(Xw), jnp.asarray(Cw), metric="l2", bn=64)
+    assert (idx.numpy() == np.asarray(j_idx))[clear].all()
+    np.testing.assert_allclose(dist.numpy(), np.asarray(j_dist), rtol=RTOL, atol=ATOL)
+
+
+def test_tf32_round_keeps_eleven_bits():
+    """hi = tf32(v) rounds to nearest with ties to even, and v − hi − lo
+    leaves at most 2⁻²² of v: the split that 3xTF32 relies on."""
+    v = torch.tensor([1.0, 1.0 + 2**-11, 1.0 + 3 * 2**-11, -1.0 - 2**-12, float("inf")])
+    assert t_ref.tf32_round(v).tolist() == [1.0, 1.0, 1.0 + 2**-9, -1.0, float("inf")]
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=4096).astype(np.float32))
+    hi = t_ref.tf32_round(x)
+    lo = t_ref.tf32_round(x - hi)
+    assert int((hi.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    assert float(((x - hi) / x).abs().max()) <= 2**-11
+    assert float(((x.double() - hi.double() - lo.double()) / x.double()).abs().max()) <= 2**-22
