@@ -9,9 +9,12 @@
 2. Kernel phase: each of the four wire-encode kernels against its plain
    PyTorch version on the same CUDA tensors, bitwise (signed zeros and
    survivor counts included), at n ∈ {257, 8193, 2^20, 2^24} and a stacked
-   (16, 2000), k ∈ {1, n/100, n}; then CUDA-event times (median of 20
-   replays of a CUDA graph of the launches) beside the byte bound, the
-   plain version and one PyTorch library call where one computes the same
+   (16, 2000), k ∈ {1, n/100, n}; absmax also on rows with NaN of either
+   sign, ±inf and −0.0 at (5, 8193), (16, 2000), (16, 2^20) and (1, 2^24);
+   then CUDA-event times (median of 20 replays of a CUDA graph of the
+   launches; absmax median and min–max of 6 runs in turns with
+   ``vector_norm(x, inf, dim=1)``) beside the byte bound, the plain
+   version and one PyTorch library call where one computes the same
    function.
 3. Main path: ``repro_torch.api.fit`` with ``GradientDescent(logistic_loss)``
    on the local executor at the shape of the dense PASCAL "epsilon" set
@@ -106,13 +109,19 @@
    tests/test_kernels_topk.py, 2^24 and tinyllama-1.1b's largest leaf (the
    stacked (22, 2048, 5632) FFN projection, 253,755,392 f32), f32 and
    bf16, unsorted thresholds with 0 among them, the mask also on a view
-   one element off 16 bytes; ``topk_sparsify`` on that leaf at k = 1 % (3
-   count and 1 mask launches, at least k survivors, every kept magnitude
-   at least every dropped one); times beside the byte bounds, the mask in
-   turns with ``F.hardshrink(x, nextafter(t, 0))`` (bitwise the same
-   function on f32; median and min–max of 6 runs), the whole function
-   (graph-captured, so no host round trip) beside
-   ``torch.topk(x.abs().flatten(), k)``.
+   one element off 16 bytes; the count also on edge cases (NaN of either
+   sign, ±inf and ±0.0 among elements and thresholds, duplicated and
+   negative thresholds, x 0, 1 and 3 elements off 16 bytes) at 1 to 2^24
+   elements; ``topk_sparsify`` on that leaf at k = 1 % (3 count and 1 mask
+   launches, at least k survivors, every kept magnitude at least every
+   dropped one, its peak device memory, and the bracket's max |x| as
+   ``x.abs().max()`` (an |x| temporary) and as the one-pass
+   ``vector_norm(x, inf)``: equal bits, peak memory and time in turns); times beside the bounds, median and min–max
+   of 6 runs in turns: the count on the f32 and bf16 leaf (and at the
+   second round's candidates, where nearly every element ranks 0), the
+   mask with ``F.hardshrink(x, nextafter(t, 0))`` (bitwise the same
+   function on f32), the whole function (graph-captured, so no host round
+   trip) with ``torch.topk(x.abs().flatten(), k)`` (eager).
 11. Prints the redesigned kernels' times in turns, one JSON line of
    per-kernel numbers (twelve kernels), the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
@@ -316,6 +325,21 @@ def kernel_phase(torch):
         err["int8_quant"] = max(err["int8_quant"], float((q - q_r).abs().max()))
         checked += 2
         print(f"kernel check {shape}: bitwise equal to the plain versions", flush=True)
+    # absmax on rows with NaN (either sign), ±inf and −0.0, rows not on 16
+    # bytes, K = 16 and rows whose grid-stride loop takes several trips
+    # (a NaN row's max is |NaN| = 0x7fc00000, as the plain version gives it
+    # on the CPU; torch's abs on the card writes 0x7fffffff, so NaN rows
+    # are held to the plain version on the CPU, the others to both)
+    for shape in [(5, 8193), (K, D), (K, 1 << 20), (1, 1 << 24)]:
+        x = absmax_edge_rows(torch, shape, gen)
+        m, m_r = q8k.absmax(x), q8r.absmax_ref(x)
+        torch.cuda.synchronize()
+        finite = ~torch.isnan(m)
+        check(same_bits(m.cpu(), q8r.absmax_ref(x.cpu())),
+              f"int8 absmax differs on the edge rows {shape} from the plain version on the CPU")
+        check(same_bits(m[finite], m_r[finite]), f"int8 absmax differs on the edge rows {shape}")
+        checked += 1
+        print(f"absmax edge rows {shape}: bitwise equal ({m[:5].tolist()})", flush=True)
     print(f"kernel phase: {checked} comparisons, all bitwise equal", flush=True)
 
     # times at the main path's shape (one θ leaf of D for K nodes) and at 2^24
@@ -351,15 +375,46 @@ def kernel_phase(torch):
         }
         for name, (kern, plain, lib, nbytes, ops) in cases.items():
             b_ms, b_by = bound_ms(nbytes, ops)
-            lib_time = graph_ms if name != "int8_quant" else eager_ms
-            timings[(name, label)] = {
-                "ms": graph_ms(torch, kern, inner=inner),
-                "plain_ms": graph_ms(torch, plain, inner=inner),
-                "library_ms": None if lib is None else lib_time(torch, lib, inner=inner),
-                "bound_ms": b_ms, "bound_by": b_by, "shape": list(shape),
-            }
-            print(f"time {name} {label} {shape}: {timings[(name, label)]}", flush=True)
+            tm = {"plain_ms": graph_ms(torch, plain, inner=inner),
+                  "bound_ms": b_ms, "bound_by": b_by, "shape": list(shape)}
+            if name == "int8_absmax":
+                # in turns with vector_norm (library, kernel, kernel, library)
+                turns = turns_ms(torch, {"library": lib, "kernel": kern}, inner=inner)
+                tm.update(ms=turns["kernel"]["median"], turns=turns,
+                          library_ms=turns["library"]["median"])
+            else:
+                lib_time = graph_ms if name != "int8_quant" else eager_ms
+                tm.update(ms=graph_ms(torch, kern, inner=inner),
+                          library_ms=None if lib is None else lib_time(torch, lib, inner=inner))
+            timings[(name, label)] = tm
+            print(f"time {name} {label} {shape}: {tm}", flush=True)
     return err, timings
+
+
+def nan_of(torch, sign_bit: bool) -> float:
+    """A quiet NaN; with its sign bit set, an order by raw bits puts it
+    before every number."""
+    bits = torch.tensor([0xFFC00000 if sign_bit else 0x7FC00000], dtype=torch.int64)
+    return float(bits.to(torch.int32).view(torch.float32))
+
+
+def absmax_edge_rows(torch, shape, gen):
+    """(K, n) normal rows on the card.  With K >= 5: row 0 holds a NaN, row
+    1 +inf and −inf, row 2 only −0.0, row 3 a sign-bit NaN and +inf, row 4
+    −0.0 among tiny values; with fewer rows, row 0 holds −inf and a
+    sign-bit NaN."""
+    x = torch.randn(shape, generator=gen, device="cuda")
+    rows, n = shape
+    if rows >= 5:
+        x[0, n // 2] = nan_of(torch, False)
+        x[1, 0], x[1, n - 1] = float("inf"), float("-inf")
+        x[2] = -0.0
+        x[3, n - 1], x[3, n // 3] = nan_of(torch, True), float("inf")
+        x[4] *= 1e-30
+        x[4, 0] = -0.0
+    else:
+        x[0, n // 3], x[0, n // 2] = float("-inf"), nan_of(torch, True)
+    return x
 
 
 def make_epsilon_shaped(torch, seed: int):
@@ -1656,6 +1711,27 @@ def attention_path_phase(torch):
 #: sizes of tests/test_kernels_topk.py:10, 2^24, and the largest leaf
 TOPK_SIZES = [(4096,), (128, 300), (10000,), (8192,), (513,), (1 << 24,)]
 TOPK_F_LEAF = 0.01
+#: sizes of the count's edge cases
+TOPK_EDGE_SIZES = [1, 7, 513, 4099, (1 << 20) + 3, 1 << 24]
+
+
+def count_edge_inputs(torch, n, dtype, offset, gen):
+    """x (n elements of ``dtype``, ``offset`` elements past a 16-byte
+    boundary) with NaN of either sign, ±inf, −0.0 and +0.0 among them, and
+    128 unsorted thresholds with duplicates, NaN of either sign, values
+    <= 0, −0.0, ±inf and exact element magnitudes among them."""
+    base = torch.randn((n + offset,), generator=gen, device="cuda").to(dtype)
+    x = base[offset:]
+    special = [nan_of(torch, False), nan_of(torch, True), float("inf"), float("-inf"),
+               -0.0, 0.0]
+    for i, v in enumerate(special[:n]):
+        x[(i * 7919) % n] = v
+    t = torch.rand((128,), generator=gen, device="cuda") * 3.0
+    t[10:30] = t[30:50].clone()
+    t[50], t[51], t[52], t[53] = nan_of(torch, False), nan_of(torch, True), -1.0, 0.0
+    t[54], t[55], t[56] = -0.0, float("inf"), float("-inf")
+    t[57:61] = x[torch.randint(0, n, (4,), generator=gen, device="cuda")].float().abs()
+    return x, t[torch.randperm(128, generator=gen, device="cuda")].contiguous()
 
 
 def topk_phase(torch, leaf):
@@ -1701,15 +1777,35 @@ def topk_phase(torch, leaf):
                   f"equal (largest {int(counts.max())}), 5 masks bitwise (one of them at an "
                   f"offset of one element)", flush=True)
             del x
+    # the count's edge cases: NaN of either sign, ±inf and ±0.0 among the
+    # elements; thresholds with duplicates, NaN of either sign, values <= 0,
+    # −0.0 and ±inf; x at 0, 1 and 3 elements past a 16-byte boundary
+    for n_edge in TOPK_EDGE_SIZES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for offset in (0, 1, 3):
+                x, t = count_edge_inputs(torch, n_edge, dtype, offset, gen)
+                counts = tkk.count_ge(x, t)
+                plain = tkr.count_ge_ref(x, t)
+                torch.cuda.synchronize()
+                err["topk_count"] = max(err["topk_count"], int((counts - plain).abs().max()))
+                check(torch.equal(counts, plain),
+                      f"topk count differs on the edge case n={n_edge} {dtype} offset {offset}")
+            print(f"topk count edge cases n={n_edge} {str(dtype)[6:]}: equal at offsets "
+                  f"0, 1, 3", flush=True)
+    del x
     torch.cuda.empty_cache()
 
-    # the function on the leaf, f32, k = 1 %
+    # the function on the leaf, f32, k = 1 %: launches, result, peak memory
     x = leaf
     n = x.numel()
     k = int(round(TOPK_F_LEAF * n))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     out = tko.topk_sparsify(x, k)
     torch.cuda.synchronize()
+    peak_gib = (torch.cuda.max_memory_allocated() - held) / 2**30
     launches = {"topk_count": kernels.LAUNCHES["topk_count"],
                 "topk_mask": kernels.LAUNCHES["topk_mask"]}
     check(launches == {"topk_count": 3, "topk_mask": 1}, f"topk_sparsify launches {launches}")
@@ -1724,8 +1820,27 @@ def topk_phase(torch, leaf):
     exact_t = float(torch.topk(x.abs().flatten(), k).values[-1])
     print(f"topk_sparsify on the {tuple(x.shape)} FFN leaf ({n} f32), k = {k}: "
           f"{survivors} kept ({survivors - k} above k), kept |x| ≥ {kept_min:.8g} ≥ dropped "
-          f"{dropped_max:.8g}; exact k-th |x| {exact_t:.8g}; launches {launches}", flush=True)
+          f"{dropped_max:.8g}; exact k-th |x| {exact_t:.8g}; launches {launches}; peak "
+          f"device memory {peak_gib:.4f} GiB above the {held / 2**30:.4f} GiB held", flush=True)
     del out, kept
+
+    # the bracket's top, max |x|: x.abs().max() (a full |x| temporary)
+    # against the one-pass vector_norm that topk_sparsify uses
+    brackets = {"x.abs().max()": lambda: x.abs().max(),
+                "vector_norm(x, inf)": lambda: torch.linalg.vector_norm(x, float("inf"))}
+    bracket = {}
+    for name, fn in brackets.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        v = fn()
+        torch.cuda.synchronize()
+        bracket[name] = {"peak_gib": (torch.cuda.max_memory_allocated() - held) / 2**30,
+                         "bits": int(v.view(torch.int32))}
+    check(bracket["x.abs().max()"]["bits"] == bracket["vector_norm(x, inf)"]["bits"],
+          f"the bracket's max |x| differs between the two forms: {bracket}")
+    for name, tm in turns_ms(torch, brackets, inner=3).items():
+        bracket[name].update(tm)
+    print(f"max |x| of the leaf, in turns: {bracket}", flush=True)
 
     lo = torch.full((1,), exact_t, device="cuda")
     # one library call with the mask's function on f32: |x| > nextafter(t, 0)
@@ -1735,18 +1850,29 @@ def topk_phase(torch, leaf):
                       F.hardshrink(x, lam).view(torch.int32)),
           "hardshrink(x, nextafter(t, 0)) differs from the mask on the leaf")
     cand = torch.linspace(0.0, float(x.abs().max()), tkr.NCAND, device="cuda")
+    # the candidates of topk_sparsify's second round: ~99 % of the elements
+    # fall below them all (rank 0)
+    cand2 = torch.linspace(exact_t * 0.99, exact_t * 1.01, tkr.NCAND, device="cuda")
+    xb = x.to(torch.bfloat16)
     cnt_bytes = 4 * n + tkr.NCAND * (4 + 8)
+    # an element's rank: 8 compares (7 halving steps and a last one) and one add
+    cnt_ops = 9 * n
+    cnt_b_ms, cnt_b_by = bound_ms(cnt_bytes, cnt_ops)
     mask_bytes = 8 * n + 4
+    cnt_t = turns_ms(torch, {"f32": lambda: tkk.count_ge(x, cand),
+                             "bf16": lambda: tkk.count_ge(xb, cand),
+                             "f32, second round": lambda: tkk.count_ge(x, cand2)}, inner=3)
+    bf16_bytes = 2 * n + tkr.NCAND * (4 + 8)
     timings = {
         "topk_count": {
-            "ms": graph_ms(torch, lambda: tkk.count_ge(x, cand), inner=3, reps=5),
+            "ms": cnt_t["f32"]["median"], "turns": cnt_t,
             "plain_ms": graph_ms(torch, lambda: tkr.count_ge_ref(x, cand), inner=1, reps=3),
             "library_ms": None,
-            "bound_ms": cnt_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "bytes": cnt_bytes, "compares": tkr.NCAND * n,
-            "compare_ms_at_f32_rate": tkr.NCAND * n / F32_OPS_PER_S * 1e3,
+            "bound_ms": cnt_b_ms, "bound_by": cnt_b_by, "bytes": cnt_bytes, "operations": cnt_ops,
+            "bf16_bound_ms": bound_ms(bf16_bytes, cnt_ops)[0],
         },
     }
+    del xb
     # the mask in turns with F.hardshrink (library, kernel, kernel, library)
     mask_t = turns_ms(torch, {"library": lambda: F.hardshrink(x, lam),
                               "kernel": lambda: tkk.apply_threshold(x, lo)}, inner=5, rounds=3)
@@ -1758,12 +1884,16 @@ def topk_phase(torch, leaf):
         "bound_ms": mask_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "bytes": mask_bytes,
     }
+    # the whole function (graph-captured) in turns with exact torch.topk
+    # (eager: library, ours, ours, library)
+    whole_t = turns_ms(torch, {"torch.topk": lambda: torch.topk(x.abs().flatten(), k),
+                               "topk_sparsify": lambda: tko.topk_sparsify(x, k)},
+                       inner=1, eager=("torch.topk",))
     whole = {
-        "topk_sparsify_ms": graph_ms(torch, lambda: tko.topk_sparsify(x, k), inner=1, reps=5),
-        "torch_topk_ms": eager_ms(torch, lambda: torch.topk(x.abs().flatten(), k),
-                                  inner=1, reps=3),
-        "bound_ms": (3 * cnt_bytes + mask_bytes) / HBM_BYTES_PER_S * 1e3,
-        "n": n, "k": k,
+        "topk_sparsify_ms": whole_t["topk_sparsify"]["median"],
+        "torch_topk_ms": whole_t["torch.topk"]["median"], "turns": whole_t,
+        "bound_ms": (4 * n + 3 * cnt_bytes + mask_bytes) / HBM_BYTES_PER_S * 1e3,
+        "peak_gib": peak_gib, "bracket_max": bracket, "n": n, "k": k,
     }
     for name, tm in timings.items():
         print(f"time {name} leaf {tuple(x.shape)} f32: {tm}", flush=True)
@@ -1877,7 +2007,11 @@ def main() -> int:
         "decode_attention": decode_t, "decode_attention_merge": merge_t,
         **{f"{n} {label}": t for (n, label), t in flash_t.items()},
         "pdist_argmin_tc": pdist_tc_t["turns"], "pdist_argmin l1": pdist_cc_t["turns"],
-        "topk_mask": tk_timings["topk_mask"]["turns"]}), flush=True)
+        "topk_mask": tk_timings["topk_mask"]["turns"],
+        "topk_count leaf": tk_timings["topk_count"]["turns"],
+        "topk_sparsify leaf": tk_whole["turns"],
+        **{f"int8_absmax {label}": timings[("int8_absmax", label)]["turns"]
+           for label in ("main", "2^24")}}), flush=True)
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was never launched on the main path")
 

@@ -10,7 +10,9 @@
 // Layout.  Every kernel takes a (rows, n) row-major f32 matrix: one row per
 // node of one parameter leaf (rows = 1 for an unstacked leaf), so a whole
 // round of K node messages is one launch per leaf.  grid.y walks the rows,
-// grid.x blocks stride over the row's elements.  Each row is split into a
+// grid.x blocks stride over the row's elements: one float4 a thread across
+// the row for encode, select and quant (grid_for); absmax has its own
+// grid of a few blocks an SM (absmax_grid).  Each row is split into a
 // scalar head up to the first 16-byte boundary, a float4 body and a scalar
 // tail, so rows of any length and offset take 16-byte loads where they can.
 //
@@ -20,7 +22,10 @@
 // encode moves 12 bytes (read c, write o and res), the select 8, absmax 4
 // and quant-dequant 8, at 3.35 TB/s on an H100 SXM.  The design streams
 // each byte once: no shared-memory staging, reductions in registers and
-// warp shuffles, one atomic per warp.
+// warp shuffles, one atomic per warp (encode, select) or per block and row
+// (absmax: on grid_for's grid a 2^24 row would end in 131,072 warps'
+// atomicMax on one word, serialized at L2; its own grid puts 4 an SM
+// there, 528 on an H100).
 //
 // Numerics (bitwise with the plain PyTorch versions and the jitted JAX
 // reference):
@@ -132,9 +137,21 @@ __device__ __forceinline__ unsigned abs_bits(float v) {
   return __float_as_uint(v) & 0x7fffffffu;
 }
 
+// 16-byte loads in flight a thread in absmax
+constexpr int kAbsmaxLoads = 4;
+// absmax's blocks an SM, shared among the rows
+constexpr int kAbsmaxBlocksPerSm = 4;
+
+// Its own grid (absmax_grid): a few blocks an SM, split among the rows,
+// each a grid-stride loop over its row's float4 body with kAbsmaxLoads
+// loads in flight a thread; the max goes through the warp
+// (__reduce_max_sync), then the block (shared memory), then one atomicMax
+// per block and row.  On the H100, 2 to 16 loads in flight and 4 to 16
+// blocks an SM all ran within a few percent of each other.
 __global__ void __launch_bounds__(kThreads)
     absmax_kernel(const float* __restrict__ x, unsigned* __restrict__ out,
                   long long n) {
+  __shared__ unsigned warp_max[kThreads / 32];
   const long long row = blockIdx.y;
   const float* xr = x + row * n;
   const RowSplit s = split_row(xr, n);
@@ -146,13 +163,28 @@ __global__ void __launch_bounds__(kThreads)
   for (long long i = s.tail0 + tid; i < n; i += stride)
     m = max(m, abs_bits(xr[i]));
   const float4* x4 = reinterpret_cast<const float4*>(xr + s.head);
-  for (long long i = tid; i < s.body4; i += stride) {
-    const float4 v = x4[i];
-    m = max(m, max(max(abs_bits(v.x), abs_bits(v.y)),
-                   max(abs_bits(v.z), abs_bits(v.w))));
+  const long long per_block = (long long)kThreads * kAbsmaxLoads;
+  for (long long base = (long long)blockIdx.x * per_block + threadIdx.x;
+       base < s.body4; base += (long long)gridDim.x * per_block) {
+    float4 v[kAbsmaxLoads];
+#pragma unroll
+    for (int u = 0; u < kAbsmaxLoads; ++u) {
+      const long long j = base + u * kThreads;
+      v[u] = j < s.body4 ? x4[j] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int u = 0; u < kAbsmaxLoads; ++u)
+      m = max(m, max(max(abs_bits(v[u].x), abs_bits(v[u].y)),
+                     max(abs_bits(v[u].z), abs_bits(v[u].w))));
   }
   m = __reduce_max_sync(kFull, m);
-  if ((threadIdx.x & 31) == 0 && m != 0u) atomicMax(out + row, m);
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    m = threadIdx.x < kThreads / 32 ? warp_max[threadIdx.x] : 0u;
+    m = __reduce_max_sync(kFull, m);
+    if (threadIdx.x == 0 && m != 0u) atomicMax(out + row, m);
+  }
 }
 
 __device__ __forceinline__ float quant_one(float v, float s) {
@@ -196,6 +228,21 @@ dim3 grid_for(long long rows, long long n) {
   return dim3((unsigned)bx, (unsigned)rows, 1);
 }
 
+// absmax's grid: kAbsmaxBlocksPerSm blocks an SM split among the rows
+// (at least one a row), fewer where a row needs fewer.
+dim3 absmax_grid(long long rows, long long n) {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long per_block = (long long)kThreads * kAbsmaxLoads * 4;
+  long long bx = (n + per_block - 1) / per_block;
+  long long cap = (long long)kAbsmaxBlocksPerSm * sms / rows;
+  if (cap < 1) cap = 1;
+  if (bx > cap) bx = cap;
+  if (bx < 1) bx = 1;
+  return dim3((unsigned)bx, (unsigned)rows, 1);
+}
+
 }  // namespace
 
 extern "C" {
@@ -217,7 +264,7 @@ int repro_topk_encode(const float* c, const float* t, float* o, float* res,
 int repro_absmax(const float* x, float* out, long long rows, long long n,
                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  absmax_kernel<<<grid_for(rows, n), kThreads, 0, st>>>(
+  absmax_kernel<<<absmax_grid(rows, n), kThreads, 0, st>>>(
       x, reinterpret_cast<unsigned*>(out), n);
   return (int)cudaGetLastError();
 }

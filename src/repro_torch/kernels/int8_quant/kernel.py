@@ -3,9 +3,10 @@
 Replace ``repro.kernels.int8_quant.kernel``'s ``_absmax_kernel`` (streaming
 per-lane max of |x| carried across grid steps in VMEM) and
 ``_quant_kernel`` (clip(round(x/s))·s in one pass).  On Hopper the blocks
-run in no order, so absmax reduces in registers and warp shuffles and
-meets across blocks in one ``atomicMax`` per warp on the bits of |x|
-(exact: non-negative floats order like their bit patterns).  Both take the
+run in no order, so absmax reduces in registers, warp shuffles and shared
+memory over a grid of a few blocks an SM and meets across blocks in one
+``atomicMax`` per block and row on the bits of |x| (exact: non-negative
+floats order like their bit patterns).  Both take the
 (K, n) stack of one leaf, one scale per row.  Bound by bytes: 4 n (absmax)
 and 8 n (quant-dequant).
 """

@@ -13,9 +13,11 @@ integer atomic per warp.  Bound by bytes: 12 n (encode) or 8 n (select).
 ``count_ge`` and ``apply_threshold`` replace ``_count_kernel`` and
 ``_mask_kernel``.  The count runs blocks in parallel where the Pallas
 kernel walks padded (nb, 8, 1024) tiles in order carrying f32 counts:
-each warp lane owns four of the 128 thresholds, the elements reach it by
-shuffles, and the counts are integers (one 64-bit atomic per block and
-threshold), exact at any size.  The mask is one streaming pass over a grid
+each block sorts the 128 thresholds, ranks each element by a branch-free
+binary search of the sorted list (8 compares), adds it to a histogram of
+ranks and turns the histogram's suffix sums into counts (``ref.count_ge_ranked`` does the same
+in torch), integers with one 64-bit atomic per block and threshold, exact
+at any size.  The mask is one streaming pass over a grid
 that covers x once, each thread with two 16-byte loads in flight where x
 starts on 16 bytes.  Neither pads: the kernels mask their own ragged
 tails.  Bound by bytes: 4 n (2 n in bf16) a count, twice that a mask.

@@ -90,7 +90,8 @@ def topk_sparsify(x: torch.Tensor, k: int, *, rounds: int = 3) -> torch.Tensor:
     that keeps at least k and its successor; the mask then applies lo.
     Line for line ``repro.kernels.topk_compress.ops.topk_sparsify``."""
     k = max(1, min(int(k), x.numel()))
-    hi = x.abs().max().float() * (1.0 + 1e-6) + 1e-30
+    # max |x| in one pass with no |x| temporary (bitwise x.abs().max())
+    hi = torch.linalg.vector_norm(x, float("inf")).float() * (1.0 + 1e-6) + 1e-30
     lo = torch.zeros((), dtype=torch.float32, device=x.device) + 1e-30
     frac = torch.arange(1, NCAND + 1, device=x.device).float() / NCAND
     for _ in range(rounds):

@@ -37,6 +37,51 @@ def count_ge_ref(x: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
     return counts
 
 
+def _order_key(t: torch.Tensor) -> torch.Tensor:
+    """int64 keys that order f32 ``t`` like the floats, with -0.0 and +0.0
+    equal and every NaN after +inf (the count kernel's ``order_key``)."""
+    b = t.contiguous().view(torch.int32).long()
+    key = torch.where(b >= 0, b, b ^ 0x7FFFFFFF)
+    key = torch.where(t == 0, torch.zeros_like(key), key)
+    return torch.where(torch.isnan(t), torch.full_like(key, 0x7FFFFFFF), key)
+
+
+def count_ge_ranked(x: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
+    """``count_ge_ref``'s counts computed as the CUDA count kernel computes
+    them (test-only; its arithmetic cannot run off the card): a stable
+    rank sort of the thresholds, NaN last, laid out padded (s_j at j +
+    j // 32); each element's bin by 7 halving steps and a last compare
+    over the padded positions; a histogram of bins; bin b is rank
+    r = b - b // 33 = #{j : |x| >= s_j}; and counts[perm[j]] = the sum
+    over ranks j + 1..128."""
+    a = x.reshape(-1).float().abs().cpu()
+    t = thresholds.reshape(NCAND).float().cpu()
+    key = _order_key(t)
+    idx = torch.arange(NCAND)
+    before = (key[:, None] < key[None, :]) | ((key[:, None] == key[None, :])
+                                             & (idx[:, None] < idx[None, :]))
+    rank = before.sum(dim=0)  # rank[j] = #{i : t_i precedes t_j}
+    padded = torch.full((NCAND + NCAND // 32,), float("nan"))
+    padded[rank + rank // 32] = t
+    perm = torch.empty_like(idx)
+    perm[rank] = idx
+    bins = torch.zeros((NCAND + NCAND // 32,), dtype=torch.int64)
+    for c in range(0, a.numel(), _COUNT_CHUNK):
+        ac = a[c:c + _COUNT_CHUNK]
+        upper = ac >= padded[64]  # s_63
+        pb = torch.where(upper, 66, 0)
+        pb = pb + 33 * (ac >= torch.where(upper, padded[97], padded[31])).long()
+        for half in (16, 8, 4, 2, 1):
+            pb = pb + half * (ac >= padded[pb + half - 1]).long()
+        bins += torch.bincount(pb + (ac >= padded[pb]).long(), minlength=bins.numel())
+    b = torch.arange(bins.numel())
+    hist = torch.zeros((NCAND + 1,), dtype=torch.int64).index_add_(0, b - b // 33, bins)
+    suffix = hist[1:].flip(0).cumsum(0).flip(0)  # suffix[j] = ranks j + 1..128
+    counts = torch.empty((NCAND,), dtype=torch.int64)
+    counts[perm] = suffix
+    return counts.to(x.device)
+
+
 def apply_threshold_ref(x: torch.Tensor, thresh: torch.Tensor) -> torch.Tensor:
     """``where(|x| >= t, x, +0.0)`` in x's type, |x| compared in f32 with
     the f32 scalar ``thresh``."""

@@ -692,3 +692,101 @@ def test_topk_mask_matches_hardshrink(cuda, n):
             lam = float(torch.nextafter(thr, torch.zeros_like(thr)))
             o = tk_kernel.apply_threshold(x, thr)
             assert torch.equal(o.view(torch.int32), F.hardshrink(x, lam).view(torch.int32))
+
+
+def _nan(sign_bit: bool) -> float:
+    """A quiet NaN; with its sign bit set, an order by raw bits would put
+    it before every number."""
+    bits = torch.tensor([0xFFC00000 if sign_bit else 0x7FC00000], dtype=torch.int64)
+    return float(bits.to(torch.int32).view(torch.float32))
+
+
+def _count_edge_inputs(cuda, n, dtype, offset, seed):
+    """x (n elements of ``dtype``, ``offset`` elements past a 16-byte
+    boundary) with NaN of either sign, ±inf, −0.0 and +0.0 among them, and
+    128 unsorted thresholds with duplicates, NaN of either sign, values
+    <= 0, −0.0, ±inf and exact element magnitudes among them."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    base = torch.randn((n + offset,), generator=g, device=cuda).to(dtype)
+    x = base[offset:]
+    special = [_nan(False), _nan(True), float("inf"), float("-inf"), -0.0, 0.0]
+    for i, v in enumerate(special[:n]):
+        x[(i * 7919) % n] = v
+    t = torch.rand((tk_ref.NCAND,), generator=g, device=cuda) * 3.0
+    t[10:30] = t[30:50].clone()
+    t[50], t[51], t[52], t[53] = _nan(False), _nan(True), -1.0, 0.0
+    t[54], t[55], t[56] = -0.0, float("inf"), float("-inf")
+    t[57:61] = x[torch.randint(0, n, (4,), generator=g, device=cuda)].float().abs()
+    return x, t[torch.randperm(tk_ref.NCAND, generator=g, device=cuda)].contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 7, 513, 4099, (1 << 20) + 3, 1 << 24])
+def test_topk_count_edge_cases_vs_plain(cuda, n, dtype, offset):
+    x, t = _count_edge_inputs(cuda, n, dtype, offset, n + offset)
+    before = kernels.LAUNCHES["topk_count"]
+    counts = tk_kernel.count_ge(x, t)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["topk_count"] == before + 1
+    assert torch.equal(counts, tk_ref.count_ge_ref(x, t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_topk_count_replays_in_a_cuda_graph(cuda, dtype):
+    """A captured count reads x and the thresholds anew at each replay."""
+    x, t = _count_edge_inputs(cuda, (1 << 20) + 5, dtype, 0, 9)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tk_kernel.count_ge(x, t)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        counts = tk_kernel.count_ge(x, t)
+    g = torch.Generator(device=cuda).manual_seed(10)
+    for _ in range(3):
+        x.copy_(torch.randn(x.shape, generator=g, device=cuda).to(dtype))
+        t.copy_(t[torch.randperm(tk_ref.NCAND, generator=g, device=cuda)] * 0.9)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(counts, tk_ref.count_ge_ref(x, t))
+
+
+def _absmax_rows(cuda, shape, seed):
+    """(K, n) normal rows; where K >= 5, row 0 holds a NaN, row 1 +inf and
+    −inf, row 2 only −0.0, row 3 a sign-bit NaN and +inf, row 4 −0.0 among
+    tiny values."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=cuda)
+    K, n = shape
+    if K >= 5:
+        x[0, n // 2] = _nan(False)
+        x[1, 0], x[1, n - 1] = float("inf"), float("-inf")
+        x[2] = -0.0
+        x[3, n - 1], x[3, n // 3] = _nan(True), float("inf")
+        x[4] *= 1e-30
+        x[4, 0] = -0.0
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5, 8193), (16, 2000), (1, 1 << 24), (16, 1 << 20),
+                                   (5, (1 << 22) + 1), (1, 3), (7, 1)])
+def test_int8_absmax_bitwise_with_plain(cuda, shape):
+    """Rows not on 16 bytes, grid-stride loops of several trips (2^24 in
+    one row; 2^20 in each of 16), K = 16, and NaN, ±inf and −0.0 in a row:
+    bitwise the plain version's maxima.  A NaN row's max is |NaN| with the
+    sign bit cleared (0x7fc00000), as the plain version gives it on the
+    CPU; on the card torch's abs writes NaN as 0x7fffffff, so rows with a
+    NaN are held to the plain version on the CPU, the others to both."""
+    x = _absmax_rows(cuda, shape, sum(shape))
+    before = kernels.LAUNCHES["int8_absmax"]
+    m = q8_kernel.absmax(x)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["int8_absmax"] == before + 1
+    assert same_bits(m.cpu(), q8_ref.absmax_ref(x.cpu()))
+    finite = ~torch.isnan(m)
+    assert same_bits(m[finite], q8_ref.absmax_ref(x)[finite])

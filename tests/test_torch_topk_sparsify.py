@@ -81,6 +81,87 @@ def test_count_ge_counts_only_the_elements():
     assert torch.equal(got, exp)
 
 
+#: a NaN with its sign bit set: an order by raw bits would put it first
+NEG_NAN = np.array([0xFFC00000], np.uint32).view(np.float32)[0]
+
+
+def _edge_x(seed, n, dtype="f32"):
+    """Normal elements with NaN (either sign), ±inf, −0.0 and +0.0 among
+    them; bf16 cases hold bf16 values."""
+    x = _x(seed, (n,))
+    x[[1, 5]] = np.nan
+    x[9] = NEG_NAN
+    x[2], x[3], x[4], x[6] = np.inf, -np.inf, -0.0, 0.0
+    return x if dtype == "f32" else torch.from_numpy(x).bfloat16().float().numpy()
+
+
+def _edge_t(seed, x):
+    """Unsorted thresholds with duplicates, NaN, values <= 0, −0.0, ±inf
+    and exact element magnitudes among them."""
+    rng = np.random.default_rng(seed)
+    t = rng.uniform(0.0, 3.0, size=128).astype(np.float32)
+    t[10:30] = t[30:50]  # duplicates
+    t[50:52] = np.nan
+    t[52] = NEG_NAN
+    t[53], t[54], t[55], t[56], t[57] = -1.0, 0.0, -0.0, np.inf, -np.inf
+    flat = np.abs(x.reshape(-1))
+    t[58:62] = flat[[0, 7, 8, 10]]
+    return rng.permutation(t)
+
+
+def _edge_cases():
+    """(name, x as f32, thresholds, dtype) of the count's edge cases."""
+    rng = np.random.default_rng(11)
+    x = _edge_x(1, 5000)
+    yield "edge elements and thresholds", x, _edge_t(2, x), "f32"
+    xb = _edge_x(3, 3001, "bf16")
+    yield "bf16 edge elements and thresholds", xb, _edge_t(4, xb), "bf16"
+    t = rng.uniform(0.0, 3.0, size=128).astype(np.float32)
+    yield "unsorted thresholds", _x(5, (4097,)), t, "f32"
+    yield "one threshold 128 times", _x(6, (1000,)), np.full(128, 0.5, np.float32), "f32"
+    yield "all thresholds NaN", _x(7, (1000,)), np.full(128, np.nan, np.float32), "f32"
+    yield "every element equal", np.full(2000, -1.25, np.float32), np.sort(t), "f32"
+    yield "sorted descending, over ±inf", x, np.sort(_edge_t(8, x))[::-1].copy(), "f32"
+    yield "thresholds <= 0 only", x, -rng.uniform(0.0, 1.0, 128).astype(np.float32), "f32"
+
+
+def _case_inputs(shape):
+    x = _x(sum(shape), shape)
+    return str(shape), x, _thresholds(len(shape), x), "f32"
+
+
+#: the count's CASES (as test_count_ge_equals_jax_counts makes them) and edge cases
+RANKED = [_case_inputs(shape) for shape, _ in CASES] + list(_edge_cases())
+
+
+def _torch_x(x, dtype):
+    tx = torch.from_numpy(x)
+    return tx.bfloat16() if dtype == "bf16" else tx
+
+
+@pytest.mark.parametrize("case", RANKED, ids=[c[0] for c in RANKED])
+def test_count_ge_ranked_equals_plain(case):
+    """The count kernel's arithmetic (sorted thresholds, rank by a binary
+    search, histogram, suffix sums) gives the plain count exactly."""
+    _, x, t, dtype = case
+    tx = _torch_x(x, dtype)
+    got = t_ref.count_ge_ranked(tx, torch.from_numpy(t))
+    assert got.dtype == torch.int64
+    assert torch.equal(got, t_ref.count_ge_ref(tx, torch.from_numpy(t)))
+
+
+@pytest.mark.parametrize("case", RANKED, ids=[c[0] for c in RANKED])
+def test_count_ge_ranked_equals_jax_counts(case):
+    """… and the JAX kernel's counts, but for its zero padding: it also
+    counts the (-n) mod 8192 padded zeros where a threshold is <= 0."""
+    _, x, t, dtype = case
+    got = t_ref.count_ge_ranked(_torch_x(x, dtype), torch.from_numpy(t)).numpy()
+    jx = jnp.asarray(x).astype(jnp.bfloat16 if dtype == "bf16" else jnp.float32)
+    exp = np.asarray(j_kernel.count_ge(jx, jnp.asarray(t))).astype(np.int64)
+    pad = (-x.size) % (j_kernel.ROWS * j_kernel.BLOCK)
+    np.testing.assert_array_equal(got + pad * (np.float32(0.0) >= t), exp)
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_apply_threshold_bitwise_with_jax(dtype):
     x = _x(4, (1000,))
