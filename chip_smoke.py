@@ -8,14 +8,19 @@
    versions and the build time.
 2. Kernel phase: each of the four wire-encode kernels against its plain
    PyTorch version on the same CUDA tensors, bitwise (signed zeros and
-   survivor counts included), at n ∈ {257, 8193, 2^20, 2^24} and a stacked
-   (16, 2000), k ∈ {1, n/100, n}; absmax also on rows with NaN of either
-   sign, ±inf and −0.0 at (5, 8193), (16, 2000), (16, 2^20) and (1, 2^24);
-   then CUDA-event times (median of 20 replays of a CUDA graph of the
-   launches; absmax median and min–max of 6 runs in turns with
-   ``vector_norm(x, inf, dim=1)``) beside the byte bound, the plain
-   version and one PyTorch library call where one computes the same
-   function.
+   survivor counts included), at (1, n) for n ∈ {1, 3, 257, 8193, 2^20,
+   2^24, 2^24 + 3}, (5, 8193) (rows off 16 bytes) and a stacked (16,
+   2000); encode and select at k ∈ {1, n/100, n} (at least k kept),
+   t = +inf and magnitudes tied at t; encode, select and absmax also on
+   rows with NaN of either sign, ±inf and −0.0 (encode's NaN residuals
+   held to the plain version on the CPU by position, their payloads
+   being the arithmetic's); then CUDA-event times beside the byte bound,
+   the plain version and one PyTorch library call where one computes the
+   same function: encode and select median and min–max of 6 runs in
+   turns with a device copy of the rows, beside the first design's
+   recorded times (one atomic a warp, behind a zero fill); absmax in turns
+   with ``vector_norm(x, inf, dim=1)``; quant-dequant the median of 20
+   replays of a CUDA graph of the launches.
 3. Main path: ``repro_torch.api.fit`` with ``GradientDescent(logistic_loss)``
    on the local executor at the shape of the dense PASCAL "epsilon" set
    (400,000 × 2,000 f32, K = 16 nodes of 25,000 rows; synthetic, made on
@@ -121,7 +126,9 @@
    second round's candidates, where nearly every element ranks 0), the
    mask with ``F.hardshrink(x, nextafter(t, 0))`` (bitwise the same
    function on f32), the whole function (graph-captured, so no host round
-   trip) with ``torch.topk(x.abs().flatten(), k)`` (eager).
+   trip) with ``torch.topk(x.abs().flatten(), k)`` (eager); encode and
+   select on the leaf as one row at its exact k-th magnitude, bitwise the
+   plain version, timed in turns as in 2.
 11. Prints the redesigned kernels' times in turns, one JSON line of
    per-kernel numbers (twelve kernels), the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
@@ -288,6 +295,62 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+#: encode's and select's shapes: one element, a row shorter than a float4,
+#: rows off 16 bytes, grid-stride loops of several trips, the fit's (K, D)
+ENCODE_SHAPES = [(1, 1), (1, 3), (1, 257), (1, 8193), (5, 8193), (1, 1 << 20),
+                 (1, 1 << 24), (1, (1 << 24) + 3), (K, D)]
+#: the first design's times (one float4 a thread, one atomic a warp,
+#: behind a zero fill) as PERF.md's kernel table records them, printed
+#: beside the new ones; all on an H100 80GB HBM3 at 700 W
+EARLIER_ENCODE_MS = {
+    ("topk_encode", "main"): 0.0024752, ("topk_select", "main"): 0.0027654,
+    ("topk_encode", "2^24"): 0.11425, ("topk_select", "2^24"): 0.098835,
+    ("topk_encode", "leaf"): 2.2790, ("topk_select", "leaf"): 1.9935,
+}
+
+
+def encode_cases(torch, x):
+    """(case, rows, thresholds, k | None) for encode and select: the k-th
+    magnitude of each row at k = 1, 1 % and n (every element survives);
+    t = +inf (none does); half the elements tied at the threshold's
+    magnitude."""
+    n = x.shape[1]
+    for k in sorted({1, max(1, n // 100), n}):
+        yield f"k = {k}", x, torch.topk(x.abs(), k, dim=1).values[:, -1].contiguous(), k
+    yield "t = +inf", x, torch.full((x.shape[0],), float("inf"), device="cuda"), None
+    tied = x.clone()
+    tied[:, ::2] = torch.copysign(torch.full_like(tied[:, ::2], 0.75), tied[:, ::2])
+    yield "tied magnitudes", tied, torch.full((x.shape[0],), 0.75, device="cuda"), None
+
+
+def encode_timings(torch, x, t, inner: int, label: str) -> dict:
+    """Encode and select on rows ``x`` in turns with a device copy of the
+    rows (8 bytes an element: select's traffic), median and min–max of 6
+    runs; then each one's plain version, bound and the first design's
+    recorded time at ``label``'s shape."""
+    from repro_torch.kernels.topk_compress import kernel as tkk, ref as tkr
+
+    rows, n = x.shape
+    o = torch.empty_like(x)
+    fns = {"copy": lambda: o.copy_(x)}
+    for name, with_res in (("encode", True), ("select", False)):
+        fns[name] = lambda w=with_res: tkk.encode_threshold(x, t, with_residual=w)
+    turns = turns_ms(torch, fns, inner=inner)
+    el, rows_b = rows * n, 4 * rows
+    out = {}
+    for name, with_res, nbytes, ops in (("encode", True, 12 * el + 2 * rows_b, 4 * el),
+                                        ("select", False, 8 * el + 2 * rows_b, 3 * el)):
+        b_ms, b_by = bound_ms(nbytes, ops)
+        out[f"topk_{name}"] = {
+            "ms": turns[name]["median"],
+            "turns": {k: v for k, v in turns.items() if k in ("copy", name)},
+            "plain_ms": graph_ms(torch, lambda w=with_res: tkr.encode_threshold_ref(
+                x, t, with_residual=w), inner=max(1, inner // 5), reps=5),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "shape": [rows, n],
+            "first_design_ms_recorded": EARLIER_ENCODE_MS[(f"topk_{name}", label)]}
+    return out
+
+
 def kernel_phase(torch):
     from repro_torch.kernels.int8_quant import kernel as q8k, ref as q8r
     from repro_torch.kernels.topk_compress import kernel as tkk, ref as tkr
@@ -298,21 +361,20 @@ def kernel_phase(torch):
     gen = torch.Generator(device="cuda").manual_seed(0)
     err = {"topk_encode": 0.0, "topk_select": 0.0, "int8_absmax": 0.0, "int8_quant": 0.0}
     checked = 0
-    for shape in [(1, 257), (1, 8193), (1, 1 << 20), (1, 1 << 24), (K, D)]:
+    for shape in ENCODE_SHAPES:
         x = torch.randn(shape, generator=gen, device="cuda")
-        n = shape[1]
-        for k in sorted({1, max(1, n // 100), n}):
-            t = torch.topk(x.abs(), k, dim=1).values[:, -1].contiguous()
+        for case, xc, t, k in encode_cases(torch, x):
             for name, with_res in (("topk_encode", True), ("topk_select", False)):
-                o, res, cnt = tkk.encode_threshold(x, t, with_residual=with_res)
-                o_r, res_r, cnt_r = tkr.encode_threshold_ref(x, t, with_residual=with_res)
+                o, res, cnt = tkk.encode_threshold(xc, t, with_residual=with_res)
+                o_r, res_r, cnt_r = tkr.encode_threshold_ref(xc, t, with_residual=with_res)
                 torch.cuda.synchronize()
-                check(same_bits(o, o_r), f"{name} output differs at {shape}, k={k}")
-                check(torch.equal(cnt, cnt_r), f"{name} count differs at {shape}, k={k}")
-                check(bool((cnt >= k).all()), f"{name} kept fewer than k at {shape}")
+                check(same_bits(o, o_r), f"{name} output differs at {shape}, {case}")
+                check(torch.equal(cnt, cnt_r), f"{name} count differs at {shape}, {case}")
+                if k is not None:
+                    check(bool((cnt >= k).all()), f"{name} kept fewer than k at {shape}, {case}")
                 err[name] = max(err[name], float((o - o_r).abs().max()))
                 if with_res:
-                    check(same_bits(res, res_r), f"{name} residual differs at {shape}")
+                    check(same_bits(res, res_r), f"{name} residual differs at {shape}, {case}")
                     err[name] = max(err[name], float((res - res_r).abs().max()))
                 checked += 1
         m, m_r = q8k.absmax(x), q8r.absmax_ref(x)
@@ -324,14 +386,43 @@ def kernel_phase(torch):
         err["int8_absmax"] = max(err["int8_absmax"], float((m - m_r).abs().max()))
         err["int8_quant"] = max(err["int8_quant"], float((q - q_r).abs().max()))
         checked += 2
-        print(f"kernel check {shape}: bitwise equal to the plain versions", flush=True)
+        print(f"kernel check {shape}: bitwise equal to the plain versions (encode and "
+              f"select at k = 1, 1 %, n, t = +inf and tied magnitudes)", flush=True)
+    # rows with NaN of either sign and ±inf: o and the count bitwise the
+    # plain version on the CPU and on the card; res bitwise the plain
+    # version on the card, and on the CPU wherever it is a number (a NaN's
+    # payload is the arithmetic's: the CPU passes the input's on, the card
+    # writes its own)
+    for shape in [(5, 8193), (K, D), (1, (1 << 24) + 3)]:
+        x = edge_rows(torch, shape, gen)
+        xc = x.cpu()
+        for case, t in (("k = 1 %", torch.topk(x.abs(), max(1, shape[1] // 100),
+                                                dim=1).values[:, -1].contiguous()),
+                        ("t = 0", torch.zeros((shape[0],), device="cuda"))):
+            for name, with_res in (("topk_encode", True), ("topk_select", False)):
+                o, res, cnt = tkk.encode_threshold(x, t, with_residual=with_res)
+                o_c, res_c, cnt_c = tkr.encode_threshold_ref(xc, t.cpu(), with_residual=with_res)
+                o_r, res_r, cnt_r = tkr.encode_threshold_ref(x, t, with_residual=with_res)
+                torch.cuda.synchronize()
+                what = f"{name} on the NaN rows {shape}, {case}"
+                check(same_bits(o.cpu(), o_c) and same_bits(o, o_r), f"{what}: output differs")
+                check(torch.equal(cnt.cpu(), cnt_c) and torch.equal(cnt, cnt_r),
+                      f"{what}: count differs")
+                if with_res:
+                    nan = torch.isnan(res_c)
+                    check(torch.equal(torch.isnan(res.cpu()), nan)
+                          and same_bits(res.cpu()[~nan], res_c[~nan]),
+                          f"{what}: residual differs from the plain version on the CPU")
+                    check(same_bits(res, res_r), f"{what}: residual differs on the card")
+                checked += 1
+        print(f"encode and select, NaN rows {shape}: equal to the plain versions", flush=True)
     # absmax on rows with NaN (either sign), ±inf and −0.0, rows not on 16
     # bytes, K = 16 and rows whose grid-stride loop takes several trips
     # (a NaN row's max is |NaN| = 0x7fc00000, as the plain version gives it
     # on the CPU; torch's abs on the card writes 0x7fffffff, so NaN rows
     # are held to the plain version on the CPU, the others to both)
     for shape in [(5, 8193), (K, D), (K, 1 << 20), (1, 1 << 24)]:
-        x = absmax_edge_rows(torch, shape, gen)
+        x = edge_rows(torch, shape, gen)
         m, m_r = q8k.absmax(x), q8r.absmax_ref(x)
         torch.cuda.synchronize()
         finite = ~torch.isnan(m)
@@ -353,15 +444,10 @@ def kernel_phase(torch):
         zp = torch.zeros((rows,), dtype=torch.int32, device="cuda")
         el = rows * n
         rows_b = 4 * rows
+        for name, tm in encode_timings(torch, x, t, inner, label).items():
+            timings[(name, label)] = tm
+            print(f"time {name} {label} {shape}: {tm}", flush=True)
         cases = {
-            "topk_encode": (
-                lambda: tkk.encode_threshold(x, t, with_residual=True),
-                lambda: tkr.encode_threshold_ref(x, t, with_residual=True),
-                None, 12 * el + 2 * rows_b, 4 * el),
-            "topk_select": (
-                lambda: tkk.encode_threshold(x, t, with_residual=False),
-                lambda: tkr.encode_threshold_ref(x, t, with_residual=False),
-                None, 8 * el + 2 * rows_b, 3 * el),
             "int8_absmax": (
                 lambda: q8k.absmax(x), lambda: q8r.absmax_ref(x),
                 lambda: torch.linalg.vector_norm(x, float("inf"), dim=1),
@@ -398,7 +484,7 @@ def nan_of(torch, sign_bit: bool) -> float:
     return float(bits.to(torch.int32).view(torch.float32))
 
 
-def absmax_edge_rows(torch, shape, gen):
+def edge_rows(torch, shape, gen):
     """(K, n) normal rows on the card.  With K >= 5: row 0 holds a NaN, row
     1 +inf and −inf, row 2 only −0.0, row 3 a sign-bit NaN and +inf, row 4
     −0.0 among tiny values; with fewer rows, row 0 holds −inf and a
@@ -1900,7 +1986,30 @@ def topk_phase(torch, leaf):
     print(f"time topk_sparsify (3 counts + 1 mask, graph-captured: no host round trip) "
           f"against torch.topk(x.abs().flatten(), k): {whole}", flush=True)
     torch.cuda.empty_cache()
-    return launches, timings, whole, err
+
+    # encode and select on the leaf as one row, at its exact k-th magnitude
+    # (the training slice encodes every leaf): bitwise the plain version,
+    # then times
+    row = x.reshape(1, -1)
+    t_row = torch.full((1,), exact_t, device="cuda")
+    for name, with_res in (("topk_encode", True), ("topk_select", False)):
+        o_r, res_r, cnt_r = tkr.encode_threshold_ref(row, t_row, with_residual=with_res)
+        o, res, cnt = tkk.encode_threshold(row, t_row, with_residual=with_res)
+        torch.cuda.synchronize()
+        check(torch.equal(o.view(torch.int32), o_r.view(torch.int32))
+              and torch.equal(cnt, cnt_r) and int(cnt[0]) >= k
+              and (not with_res or torch.equal(res.view(torch.int32),
+                                               res_r.view(torch.int32))),
+              f"{name} differs from the plain version on the leaf")
+        print(f"{name} on the leaf as one row: bitwise the plain version, "
+              f"{int(cnt_r[0])} kept", flush=True)
+        del o, res, o_r, res_r
+    torch.cuda.empty_cache()
+    encode_t = encode_timings(torch, row, t_row, inner=3, label="leaf")
+    for name, tm in encode_t.items():
+        print(f"time {name} leaf as one row {tuple(row.shape)}: {tm}", flush=True)
+    torch.cuda.empty_cache()
+    return launches, timings, whole, err, encode_t
 
 
 REPLACES = {
@@ -1993,13 +2102,15 @@ def main() -> int:
     timings.update(flash_t)
     flash_launches, attn_err, attn_stats, leaf, attn_control = attention_path_phase(torch)
     launches.update(flash_launches)
-    tk_launches, tk_timings, tk_whole, tk_err = topk_phase(torch, leaf)
+    tk_launches, tk_timings, tk_whole, tk_err, encode_leaf_t = topk_phase(torch, leaf)
     del leaf
     torch.cuda.empty_cache()
     launches.update(tk_launches)
     err.update(tk_err)
     for name, t in tk_timings.items():
         timings[(name, "main")] = t
+    for name, t in encode_leaf_t.items():
+        timings[(name, "leaf")] = t
     print("attention path:", json.dumps({"errors": attn_err, **attn_stats,
                                          "planted_control": attn_control}), flush=True)
     print("topk_sparsify:", json.dumps(tk_whole), flush=True)
@@ -2011,7 +2122,10 @@ def main() -> int:
         "topk_count leaf": tk_timings["topk_count"]["turns"],
         "topk_sparsify leaf": tk_whole["turns"],
         **{f"int8_absmax {label}": timings[("int8_absmax", label)]["turns"]
-           for label in ("main", "2^24")}}), flush=True)
+           for label in ("main", "2^24")},
+        **{f"{name} {label}": timings[(name, label)]["turns"]
+           for name in ("topk_encode", "topk_select") for label in ("main", "2^24", "leaf")}}),
+        flush=True)
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was never launched on the main path")
 

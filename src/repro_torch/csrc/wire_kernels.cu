@@ -11,27 +11,33 @@
 // node of one parameter leaf (rows = 1 for an unstacked leaf), so a whole
 // round of K node messages is one launch per leaf.  grid.y walks the rows,
 // grid.x blocks stride over the row's elements: one float4 a thread across
-// the row for encode, select and quant (grid_for); absmax has its own
-// grid of a few blocks an SM (absmax_grid).  Each row is split into a
-// scalar head up to the first 16-byte boundary, a float4 body and a scalar
-// tail, so rows of any length and offset take 16-byte loads where they can.
+// the row for quant (grid_for); encode, select and absmax take a grid of a
+// few blocks an SM shared among the rows (spread_grid), each block a
+// grid-stride loop with several 16-byte loads in flight a thread.  Each
+// row is split into a scalar head up to the first 16-byte boundary, a
+// float4 body and a scalar tail, so rows of any length and offset take
+// 16-byte loads where they can.
 //
 // Bound.  All four are elementwise or reductions with a handful of
 // operations per element, far below the card's ~20 flops/byte balance
 // point in f32: they are bound by device-memory bytes.  Per element the
 // encode moves 12 bytes (read c, write o and res), the select 8, absmax 4
 // and quant-dequant 8, at 3.35 TB/s on an H100 SXM.  The design streams
-// each byte once: no shared-memory staging, reductions in registers and
-// warp shuffles, one atomic per warp (encode, select) or per block and row
-// (absmax: on grid_for's grid a 2^24 row would end in 131,072 warps'
-// atomicMax on one word, serialized at L2; its own grid puts 4 an SM
-// there, 528 on an H100).
+// each byte once: no shared-memory staging, reductions in registers,
+// the warp (__reduce_*_sync) and the block, then one atomic per block and
+// row.  On grid_for's grid a 2^24 row ends in 131,072 warps, and one
+// atomic each on one word serializes at L2: about 95,000 at k = 1 %, at
+// 1.0-1.6 ns each on the H100 the whole time of the first encode and
+// select, the bytes streaming underneath.  spread_grid puts 4 blocks an
+// SM there, 528 atomics on an H100.
 //
 // Numerics (bitwise with the plain PyTorch versions and the jitted JAX
 // reference):
 //   * dropped top-k entries are written as +0.0 (keep ? c : 0.0f), as XLA
 //     writes them under jit; res = c - o;
-//   * the survivor count is an integer atomicAdd: exact, order-free;
+//   * the survivor count is an integer sum: exact, order-free; a row of
+//     one block writes it, a row of several adds to a count that the entry
+//     point zeroes on the stream first, so no count carries over a call;
 //   * absmax reduces the bit patterns of |x| as unsigned integers, which
 //     order exactly like the non-negative floats they encode, so the max
 //     is exact and independent of reduction order;
@@ -68,11 +74,6 @@ __device__ __forceinline__ RowSplit split_row(const float* row, long long n) {
   return s;
 }
 
-__device__ __forceinline__ int warp_sum(int v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(kFull, v, off);
-  return v;
-}
-
 template <bool kResidual>
 __device__ __forceinline__ int encode_one(float v, float thr, float* o,
                                           float* res, long long i) {
@@ -83,11 +84,47 @@ __device__ __forceinline__ int encode_one(float v, float thr, float* o,
   return keep ? 1 : 0;
 }
 
+// encode_one on the float4 at j: one 16-byte store to o (and res)
+template <bool kResidual>
+__device__ __forceinline__ int encode4(float4 v, float thr, float4* o4,
+                                       float4* r4, long long j) {
+  const bool k0 = fabsf(v.x) >= thr, k1 = fabsf(v.y) >= thr;
+  const bool k2 = fabsf(v.z) >= thr, k3 = fabsf(v.w) >= thr;
+  float4 ov;
+  ov.x = k0 ? v.x : 0.0f;
+  ov.y = k1 ? v.y : 0.0f;
+  ov.z = k2 ? v.z : 0.0f;
+  ov.w = k3 ? v.w : 0.0f;
+  o4[j] = ov;
+  if (kResidual) {
+    float4 rv;
+    rv.x = v.x - ov.x;
+    rv.y = v.y - ov.y;
+    rv.z = v.z - ov.z;
+    rv.w = v.w - ov.w;
+    r4[j] = rv;
+  }
+  return (int)k0 + (int)k1 + (int)k2 + (int)k3;
+}
+
+// 16-byte loads in flight a thread in encode and select
+constexpr int kEncodeLoads = 4;
+// encode's and select's blocks an SM, shared among the rows
+constexpr int kEncodeBlocksPerSm = 4;
+
+// On spread_grid's grid: each block a grid-stride loop over its row's
+// float4 body, kEncodeLoads loads in flight a thread, 16-byte stores; the
+// count in a register, summed by the warp (__reduce_add_sync), the block
+// (shared memory), then written by the row's only block or added by one
+// atomicAdd a block and row.  On the H100, 2 to 8 loads in flight, 2 to 16
+// blocks an SM and streaming stores (__stcs) all ran within a few percent
+// of each other, at 2^24 and at 2.5e8 elements a row.
 template <bool kResidual>
 __global__ void __launch_bounds__(kThreads)
     topk_encode_kernel(const float* __restrict__ c, const float* __restrict__ t,
                        float* __restrict__ o, float* __restrict__ res,
                        int* __restrict__ count, long long n) {
+  __shared__ int warp_kept[kThreads / 32];
   const long long row = blockIdx.y;
   const float thr = t[row];
   const float* cr = c + row * n;
@@ -108,29 +145,35 @@ __global__ void __launch_bounds__(kThreads)
   const float4* c4 = reinterpret_cast<const float4*>(cr + s.head);
   float4* o4 = reinterpret_cast<float4*>(orow + s.head);
   float4* r4 = kResidual ? reinterpret_cast<float4*>(rrow + s.head) : nullptr;
-  for (long long i = tid; i < s.body4; i += stride) {
-    const float4 v = c4[i];
-    const bool k0 = fabsf(v.x) >= thr, k1 = fabsf(v.y) >= thr;
-    const bool k2 = fabsf(v.z) >= thr, k3 = fabsf(v.w) >= thr;
-    float4 ov;
-    ov.x = k0 ? v.x : 0.0f;
-    ov.y = k1 ? v.y : 0.0f;
-    ov.z = k2 ? v.z : 0.0f;
-    ov.w = k3 ? v.w : 0.0f;
-    o4[i] = ov;
-    if (kResidual) {
-      float4 rv;
-      rv.x = v.x - ov.x;
-      rv.y = v.y - ov.y;
-      rv.z = v.z - ov.z;
-      rv.w = v.w - ov.w;
-      r4[i] = rv;
+  const long long per_block = (long long)kThreads * kEncodeLoads;
+  for (long long base = (long long)blockIdx.x * per_block + threadIdx.x;
+       base < s.body4; base += (long long)gridDim.x * per_block) {
+    float4 v[kEncodeLoads];
+#pragma unroll
+    for (int u = 0; u < kEncodeLoads; ++u) {
+      const long long j = base + u * kThreads;
+      v[u] = j < s.body4 ? c4[j] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
-    kept += (int)k0 + (int)k1 + (int)k2 + (int)k3;
+#pragma unroll
+    for (int u = 0; u < kEncodeLoads; ++u) {
+      const long long j = base + u * kThreads;
+      if (j < s.body4) kept += encode4<kResidual>(v[u], thr, o4, r4, j);
+    }
   }
 
-  kept = warp_sum(kept);
-  if ((threadIdx.x & 31) == 0 && kept != 0) atomicAdd(count + row, kept);
+  kept = __reduce_add_sync(kFull, kept);
+  if ((threadIdx.x & 31) == 0) warp_kept[threadIdx.x >> 5] = kept;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    kept = threadIdx.x < kThreads / 32 ? warp_kept[threadIdx.x] : 0;
+    kept = __reduce_add_sync(kFull, kept);
+    if (threadIdx.x == 0) {
+      if (gridDim.x == 1)
+        count[row] = kept;
+      else if (kept != 0)
+        atomicAdd(count + row, kept);
+    }
+  }
 }
 
 __device__ __forceinline__ unsigned abs_bits(float v) {
@@ -142,7 +185,7 @@ constexpr int kAbsmaxLoads = 4;
 // absmax's blocks an SM, shared among the rows
 constexpr int kAbsmaxBlocksPerSm = 4;
 
-// Its own grid (absmax_grid): a few blocks an SM, split among the rows,
+// Its own grid (spread_grid): a few blocks an SM, split among the rows,
 // each a grid-stride loop over its row's float4 body with kAbsmaxLoads
 // loads in flight a thread; the max goes through the warp
 // (__reduce_max_sync), then the block (shared memory), then one atomicMax
@@ -228,15 +271,16 @@ dim3 grid_for(long long rows, long long n) {
   return dim3((unsigned)bx, (unsigned)rows, 1);
 }
 
-// absmax's grid: kAbsmaxBlocksPerSm blocks an SM split among the rows
-// (at least one a row), fewer where a row needs fewer.
-dim3 absmax_grid(long long rows, long long n) {
+// A grid of blocks_per_sm blocks an SM split among the rows (at least one
+// a row), fewer where a row needs fewer: a block covers kThreads × loads
+// float4s a trip.  absmax's grid and encode's.
+dim3 spread_grid(long long rows, long long n, int loads, int blocks_per_sm) {
   int dev = 0, sms = 132;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long per_block = (long long)kThreads * kAbsmaxLoads * 4;
+  const long long per_block = (long long)kThreads * loads * 4;
   long long bx = (n + per_block - 1) / per_block;
-  long long cap = (long long)kAbsmaxBlocksPerSm * sms / rows;
+  long long cap = (long long)blocks_per_sm * sms / rows;
   if (cap < 1) cap = 1;
   if (bx > cap) bx = cap;
   if (bx < 1) bx = 1;
@@ -248,11 +292,16 @@ dim3 absmax_grid(long long rows, long long n) {
 extern "C" {
 
 // res == nullptr selects the residual-free kernel (_select_kernel).
-// count must hold `rows` zeroed int32s.
+// count (rows int32s) needs no zeroing: a row of one block writes its own;
+// where rows take several blocks, count is zeroed on the stream first.
 int repro_topk_encode(const float* c, const float* t, float* o, float* res,
                       int* count, long long rows, long long n, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid = grid_for(rows, n);
+  const dim3 grid = spread_grid(rows, n, kEncodeLoads, kEncodeBlocksPerSm);
+  if (grid.x > 1) {
+    const cudaError_t e = cudaMemsetAsync(count, 0, rows * sizeof(int), st);
+    if (e != cudaSuccess) return (int)e;
+  }
   if (res != nullptr)
     topk_encode_kernel<true><<<grid, kThreads, 0, st>>>(c, t, o, res, count, n);
   else
@@ -264,7 +313,8 @@ int repro_topk_encode(const float* c, const float* t, float* o, float* res,
 int repro_absmax(const float* x, float* out, long long rows, long long n,
                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  absmax_kernel<<<absmax_grid(rows, n), kThreads, 0, st>>>(
+  absmax_kernel<<<spread_grid(rows, n, kAbsmaxLoads, kAbsmaxBlocksPerSm),
+                  kThreads, 0, st>>>(
       x, reinterpret_cast<unsigned*>(out), n);
   return (int)cudaGetLastError();
 }

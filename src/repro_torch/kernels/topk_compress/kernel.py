@@ -7,8 +7,12 @@ Replaces ``repro.kernels.topk_compress.kernel``'s ``_encode_kernel``
 without the residual).  Where the Pallas kernel walks one leaf's padded
 (nb, 8, 1024) tiles in order and carries the count in VMEM scratch, this
 kernel takes the (K, n) messages of all K nodes of one leaf at once, masks
-the ragged row ends itself and sums the count with warp shuffles and one
-integer atomic per warp.  Bound by bytes: 12 n (encode) or 8 n (select).
+the ragged row ends itself, and runs a grid of a few blocks an SM shared
+among the rows, four 16-byte loads in flight a thread.  The count is an
+integer sum through the warp and the block: a row of one block writes it,
+a row of several adds one atomic a block to a count the launch zeroes
+first, so the wrapper needs no fill.  Bound by bytes: 12 n (encode) or
+8 n (select).
 
 ``count_ge`` and ``apply_threshold`` replace ``_count_kernel`` and
 ``_mask_kernel``.  The count runs blocks in parallel where the Pallas
@@ -41,7 +45,7 @@ def encode_threshold(c: torch.Tensor, t: torch.Tensor, *, with_residual: bool):
     lib = build.library()
     o = torch.empty_like(c)
     res = torch.empty_like(c) if with_residual else None
-    count = torch.zeros((c.shape[0],), dtype=torch.int32, device=c.device)
+    count = torch.empty((c.shape[0],), dtype=torch.int32, device=c.device)
     with torch.cuda.device(c.device):
         status = lib.repro_topk_encode(
             c.data_ptr(), t.data_ptr(), o.data_ptr(),

@@ -790,3 +790,141 @@ def test_int8_absmax_bitwise_with_plain(cuda, shape):
     assert same_bits(m.cpu(), q8_ref.absmax_ref(x.cpu()))
     finite = ~torch.isnan(m)
     assert same_bits(m[finite], q8_ref.absmax_ref(x)[finite])
+
+
+#: encode's and select's shapes: one element, a row shorter than a float4,
+#: rows off 16 bytes (n odd), the fit's (16, 2000) (one block a row) and
+#: a row whose grid-stride loop takes several trips, with a scalar tail
+ENCODE_SHAPES = [(1, 1), (1, 3), (1, 257), (5, 8193), (16, 2000), (1, (1 << 24) + 3)]
+ENCODE_CASES = ["k=1", "k=1%", "k=n", "t=+inf", "tied"]
+
+
+def _encode_case(cuda, shape, case, seed):
+    """Rows and thresholds: the k-th magnitude of each row at k = 1, 1 %
+    or n (every element survives), t = +inf (none does), or half the
+    elements tied at the threshold's magnitude."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=cuda)
+    K, n = shape
+    if case == "t=+inf":
+        return x, torch.full((K,), float("inf"), device=cuda)
+    if case == "tied":
+        x[:, ::2] = torch.copysign(torch.full_like(x[:, ::2], 0.75), x[:, ::2])
+        return x, torch.full((K,), 0.75, device=cuda)
+    k = {"k=1": 1, "k=1%": max(1, n // 100), "k=n": n}[case]
+    return x, torch.topk(x.abs(), k, dim=1).values[:, -1].contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_residual", [True, False], ids=["encode", "select"])
+@pytest.mark.parametrize("case", ENCODE_CASES)
+@pytest.mark.parametrize("shape", ENCODE_SHAPES, ids=str)
+def test_topk_encode_bitwise_at_edges(cuda, shape, case, with_residual):
+    x, t = _encode_case(cuda, shape, case, sum(shape))
+    name = "topk_encode" if with_residual else "topk_select"
+    before = kernels.LAUNCHES[name]
+    o, res, cnt = tk_kernel.encode_threshold(x, t, with_residual=with_residual)
+    o_r, res_r, cnt_r = tk_ref.encode_threshold_ref(x, t, with_residual=with_residual)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    assert same_bits(o, o_r) and torch.equal(cnt, cnt_r)
+    assert res is None if not with_residual else same_bits(res, res_r)
+    want = {"k=n": shape[1], "t=+inf": 0}.get(case)
+    if want is not None:
+        assert bool((cnt == want).all())
+
+
+def _nan_rows(cuda, shape, seed):
+    """``_absmax_rows``; with fewer than 5 rows, row 0 holds −inf, a
+    sign-bit NaN and a NaN in its last element."""
+    x = _absmax_rows(cuda, shape, seed)
+    if shape[0] < 5:
+        n = shape[1]
+        x[0, n // 3], x[0, n // 2], x[0, n - 1] = float("-inf"), _nan(True), _nan(False)
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_residual", [True, False], ids=["encode", "select"])
+@pytest.mark.parametrize("shape", [(5, 8193), (16, 2000), (1, (1 << 24) + 3)], ids=str)
+def test_topk_encode_nan_rows_vs_plain_on_cpu(cuda, shape, with_residual):
+    """|NaN| >= t is false: o = +0 and res = NaN.  o and the count are
+    bitwise the plain version on the CPU; so is res wherever it is a
+    number, and its NaNs lie where the CPU's do (a NaN's payload is the
+    arithmetic's: the CPU passes the input's on, the card writes its own,
+    as torch's arithmetic on the card does)."""
+    x = _nan_rows(cuda, shape, sum(shape) + 1)
+    for t in (torch.topk(x.abs(), max(1, shape[1] // 100), dim=1).values[:, -1].contiguous(),
+              torch.zeros((shape[0],), device=cuda)):
+        o, res, cnt = tk_kernel.encode_threshold(x, t, with_residual=with_residual)
+        o_c, res_c, cnt_c = tk_ref.encode_threshold_ref(x.cpu(), t.cpu(),
+                                                        with_residual=with_residual)
+        torch.cuda.synchronize()
+        assert same_bits(o.cpu(), o_c) and torch.equal(cnt.cpu(), cnt_c)
+        if with_residual:
+            nan = torch.isnan(res_c)
+            assert torch.equal(torch.isnan(res.cpu()), nan)
+            assert same_bits(res.cpu()[~nan], res_c[~nan])
+            _, res_r, _ = tk_ref.encode_threshold_ref(x, t, with_residual=True)
+            assert same_bits(res, res_r)
+
+
+#: one block a row (the count written by it), and several (the count
+#: zeroed by the launch, then one atomic a block)
+COUNT_SHAPES = [(16, 2000), (5, 8193), (1, (1 << 20) + 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_residual", [True, False], ids=["encode", "select"])
+@pytest.mark.parametrize("shape", COUNT_SHAPES, ids=str)
+def test_topk_encode_count_is_written_anew_each_call(cuda, shape, with_residual):
+    """Three calls back to back, then ten replays of a CUDA graph holding
+    the call: the count is the same every time, so none carries over from
+    a call before; after t becomes +inf a replay counts 0."""
+    x, t = _encode_case(cuda, shape, "k=1%", sum(shape) + 2)
+    _, _, want = tk_ref.encode_threshold_ref(x, t, with_residual=with_residual)
+    for _ in range(3):
+        cnt = tk_kernel.encode_threshold(x, t, with_residual=with_residual)[2]
+        torch.cuda.synchronize()
+        assert torch.equal(cnt, want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tk_kernel.encode_threshold(x, t, with_residual=with_residual)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o, res, cnt = tk_kernel.encode_threshold(x, t, with_residual=with_residual)
+    o_r, res_r, _ = tk_ref.encode_threshold_ref(x, t, with_residual=with_residual)
+    for _ in range(10):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(cnt, want) and same_bits(o, o_r)
+        assert res is None if not with_residual else same_bits(res, res_r)
+    t.fill_(float("inf"))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert not bool(cnt.any()) and not bool(o.any())
+
+
+@pytest.mark.cuda
+def test_topk_encode_on_two_streams_at_once(cuda):
+    """The launch keeps no state between calls, so two streams may encode
+    at once: each stream's counts are its own rows'."""
+    inputs = [_encode_case(cuda, shape, "k=1%", 40 + i) for i, shape in enumerate(COUNT_SHAPES)]
+    wants = [tk_ref.encode_threshold_ref(x, t, with_residual=True) for x, t in inputs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = {}
+    for rep in range(4):
+        for i, (x, t) in enumerate(inputs):
+            with torch.cuda.stream(streams[(i + rep) % 2]):
+                got[rep, i] = tk_kernel.encode_threshold(x, t, with_residual=True)
+    for s in streams:
+        torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    for (rep, i), (o, res, cnt) in got.items():
+        o_r, res_r, cnt_r = wants[i]
+        assert same_bits(o, o_r) and same_bits(res, res_r) and torch.equal(cnt, cnt_r)
+

@@ -100,6 +100,41 @@ def test_topk_encode_stacked_rows_match_per_row_calls():
         assert int(jc) == int(cnt[i])
 
 
+@pytest.mark.parametrize("case", ["k=1", "k=1%", "k=n", "tied"])
+@pytest.mark.parametrize("with_ef", [False, True], ids=["select", "encode"])
+@pytest.mark.parametrize("shape", [(16, 2000), (5, 8193), (3, 1027)], ids=str)
+def test_topk_encode_stacked_rows_edges_match_per_row_calls(shape, with_ef, case):
+    """The stacked (K, n) encode against the JAX encode of each row alone,
+    at the fit's (16, 2000) and rows of odd length, k = 1, 1 % and n, and
+    rows whose magnitudes tie at the k-th (every tie survives)."""
+    K, n = shape
+    u = normal(10 + K, shape)
+    r = normal(20 + K, shape, 0.25) if with_ef else None
+    k = {"k=1": 1, "k=1%": max(1, n // 100), "k=n": n, "tied": max(1, n // 100)}[case]
+    if case == "tied":
+        # half of each row at |c| = 8, above the rest: all of it survives
+        if r is None:
+            u[:, ::2] = np.copysign(np.float32(8.0), u[:, ::2])
+        else:
+            u[:, ::2] = np.copysign(np.float32(7.75), u[:, ::2])
+            r[:, ::2] = np.copysign(np.float32(0.25), u[:, ::2])
+    o, res, cnt = t_tk.topk_encode(
+        torch.from_numpy(u), None if r is None else torch.from_numpy(r), k=k)
+    for i in range(K):
+        jo, jres, jc = tk_ops.topk_encode(
+            jnp.asarray(u[i]), None if r is None else jnp.asarray(r[i]), k=k)
+        assert_bits_equal(jo, o[i])
+        assert int(jc) == int(cnt[i])
+        if with_ef:
+            assert_bits_equal(jres, res[i])
+        else:
+            assert jres is None and res is None
+    if case == "tied":
+        assert np.all(cnt.numpy() >= (n + 1) // 2)
+    elif case == "k=n":
+        assert np.all(cnt.numpy() == n)
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_int8_roundtrip_bitwise(shape):
     x = normal(8, shape)
