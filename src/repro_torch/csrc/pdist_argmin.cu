@@ -1,47 +1,55 @@
-// Nearest centroid for Hopper (sm_90a): for every point, the index and the
-// distance of its nearest centroid under l2 (squared), l1 or l-infinity.
+// Nearest centroid on the CUDA cores for Hopper (sm_90a): for every point,
+// the index and the distance of its nearest centroid under l1 or
+// l-infinity (the route of both).
 //
-// Replaces the Pallas TPU kernel of the JAX package:
-//   pdist_argmin_kernel<T, M>  <- src/repro/kernels/pdist_argmin/kernel.py _pdist_kernel
-// (reached through ops.pdist_argmin <- the E-step of ml/clustering.py:
-// kmeans, distributed_kmeans, consensus_kmeans and kmeans_pp_init).
+// Replaces the Pallas TPU kernel of the JAX package, for metrics "l1" and
+// "linf":
+//   nearest_cc_kernel<T, M, DP>  <- src/repro/kernels/pdist_argmin/kernel.py _pdist_kernel
+// (reached through ops.pdist_argmin <- the E-step of ml/clustering.py
+// kmeans(metric="l1" | "linf"), the only clustering entry point that takes
+// those metrics).  l2 goes to pdist_argmin_tc.cu; the route is a fixed
+// function of the metric (kernels/pdist_argmin/kernel.py ROUTES).
 //
 // Function.  For X (N, d) and C (K, d), both f32 or both bf16, on the card:
 //   dist[n] = min_k D(x_n, c_k),  idx[n] = the first k attaining it,
-//   D = sum_j (x_j - c_j)^2 (l2, squared), sum_j |x_j - c_j| (l1),
-//       max_j |x_j - c_j| (linf),
-// computed in f32 (bf16 is widened exactly).  l2 is the direct form, as
-// the JAX package's ref.py and clustering E-step write it, not the TPU
-// kernel's expanded |x|^2 - 2 x.c + |c|^2 (kernel.py:23-30): the direct
-// form is never negative and has no cancellation when |x| >> |x - c|.
-// Each centroid's sum runs over j in increasing order with one fused
-// multiply-add per term, so it agrees with the plain version up to the
-// order of summation (and the rounding an FMA saves), not bitwise.
+//   D = sum_j |x_j - c_j| (l1), max_j |x_j - c_j| (linf),
+// computed in f32 (bf16 is widened exactly).  Each centroid's sum runs over
+// j in increasing order with one add (or max) a term, and the minimum
+// over k in increasing order with a strict '<', so ties take the first
+// index as jnp.argmin's do.  Zero columns past d add |0 - 0| = 0 and change
+// nothing, so the result is bitwise that of any kernel that sums in that
+// order, the first design of this file included.
 //
-// Design.  The TPU kernel keeps all of C resident in VMEM (K <= 1024,
-// d <= 512: 2 MB) and streams blocks of 128 points.  A Hopper block has
-// at most 227 KB of shared memory, so here C passes through shared memory
-// in tiles of kTileK centroids by kTileD coordinates (8 KB).  One thread
-// owns one point: the block's 128 points are in flight together, each
-// thread keeps kTileK running sums in registers while it walks the tile's
-// coordinates four at a time (a 16-byte shared load serves four terms of
-// one centroid, broadcast to the warp), and after each centroid tile it
-// folds the tile's sums into its running minimum in increasing k with a
-// strict '<', so ties go to the first index as jnp.argmin's do.  Columns
-// past d and rows past K are staged as zeros and never win; points past N
-// are masked, so nothing needs padding.  Offsets are 64-bit (N d may pass
-// 2^31).
+// Design.  Neither l1 nor linf has a matrix-product form, so the kernel
+// stays on the CUDA cores, and its bound is instruction issue: a subtract,
+// then an add or a max whose |.| is an operand modifier, two f32
+// instructions a term.  So the design keeps everything else off the issue
+// slots:
+//   - a persistent grid of as many blocks as fit on the SMs (the occupancy
+//     calculator), each owning one contiguous range of points, so that C is
+//     staged into shared memory once a block when it fits beside three
+//     blocks an SM (K rows of d rounded up to 4 floats; 5.4 KB at K 32 x d
+//     42) and in tiles of as many rows as fit otherwise;
+//   - a block's points pass in chunks of 256 (two a thread: t and t + 128):
+//     the chunk, contiguous in X, comes in with coalesced 16-byte loads into
+//     shared memory, and each thread copies its points into registers, DP
+//     columns a point (the least of 16, 32, 48, 64 that holds d); the next
+//     chunk's 16-byte loads go into registers before this chunk's work, so
+//     their latency hides behind it; the loop over j is unrolled at compile
+//     time, one branch a group of four columns;
+//   - four centroid rows at a time are read from shared memory as 16-byte
+//     broadcasts: one broadcast feeds 8 terms, and eight running sums a
+//     thread keep the adds' latency hidden.
+// Above d = 64 the points do not fit in registers: the kernel with DP = 0
+// takes the columns in chunks of 64, re-reading each point's chunk from
+// device memory (the cache) for every centroid; that path serves shapes off
+// the clustering path (d <= 64 there).
 //
-// Bound.  Operations: 3 N K d f32 operations (subtract, multiply, add; a
-// subtract, an absolute value and an add or max for l1 and linf), against
-// N d + K d elements read and 8 N bytes written.  At the KDD Cup 1999
-// shape (N 4,898,432, d 42, K 1,000) that is 6.2e11 operations, 9.2 ms at
-// the card's 67 TFLOP/s of f32 outside the tensor cores, while the bytes
-// take 0.26 ms: the kernel is bound by arithmetic.  It does two f32
-// instructions per term (a subtract and an FMA) and one 16-byte shared
-// load per four terms, on the CUDA cores.  The expanded form on the tensor
-// cores would cut the arithmetic to one matrix product; that is a later
-// change.
+// Bound.  Instruction issue: 2 N K d f32 instructions at 132 SMs x 128
+// lanes x 1.98 GHz = 33.45 T instructions/s; at kmeans(metric="l1")'s
+// 320,000 x 42 against 32 centroids 0.025715 ms, at the KDD Cup 1999 shape
+// (4,898,432 x 42 against 1,000) 12.30 ms.  Bytes: N d + K d elements read,
+// 8 N bytes written (0.0168 ms at the first shape).
 //
 // Plain C interface for ctypes: the entry point launches on the given
 // stream, never synchronises, allocates nothing, and returns
@@ -50,13 +58,24 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kBlock = 128;  // points per block, one per thread
-constexpr int kTileK = 16;   // centroids staged per tile
-constexpr int kTileD = 128;  // coordinates staged per tile (a multiple of 4)
+// The launch shape was chosen on an H100 among 21 variants (64 to 256
+// threads, 1 to 4 points a thread, 2 to 8 centroids a step, room for 1 to 8
+// blocks an SM, with and without the next pass loaded ahead; PERF.md §6).
+constexpr int kThreads = 128;
+constexpr int kP = 2;                    // points a thread
+constexpr int kNC = 4;                   // centroids a step
+constexpr int kMinBlocks = 3;            // C is tiled to leave room for this many blocks
+constexpr int kChunk = kThreads * kP;    // points a pass
+constexpr int kChunkCols = 64;           // DP = 0: columns a chunk
+constexpr int kSmemMax = 232448;         // dynamic shared memory a block may use
+constexpr int kSmemPerSm = 233472;       // shared memory of an SM; each block reserves 1 KB
+constexpr int kMaxDevices = 64;
 
-enum Metric { kL2 = 0, kL1 = 1, kLinf = 2 };
+enum Metric { kL1 = 1, kLinf = 2 };  // METRICS.index in kernels/pdist_argmin/ref.py
 
 struct Bf16 {};  // tag: elements are bf16 bit patterns (uint16_t)
 
@@ -64,103 +83,277 @@ template <typename T> struct Elem;
 
 template <> struct Elem<float> {
   using Storage = float;
+  static constexpr int kVec = 4;  // elements a 16-byte load
   __device__ static __forceinline__ float load(const Storage* p) { return __ldg(p); }
+  __device__ static __forceinline__ void unpack(uint4 w, float* out) {
+    out[0] = __uint_as_float(w.x);
+    out[1] = __uint_as_float(w.y);
+    out[2] = __uint_as_float(w.z);
+    out[3] = __uint_as_float(w.w);
+  }
 };
 
 // bf16 -> f32 is exact: the bf16 bits are the high half of the f32.
 template <> struct Elem<Bf16> {
   using Storage = uint16_t;
+  static constexpr int kVec = 8;
   __device__ static __forceinline__ float load(const Storage* p) {
     return __uint_as_float(((unsigned)__ldg(p)) << 16);
+  }
+  __device__ static __forceinline__ void unpack(uint4 w, float* out) {
+    const unsigned u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      out[2 * i] = __uint_as_float(u[i] << 16);
+      out[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+    }
   }
 };
 
 template <int M>
 __device__ __forceinline__ float accumulate(float acc, float x, float c) {
   const float delta = x - c;
-  if (M == kL2) return fmaf(delta, delta, acc);
   if (M == kL1) return acc + fabsf(delta);
   return fmaxf(acc, fabsf(delta));
 }
 
-template <typename T, int M>
-__global__ void __launch_bounds__(kBlock)
-pdist_argmin_kernel(const typename Elem<T>::Storage* __restrict__ X,
-                    const typename Elem<T>::Storage* __restrict__ C,
-                    int* __restrict__ idx_out, float* __restrict__ dist_out,
-                    long long N, int K, int d) {
-  __shared__ __align__(16) float tile[kTileK * kTileD];
-  const long long n = (long long)blockIdx.x * kBlock + threadIdx.x;
-  const bool valid = n < N;
-  const typename Elem<T>::Storage* x = X + (valid ? n : 0) * (long long)d;
-
-  float best = __int_as_float(0x7f800000);  // +inf
-  int best_k = 0;
-  for (int k0 = 0; k0 < K; k0 += kTileK) {
-    float acc[kTileK];
-#pragma unroll
-    for (int t = 0; t < kTileK; ++t) acc[t] = 0.0f;
-    for (int j0 = 0; j0 < d; j0 += kTileD) {
-      const int dn = min(kTileD, d - j0);
-      const int dn4 = (dn + 3) & ~3;  // zero columns up to a multiple of 4
-      __syncthreads();  // the previous tile is no longer read
-      for (int e = threadIdx.x; e < kTileK * dn4; e += kBlock) {
-        const int t = e / dn4, j = e - t * dn4;
-        const int k = k0 + t;
-        tile[t * kTileD + j] =
-            (k < K && j < dn) ? Elem<T>::load(C + (long long)k * d + j0 + j) : 0.0f;
-      }
-      __syncthreads();
-      if (valid) {
-        for (int j = 0; j < dn4; j += 4) {
-          // the point's four coordinates, zero past d (a zero column of the
-          // tile then adds 0, or |0| to a max, which changes nothing)
-          float xv[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            xv[q] = (j + q < dn) ? Elem<T>::load(x + j0 + j + q) : 0.0f;
-#pragma unroll
-          for (int t = 0; t < kTileK; ++t) {
-            const float4 c = *reinterpret_cast<const float4*>(&tile[t * kTileD + j]);
-            float a = acc[t];
-            a = accumulate<M>(a, xv[0], c.x);
-            a = accumulate<M>(a, xv[1], c.y);
-            a = accumulate<M>(a, xv[2], c.z);
-            a = accumulate<M>(a, xv[3], c.w);
-            acc[t] = a;
-          }
-        }
-      }
-    }
-    // fold the tile in increasing k; a strict '<' keeps the first index
-#pragma unroll
-    for (int t = 0; t < kTileK; ++t) {
-      if (k0 + t < K && acc[t] < best) {
-        best = acc[t];
-        best_k = k0 + t;
-      }
-    }
-  }
-  if (valid) {
-    idx_out[n] = best_k;
-    dist_out[n] = best;
+// rows [k0, k0 + kn) of C into cs, rows d4 floats apart, zero past d
+template <typename T>
+__device__ __forceinline__ void stage_c(float* cs, const typename Elem<T>::Storage* C, int k0,
+                                        int kn, int d, int d4) {
+  for (int i = threadIdx.x; i < kn * d4; i += kThreads) {
+    const int r = i / d4, j = i - r * d4;
+    cs[i] = j < d ? Elem<T>::load(C + (long long)(k0 + r) * d + j) : 0.0f;
   }
 }
 
-template <typename T>
-int launch(const void* X, const void* C, int* idx, float* dist, long long N,
-           int K, int d, int metric, cudaStream_t st) {
+// One block a contiguous range of `per` points; see the note above.
+// DP > 0: points in registers, DP columns; DP = 0: columns in chunks of 64.
+template <typename T, int M, int DP>
+__global__ void __launch_bounds__(kThreads)
+nearest_cc_kernel(const typename Elem<T>::Storage* __restrict__ X,
+                  const typename Elem<T>::Storage* __restrict__ C, int* __restrict__ idx_out,
+                  float* __restrict__ dist_out, long long N, int K, int d, long long per,
+                  int kc) {
+  using E = Elem<T>;
+  using St = typename E::Storage;
+  constexpr int kCols = DP > 0 ? DP : kChunkCols;
+  extern __shared__ __align__(16) float smem[];
+  const int d4 = (d + 3) & ~3;
+  float* cs = smem;            // kc rows of d4
+  float* xs = smem + kc * d4;  // DP > 0: the pass's points, d floats each
+  const int nct = (K + kc - 1) / kc;
+  const long long lo = (long long)blockIdx.x * per;
+  const long long hi = lo + per < N ? lo + per : N;
+  if (lo >= hi) return;
+  if (nct == 1) {  // C whole, once
+    stage_c<T>(cs, C, 0, K, d, d4);
+    __syncthreads();
+  }
+
+  // DP > 0 on a 16-byte aligned X: a pass's 16-byte vectors, loaded into
+  // registers one pass ahead (kVecs a thread at most: kP DP elements)
+  constexpr int kVecs = DP > 0 ? (kP * DP + E::kVec - 1) / E::kVec : 1;
+  const bool aligned = (reinterpret_cast<uintptr_t>(X) & 15) == 0;
+  uint4 pre[kVecs];
+  auto fetch = [&](long long b) {
+    const long long nv = (long long)(hi - b < kChunk ? hi - b : kChunk) * d / E::kVec;
+    const uint4* src = reinterpret_cast<const uint4*>(X + b * d);
+#pragma unroll
+    for (int t = 0; t < kVecs; ++t) {
+      const int i = threadIdx.x + t * kThreads;
+      pre[t] = i < nv ? __ldg(src + i) : make_uint4(0, 0, 0, 0);
+    }
+  };
+  if (DP > 0 && aligned) fetch(lo);
+
+  for (long long base = lo; base < hi; base += kChunk) {
+    const int cnt = (int)(hi - base < kChunk ? hi - base : kChunk);
+    float x[kP][kCols];
+    if constexpr (DP > 0) {
+      __syncthreads();  // the previous pass is done with xs (and C is staged)
+      const St* src = X + base * d;
+      const long long total = (long long)cnt * d;
+      long long head = 0;
+      if (aligned) {
+        const long long nv = total / E::kVec;
+#pragma unroll
+        for (int t = 0; t < kVecs; ++t) {
+          const int i = threadIdx.x + t * kThreads;
+          if (i < nv) E::unpack(pre[t], xs + (long long)i * E::kVec);
+        }
+        head = nv * E::kVec;
+      }
+      for (long long i = head + threadIdx.x; i < total; i += kThreads) xs[i] = E::load(src + i);
+      __syncthreads();
+      if (aligned && base + kChunk < hi) fetch(base + kChunk);  // in flight meanwhile
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        const int n = threadIdx.x + p * kThreads;
+#pragma unroll
+        for (int j = 0; j < DP; ++j) x[p][j] = (n < cnt && j < d) ? xs[n * d + j] : 0.0f;
+      }
+    }
+    float best[kP];
+    int best_k[kP];
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+      best[p] = __int_as_float(0x7f800000);  // +inf
+      best_k[p] = 0;
+    }
+
+    for (int ct = 0; ct < nct; ++ct) {
+      const int k0 = ct * kc;
+      const int kn = min(kc, K - k0);
+      if (nct > 1) {
+        __syncthreads();
+        stage_c<T>(cs, C, k0, kn, d, d4);
+        __syncthreads();
+      }
+      // NC centroids from row kk of the tile: the running sums, then the
+      // fold in increasing k
+      auto centroids = [&](int kk, auto nc) {
+        constexpr int NC = decltype(nc)::value;
+        float acc[NC][kP];
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int p = 0; p < kP; ++p) acc[c][p] = 0.0f;
+        // DP > 0: one chunk, every column is in x
+        for (int j0 = 0; j0 < (DP > 0 ? 1 : d); j0 += kCols) {
+          if constexpr (DP == 0) {  // this chunk of the thread's points
+#pragma unroll
+            for (int p = 0; p < kP; ++p) {
+              const long long n = base + threadIdx.x + p * kThreads;
+              const St* xr = X + (n < hi ? n : lo) * d + j0;
+#pragma unroll
+              for (int j = 0; j < kCols; ++j) x[p][j] = j0 + j < d ? E::load(xr + j) : 0.0f;
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < kCols / 4; ++q) {
+            if (j0 + 4 * q < d) {
+#pragma unroll
+              for (int c = 0; c < NC; ++c) {
+                const float4 cv =
+                    *reinterpret_cast<const float4*>(cs + (kk + c) * d4 + j0 + 4 * q);
+#pragma unroll
+                for (int p = 0; p < kP; ++p) {
+                  float a = acc[c][p];
+                  a = accumulate<M>(a, x[p][4 * q + 0], cv.x);
+                  a = accumulate<M>(a, x[p][4 * q + 1], cv.y);
+                  a = accumulate<M>(a, x[p][4 * q + 2], cv.z);
+                  a = accumulate<M>(a, x[p][4 * q + 3], cv.w);
+                  acc[c][p] = a;
+                }
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int p = 0; p < kP; ++p)
+            if (acc[c][p] < best[p]) {  // strict: the first index keeps a tie
+              best[p] = acc[c][p];
+              best_k[p] = k0 + kk + c;
+            }
+      };
+      int kk = 0;
+      for (; kk + kNC <= kn; kk += kNC) centroids(kk, std::integral_constant<int, kNC>{});
+      for (; kk < kn; ++kk) centroids(kk, std::integral_constant<int, 1>{});
+    }
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+      const int n = threadIdx.x + p * kThreads;
+      if (n < cnt) {
+        idx_out[base + n] = best_k[p];
+        dist_out[base + n] = best[p];
+      }
+    }
+  }
+}
+
+int cached_sms() {
+  static int sms[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 132;
+  if (dev >= kMaxDevices) return 132;
+  if (sms[dev] == 0) cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  return sms[dev] > 0 ? sms[dev] : 132;
+}
+
+template <typename T, int M, int DP>
+int launch_dp(const void* X, const void* C, int* idx, float* dist, long long N, int K, int d,
+              cudaStream_t st) {
   using St = typename Elem<T>::Storage;
-  const dim3 grid((unsigned)((N + kBlock - 1) / kBlock));
-  const St* x = static_cast<const St*>(X);
-  const St* c = static_cast<const St*>(C);
+  auto kern = nearest_cc_kernel<T, M, DP>;
+  // raise the shared-memory limit once a device, so that a launch being
+  // captured into a CUDA graph makes no other such call
+  static bool raised[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= kMaxDevices || !raised[dev]) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < kMaxDevices) raised[dev] = true;
+  }
+  const long long d4 = (d + 3) & ~3;
+  const long long xs_bytes = DP > 0 ? (long long)kChunk * d * 4 : 0;
+  long long room = ((kSmemPerSm / kMinBlocks - 1024) - xs_bytes) / (d4 * 4);
+  if (room < 1) room = (kSmemMax - xs_bytes) / (d4 * 4);
+  if (room < 1) return (int)cudaErrorInvalidValue;  // the wrapper refuses such d
+  const int kc = (int)(room < K ? room : K);
+  const size_t smem = (size_t)(kc * d4 * 4 + xs_bytes);
+  // blocks an SM at this shared-memory size, asked once a size and device
+  // (so that a launch being captured into a CUDA graph repeats no query)
+  static size_t asked[kMaxDevices] = {};
+  static int occupancy[kMaxDevices] = {};
+  int per_sm = 0;
+  if (dev < kMaxDevices && asked[dev] == smem + 1) {
+    per_sm = occupancy[dev];
+  } else {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < kMaxDevices) {
+      asked[dev] = smem + 1;
+      occupancy[dev] = per_sm;
+    }
+  }
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  // every block a contiguous range of points, a multiple of 8 (so that each
+  // range starts on 16 bytes of X when X does)
+  const long long chunks = (N + kChunk - 1) / kChunk;
+  long long blocks = (long long)per_sm * cached_sms();
+  if (blocks > chunks) blocks = chunks;
+  long long per = (N + blocks - 1) / blocks;
+  per = (per + 7) & ~7LL;
+  blocks = (N + per - 1) / per;
+  kern<<<(unsigned)blocks, kThreads, smem, st>>>(static_cast<const St*>(X),
+                                                  static_cast<const St*>(C), idx, dist, N, K, d,
+                                                  per, kc);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int M>
+int launch_metric(const void* X, const void* C, int* idx, float* dist, long long N, int K, int d,
+                  cudaStream_t st) {
+  if (d <= 16) return launch_dp<T, M, 16>(X, C, idx, dist, N, K, d, st);
+  if (d <= 32) return launch_dp<T, M, 32>(X, C, idx, dist, N, K, d, st);
+  if (d <= 48) return launch_dp<T, M, 48>(X, C, idx, dist, N, K, d, st);
+  if (d <= 64) return launch_dp<T, M, 64>(X, C, idx, dist, N, K, d, st);
+  return launch_dp<T, M, 0>(X, C, idx, dist, N, K, d, st);
+}
+
+template <typename T>
+int launch(const void* X, const void* C, int* idx, float* dist, long long N, int K, int d,
+           int metric, cudaStream_t st) {
   switch (metric) {
-    case kL2: pdist_argmin_kernel<T, kL2><<<grid, kBlock, 0, st>>>(x, c, idx, dist, N, K, d); break;
-    case kL1: pdist_argmin_kernel<T, kL1><<<grid, kBlock, 0, st>>>(x, c, idx, dist, N, K, d); break;
-    case kLinf: pdist_argmin_kernel<T, kLinf><<<grid, kBlock, 0, st>>>(x, c, idx, dist, N, K, d); break;
+    case kL1: return launch_metric<T, kL1>(X, C, idx, dist, N, K, d, st);
+    case kLinf: return launch_metric<T, kLinf>(X, C, idx, dist, N, K, d, st);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -168,13 +361,13 @@ int launch(const void* X, const void* C, int* idx, float* dist, long long N,
 extern "C" {
 
 // X (N, d), C (K, d): contiguous, both f32 (is_bf16 = 0) or both bf16
-// (is_bf16 = 1); idx (N,) int32 and dist (N,) f32 out.  metric: 0 l2
-// (squared), 1 l1, 2 linf.  N, K, d >= 1; the wrapper checks the rest.
-int repro_pdist_argmin(const void* X, const void* C, void* idx, void* dist,
-                       long long N, int K, int d, int metric, int is_bf16,
-                       void* stream) {
-  if (N < 1 || K < 1 || d < 1 || (N + kBlock - 1) / kBlock > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
+// (is_bf16 = 1); idx (N,) int32 and dist (N,) f32 out.  metric: 1 l1,
+// 2 linf (0, l2, is refused: it runs on pdist_argmin_tc.cu).  N, K >= 1,
+// 1 <= d with (d rounded up to 4) floats within a block's shared memory;
+// the wrapper checks the rest.
+int repro_pdist_argmin(const void* X, const void* C, void* idx, void* dist, long long N, int K,
+                       int d, int metric, int is_bf16, void* stream) {
+  if (N < 1 || K < 1 || d < 1 || d > kSmemMax / 4 - 4) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* i = static_cast<int*>(idx);
   float* o = static_cast<float*>(dist);

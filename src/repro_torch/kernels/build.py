@@ -58,9 +58,12 @@ SIGNATURES = {
             [_P, _P, _P, _P, _LL, _I, _I, _I, _P, _P, _P, _P, _P], ctypes.c_int),
         "repro_pdist_argmin_tc_image_bytes": ([_I, _I, _I], ctypes.c_longlong),
     },
-    "flash_attention": {
-        "repro_flash_attention": (
-            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+    "flash_attention_tf32": {
+        "repro_flash_tf32_image_bytes": ([_I, _I, _I, _I], ctypes.c_longlong),
+        "repro_flash_tf32_prep": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], ctypes.c_int),
+        "repro_flash_attention_tf32": (
+            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+        "repro_flash_attention_tf32_smem": ([_I], ctypes.c_int),
     },
     "flash_attention_tc": {
         "repro_flash_attention_tc": (

@@ -6,7 +6,8 @@ Where the Pallas kernel walks the grid (B, Hq, T/bq, S/bk) in order on
 VMEM, each kernel runs one block per (b, h, query tile), loops over key
 tiles itself from the window's left edge to the causal diagonal, reads the
 model layout (B, T, H, D) through its strides and masks the ragged edges
-itself, so nothing is transposed or padded.  Bound by operations:
+itself, so nothing is padded (the f32 route's prep kernel writes k and vᵀ
+once a call in the tiles its tensor cores read).  Bound by operations:
 4·B·Hq·D per visible (query, key) pair.
 
 The route is a fixed function of the type (``ROUTES``), not a fallback:
@@ -14,9 +15,13 @@ The route is a fixed function of the type (``ROUTES``), not a fallback:
 - bf16 → ``csrc/flash_attention_tc.cu``: both products on the tensor
   cores (``wgmma``, f32 accumulators), P rounded to bf16 for P·V, counted
   as ``flash_attention_tc``;
-- f32 → ``csrc/flash_attention.cu``: everything in f32 on the CUDA cores,
-  which holds the 2e-5 f32 limit that TF32 or bf16 products would not,
-  counted as ``flash_attention``.
+- f32 → ``csrc/flash_attention_tf32.cu``: both products on the tensor
+  cores as three TF32 products a term (lo·hi + hi·lo + hi·hi of each
+  value's split into hi = tf32(v) and lo = tf32(v − hi)), which holds the
+  2e-5 f32 limit that one TF32 product would not.  Two launches a call:
+  the prep kernel writes k and vᵀ as hi/lo planes in the tiles the tensor
+  cores read (``tf32_image``, counted as ``flash_attention_tf32_prep``),
+  then the attention kernel (counted as ``flash_attention_tf32``).
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ from repro_torch.kernels import build
 #: kernel: every config of the repo and every shape of the JAX tests)
 HEAD_DIMS = (8, 16, 32, 64, 128)
 #: operand type -> the kernel that runs it (its ``kernels.LAUNCHES`` name)
-ROUTES = {torch.float32: "flash_attention", torch.bfloat16: "flash_attention_tc"}
+ROUTES = {torch.float32: "flash_attention_tf32", torch.bfloat16: "flash_attention_tc"}
 _INT_MAX = 2**31 - 1
 
 
@@ -79,29 +84,59 @@ def _validate(q, k, v, window: int, q_offset: int):
     return B, T, S, Hq, Hkv, D
 
 
-def _launch(name: str, q, k, v, *, causal: bool, window: int, q_offset: int):
-    """Launch ``name``'s kernel (checked operands) and count it there."""
-    B, T, S, Hq, Hkv, D = _validate(q, k, v, window, q_offset)
+def tf32_image(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The f32 route's prep kernel on CUDA f32 ``k``/``v`` (B, S, Hkv, D):
+    the flat f32 image of their 64-key tiles as the tensor cores read them
+    (``ref.tf32_image_ref`` is its plain version, bitwise).  Counted as
+    ``flash_attention_tf32_prep``."""
+    _check(k, "k")
+    _check(v, "v", k.device)
+    if k.dtype != torch.float32 or v.dtype != torch.float32 or v.shape != k.shape:
+        raise ValueError(f"flash attention prep: k, v must be f32 of one shape, got "
+                         f"{k.dtype} {tuple(k.shape)}, {v.dtype} {tuple(v.shape)}")
+    B, S, Hkv, D = k.shape
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash attention: no kernel for D={D} (D in {HEAD_DIMS})")
+    if B * Hkv > 65535 or S > _INT_MAX:
+        raise ValueError(f"flash attention prep: unsupported shape {tuple(k.shape)}")
+    lib = build.library("flash_attention_tf32")
+    nbytes = lib.repro_flash_tf32_image_bytes(B, S, Hkv, D)
+    image = torch.empty((nbytes // 4,), dtype=torch.float32, device=k.device)
+    c_strides = (ctypes.c_longlong * 6)(*k.stride()[:3], *v.stride()[:3])
+    with torch.cuda.device(k.device):
+        status = lib.repro_flash_tf32_prep(k.data_ptr(), v.data_ptr(), image.data_ptr(),
+                                           c_strides, B, S, Hkv, D, build.stream_of(k))
+    build.check(status, "flash attention tf32 prep")
+    kernels.LAUNCHES["flash_attention_tf32_prep"] += 1
+    return image
+
+
+def tf32_attend(q: torch.Tensor, image: torch.Tensor, S: int, Hkv: int, *,
+                causal: bool = True, window: int = 0, q_offset: int = 0) -> torch.Tensor:
+    """The f32 route's attention kernel alone: CUDA f32 ``q`` (B, T, Hq, D)
+    over ``image``, the prepared tiles of k/v (B, S, Hkv, D) that
+    ``tf32_image`` wrote.  Counted as ``flash_attention_tf32``."""
+    _check(q, "q")
+    B, T, Hq, D = q.shape
+    if q.dtype != torch.float32 or D not in HEAD_DIMS or Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"flash attention tf32: unsupported q {q.dtype} {tuple(q.shape)}, "
+                         f"Hkv {Hkv}")
+    lib = build.library("flash_attention_tf32")
+    if not (isinstance(image, torch.Tensor) and image.device == q.device
+            and image.dtype == torch.float32 and image.is_contiguous()
+            and image.numel() * 4 == lib.repro_flash_tf32_image_bytes(B, S, Hkv, D)):
+        raise ValueError("flash attention tf32: image is not the prepared tiles of "
+                         f"({B}, {S}, {Hkv}, {D}) k/v")
+    if not 0 <= window <= _INT_MAX or max(T, S, abs(q_offset) + T + S) > _INT_MAX:
+        raise ValueError(f"flash attention tf32: unsupported window {window} or shapes")
     out = torch.empty((B, T, Hq, D), dtype=q.dtype, device=q.device)
-    strides = [s for x in (q, k, v) for s in x.stride()[:3]]
-    c_strides = (ctypes.c_longlong * 9)(*strides)
-    if name == "flash_attention_tc":
-        # its last argument: whether cp.async may copy 16 bytes (8 bf16
-        # elements) from every row, i.e. every base and stride is on 16 bytes
-        mode = int(all(s % 8 == 0 for s in strides)
-                   and all(x.data_ptr() % 16 == 0 for x in (q, k, v)))
-        fn = build.library("flash_attention_tc").repro_flash_attention_tc
-    else:  # its last argument: the element type
-        mode = int(q.dtype == torch.bfloat16)
-        fn = build.library("flash_attention").repro_flash_attention
+    c_strides = (ctypes.c_longlong * 3)(*q.stride()[:3])
     with torch.cuda.device(q.device):
-        status = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), c_strides,
-            B, T, S, Hq, Hq // Hkv, D, int(bool(causal)), int(window), int(q_offset),
-            mode, build.stream_of(q),
-        )
-    build.check(status, name.replace("_", " "))
-    kernels.LAUNCHES[name] += 1
+        status = lib.repro_flash_attention_tf32(
+            q.data_ptr(), image.data_ptr(), out.data_ptr(), c_strides, B, T, S, Hq, Hq // Hkv,
+            D, int(bool(causal)), int(window), int(q_offset), build.stream_of(q))
+    build.check(status, "flash attention tf32")
+    kernels.LAUNCHES["flash_attention_tf32"] += 1
     return out
 
 
@@ -111,16 +146,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Launch on CUDA ``q`` (B, T, Hq, D), ``k``/``v`` (B, S, Hkv, D) of
     one type (f32 or bf16), any strides with D contiguous: the contiguous
     (B, T, Hq, D) attention output in q's type, from the kernel that
-    ``route(q.dtype)`` names."""
+    ``route(q.dtype)`` names (each launch counted where it happens)."""
     _check(q, "q")
-    return _launch(route(q.dtype), q, k, v, causal=causal, window=window,
-                   q_offset=q_offset)
-
-
-def flash_attention_cuda_cores(q, k, v, *, causal: bool = True, window: int = 0,
-                               q_offset: int = 0) -> torch.Tensor:
-    """The f32 CUDA-core kernel on f32 or bf16 operands, whatever the
-    route: how ``chip_smoke.py`` times it beside the tensor-core kernel on
-    the same bf16 inputs.  Counted as ``flash_attention``."""
-    return _launch("flash_attention", q, k, v, causal=causal, window=window,
-                   q_offset=q_offset)
+    name = route(q.dtype)
+    B, T, S, Hq, Hkv, D = _validate(q, k, v, window, q_offset)
+    if name == "flash_attention_tf32":  # the prep kernel, then attention on its image
+        return tf32_attend(q, tf32_image(k, v), S, Hkv, causal=causal, window=window,
+                           q_offset=q_offset)
+    out = torch.empty((B, T, Hq, D), dtype=q.dtype, device=q.device)
+    strides = [s for x in (q, k, v) for s in x.stride()[:3]]
+    c_strides = (ctypes.c_longlong * 9)(*strides)
+    # the last argument: whether cp.async may copy 16 bytes (8 bf16 elements)
+    # from every row, i.e. every base and stride is on 16 bytes
+    aligned = int(all(s % 8 == 0 for s in strides)
+                  and all(x.data_ptr() % 16 == 0 for x in (q, k, v)))
+    with torch.cuda.device(q.device):
+        status = build.library("flash_attention_tc").repro_flash_attention_tc(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), c_strides,
+            B, T, S, Hq, Hq // Hkv, D, int(bool(causal)), int(window), int(q_offset),
+            aligned, build.stream_of(q),
+        )
+    build.check(status, "flash attention tc")
+    kernels.LAUNCHES[name] += 1
+    return out

@@ -3,9 +3,9 @@
 Counterpart of ``repro.kernels.flash_attention.ops.flash_attention``:
 q (B, T, Hq, D), k/v (B, S, Hkv, D), the semantics of the model's cache-free
 ``_sdpa`` path.  For CUDA tensors the kernel that ``kernel.route`` names for
-the type runs (bf16: tensor cores; f32: CUDA cores), reading the layout
-through its strides, so none of the JAX wrapper's transposes and padding
-to block multiples exist.  For CPU tensors that kernel's plain version runs
+the type runs (bf16: tensor cores; f32: 3xTF32 on the tensor cores),
+reading the layout through its strides, so none of the JAX wrapper's
+transposes and padding to block multiples exist.  For CPU tensors that kernel's plain version runs
 (``ref.attention_bf16p`` for bf16, ``ref.attention_ref`` for f32); any
 other device raises.
 """
@@ -17,7 +17,7 @@ import torch
 from repro_torch.kernels.flash_attention import kernel, ref
 
 #: kernel name -> its plain version, in the (B, H, T, D) layout
-PLAIN = {"flash_attention": ref.attention_ref, "flash_attention_tc": ref.attention_bf16p}
+PLAIN = {"flash_attention_tf32": ref.attention_ref, "flash_attention_tc": ref.attention_bf16p}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

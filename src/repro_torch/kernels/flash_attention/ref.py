@@ -1,11 +1,14 @@
 """Plain PyTorch versions of flash attention (the CPU path, and what
 ``chip_smoke.py`` holds the CUDA kernels to on the card): a port of
-``repro.kernels.flash_attention.ref.attention_ref``, and the tensor-core
-kernel's arithmetic with P rounded to bf16."""
+``repro.kernels.flash_attention.ref.attention_ref``, the bf16 tensor-core
+kernel's arithmetic with P rounded to bf16, and the f32 route's prep
+kernel (``tf32_image_ref``, bitwise)."""
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels._tf32 import tf32_round
 
 #: the masked logit of the TPU kernel
 NEG_INF = -1e30
@@ -71,3 +74,60 @@ def attention_bf16p(q, k, v, *, causal: bool = True, window: int = 0,
         m = m_new
     out = acc / torch.where(l > 0.0, l, 1.0)[..., None]
     return out.reshape(B, Hq, T, D).to(q.dtype)
+
+
+# ----------------------------------------------------------------------------
+# The f32 route (csrc/flash_attention_tf32.cu): the prep kernel's image.
+# ----------------------------------------------------------------------------
+
+#: keys a prepared tile (the kernel's kBK)
+TF32_TILE = 64
+def vt_key_at(pk: torch.Tensor) -> torch.Tensor:
+    """The key that the prep writes at position ``pk`` of a tile's Vᵀ rows
+    (the kernel's ``key_at``): positions 0..3 of each 8 hold keys 0, 2, 4, 6
+    and positions 4..7 keys 1, 3, 5, 7."""
+    lo = pk & 7
+    return (pk & ~7) | torch.where(lo < 4, 2 * lo, 2 * (lo - 4) + 1)
+
+
+def _tf32_tile_blocks(D: int) -> tuple[int, int]:
+    """(32-column blocks of a K row, 64-row blocks of Vᵀ) at head width D."""
+    return -(-D // 32), 1 if D < 64 else D // 64
+
+
+def tf32_image_ref(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The f32 route's prep kernel on k/v (B, S, Hkv, D) f32: the flat f32
+    image of every (b, hkv, 64-key tile), each tile K's hi plane, K's lo
+    plane, Vᵀ's hi plane, Vᵀ's lo plane.  K: 32-column blocks of 64 key rows
+    × 32 floats; Vᵀ: 64-row blocks (a row a head column, zero past D) of two
+    32-key blocks, keys ordered by ``vt_key_at``; every block in the 128-byte
+    swizzle (float w of row r is column 4·((w // 4) ^ (r % 8)) + w % 4);
+    zero past S.  hi = tf32(x), lo = tf32(x − hi)."""
+    B, S, Hkv, D = k.shape
+    kb, nb = _tf32_tile_blocks(D)
+    nkt = -(-S // TF32_TILE)
+    dev = k.device
+
+    def tiles(x):  # (B, Hkv, nkt, 64, D), zero past S
+        x = x.float().permute(0, 2, 1, 3)
+        x = torch.nn.functional.pad(x, (0, 0, 0, nkt * TF32_TILE - S))
+        return x.reshape(B, Hkv, nkt, TF32_TILE, D)
+
+    def planes(vals, valid, plane):
+        vals = torch.where(valid, vals, torch.zeros((), device=dev))
+        hi = tf32_round(vals)
+        return torch.where(plane == 0, hi, tf32_round(vals - hi))
+
+    f = torch.arange(2 * kb * 2048, device=dev)
+    plane, g = f // (kb * 2048), f % (kb * 2048)
+    r, w = (g >> 5) & 63, g & 31
+    c = (g >> 11) * 32 + (((w >> 2) ^ r) & 7) * 4 + (w & 3)
+    k_img = planes(tiles(k)[..., r, c.clamp(max=D - 1)], c < D, plane)
+
+    f = torch.arange(2 * nb * 4096, device=dev)
+    plane, g = f // (nb * 4096), f % (nb * 4096)
+    rr, w = (g >> 5) & 63, g & 31
+    pk = ((g >> 11) & 1) * 32 + (((w >> 2) ^ rr) & 7) * 4 + (w & 3)
+    d = (g >> 12) * 64 + rr
+    v_img = planes(tiles(v)[..., vt_key_at(pk), d.clamp(max=D - 1)], d < D, plane)
+    return torch.cat([k_img, v_img], dim=-1).reshape(-1)

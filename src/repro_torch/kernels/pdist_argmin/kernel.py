@@ -15,11 +15,13 @@ The route is a fixed function of the metric (``ROUTES``), not a fallback:
   re-run in the direct form by a second kernel; counted as
   ``pdist_argmin_tc``.  Bound by the products: 3·2·N·K·d at 495 TF32
   TFLOP/s (bf16: 2·N·K·d at 989).
-- l1, l∞ → ``csrc/pdist_argmin.cu``: one thread per point on the CUDA
-  cores, C in 16 × 128 tiles; neither metric has a matrix-product form.
-  Counted as ``pdist_argmin``.  ``pdist_argmin_cuda_cores`` runs it under
-  l2 as well (the direct form Σ(x − c)²), to time it beside the
-  tensor-core route.
+- l1, l∞ → ``csrc/pdist_argmin.cu``: neither metric has a matrix-product
+  form, so it runs on the CUDA cores, bound by instruction issue (a
+  subtract and an add or max a term).  A persistent grid: each block owns a
+  range of points, stages C in shared memory once (in tiles when it does not
+  fit), brings its points in with coalesced loads and keeps each point in
+  registers (d ≤ 64; chunks of 64 columns above), with one broadcast of a
+  centroid row feeding several running sums.  Counted as ``pdist_argmin``.
 """
 
 from __future__ import annotations
@@ -35,6 +37,9 @@ _DTYPES = (torch.float32, torch.bfloat16)
 ROUTES = {"l2": "pdist_argmin_tc", "l1": "pdist_argmin", "linf": "pdist_argmin"}
 #: centroids a tensor-core n-tile (``kBN`` in the source); C is padded to it
 TILE_N = 64
+#: the widest rows the CUDA-core kernel takes: one centroid row, d rounded up
+#: to 4 floats, in a block's 232,448 bytes of shared memory
+MAX_D_CUDA_CORES = 232448 // 4 - 4
 
 
 def route(metric: str) -> str:
@@ -83,10 +88,15 @@ def pdist_argmin(X: torch.Tensor, C: torch.Tensor, metric: str = "l2"):
     return pdist_argmin_cuda_cores(X, C, metric)
 
 
-def pdist_argmin_cuda_cores(X: torch.Tensor, C: torch.Tensor, metric: str = "l2"):
-    """The CUDA-core kernel (``csrc/pdist_argmin.cu``) under any metric,
-    l2 in the direct form: ``(idx int32 (N,), dist f32 (N,))``."""
+def pdist_argmin_cuda_cores(X: torch.Tensor, C: torch.Tensor, metric: str = "l1"):
+    """The CUDA-core kernel (``csrc/pdist_argmin.cu``) under l1 or l∞:
+    ``(idx int32 (N,), dist f32 (N,))``."""
     N, K, d = _validate(X, C, metric)
+    if route(metric) != "pdist_argmin":
+        raise ValueError(f"pdist_argmin: the CUDA-core kernel takes l1 and linf, not {metric}")
+    if d > MAX_D_CUDA_CORES:
+        raise ValueError(f"pdist_argmin: d = {d} > {MAX_D_CUDA_CORES}, the widest rows "
+                         f"the CUDA-core kernel stages")
     lib = build.library("pdist_argmin")
     idx = torch.empty((N,), dtype=torch.int32, device=X.device)
     dist = torch.empty((N,), dtype=torch.float32, device=X.device)

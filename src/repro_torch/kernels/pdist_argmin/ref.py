@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels._tf32 import tf32_round
+
 METRICS = ("l2", "l1", "linf")
 
 
@@ -38,17 +40,6 @@ def pdist_argmin_ref(X: torch.Tensor, C: torch.Tensor, metric: str = "l2"):
 
 #: the guard's bound, tol = (A·dp + B)·2⁻²³·(‖x‖² + max‖c‖²), by type
 GUARD_COEFFS = {torch.float32: (8, 16), torch.bfloat16: (4, 8)}
-
-
-def tf32_round(v: torch.Tensor) -> torch.Tensor:
-    """f32 → the nearest TF32 value (ties to even) as an f32 whose low 13
-    bits are zero, by rounding the bits as the kernel does; inf and NaN
-    pass unchanged."""
-    u = v.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    special = (u & 0x7F800000) == 0x7F800000
-    r = torch.where(special, u, (u + 0xFFF + ((u >> 13) & 1)) & 0xFFFFE000)
-    r = torch.where(r >= 2**31, r - 2**32, r)
-    return r.to(torch.int32).view(torch.float32)
 
 
 def padded_depth(d: int, dtype) -> int:

@@ -223,11 +223,14 @@ def test_decode_attention_replays_in_a_cuda_graph(cuda):
 
 
 # (N, K, d): the JAX package's pdist test shapes, K = 1, the design limit
-# K 1024 × d 512, a dimension past one staged tile (d 130) and a chunk of
-# the KDD Cup 1999 shape
+# K 1024 × d 512, a dimension past the CUDA-core kernel's register tile (d
+# 130), a chunk of the KDD Cup 1999 shape, N off that kernel's 256-point
+# pass at K 1,000 and at an odd K and d, and a k-means-sized input on which
+# each of its blocks makes several passes
 PDIST_SHAPES = [
     (500, 16, 8), (300, 7, 5), (260, 5, 3), (128, 32, 64), (1000, 3, 2), (65, 4, 4),
-    (777, 1, 9), (600, 1024, 512), (333, 40, 130), (8192, 1000, 42),
+    (777, 1, 9), (600, 1024, 512), (333, 40, 130), (8192, 1000, 42), (3001, 1000, 42),
+    (513, 33, 17), (200003, 32, 42),
 ]
 #: |kernel − plain| ≤ atol + rtol·|plain|: the JAX pdist test's jnp.allclose
 PDIST_ATOL = PDIST_RTOL = 1e-5
@@ -282,6 +285,47 @@ def test_pdist_argmin_kernel_vs_plain(cuda, shape, metric, dtype):
         assert torch.equal(idx, ref_idx) and torch.equal(dist, ref_dist)
     elif dtype == torch.float32:
         assert float(clear.float().mean()) > 0.99
+
+
+def _pdist_in_order(X, C, metric):
+    """l1 or l∞ with each centroid's terms added (or maxed) over j in
+    increasing order, one f32 operation a term, the first index of the
+    least: the CUDA-core kernel's order of operations."""
+    Xf, Cf = X.float(), C.float()
+    acc = torch.zeros((X.shape[0], C.shape[0]), device=X.device)
+    for j in range(X.shape[1]):
+        term = (Xf[:, j, None] - Cf[None, :, j]).abs()
+        acc = acc + term if metric == "l1" else torch.maximum(acc, term)
+    return torch.argmin(acc, dim=1).to(torch.int32), torch.amin(acc, dim=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("metric", ["l1", "linf"])
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("shape", [(3001, 1000, 42), (513, 33, 17), (300, 70, 130),
+                                   (1000, 5, 64), (257, 3, 1), (200003, 32, 42)], ids=str)
+def test_pdist_cuda_cores_adds_in_increasing_j(cuda, shape, metric, dtype, aligned):
+    """The l1/l∞ kernel's results are bitwise those of adding each
+    centroid's terms in increasing j and taking the first least index, at
+    shapes where C is staged whole, the point tile is ragged, d passes the
+    register tile, and each block makes several 256-point passes (200,003
+    points: about five a block on 132 SMs, the last one short); with X
+    starting on 16 bytes (vector loads) and one element past it (scalar
+    loads)."""
+    from repro_torch.kernels.pdist_argmin import kernel as pd_kernel
+
+    N, K, d = shape
+    g = torch.Generator(device=cuda).manual_seed(N + K + d)
+    flat = (3.0 * torch.randn((N * d + 1,), generator=g, device=cuda)).to(dtype)
+    X = flat[:N * d].view(N, d) if aligned else flat[1:].view(N, d)
+    assert (X.data_ptr() % 16 == 0) == aligned
+    C = X[torch.randperm(N, generator=g, device=cuda)[:K]].clone() if K < N else X[:K]
+    idx, dist = pd_kernel.pdist_argmin(X, C, metric)
+    want_idx, want_dist = _pdist_in_order(X, C, metric)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, want_idx)
+    assert torch.equal(dist.view(torch.int32), want_dist.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -398,9 +442,8 @@ def test_pdist_argmin_routes_by_metric(cuda):
         pd_ops.pdist_argmin(X, C, metric=metric)
         assert kernels.LAUNCHES[name] == before[name] + 1
         assert sum(kernels.LAUNCHES.values()) == sum(before.values()) + 1
-    before = dict(kernels.LAUNCHES)
-    pd_kernel.pdist_argmin_cuda_cores(X, C, "l2")  # the direct form, for timing
-    assert kernels.LAUNCHES["pdist_argmin"] == before["pdist_argmin"] + 1
+    with pytest.raises(ValueError, match="l1 and linf"):
+        pd_kernel.pdist_argmin_cuda_cores(X, C, "l2")
 
 
 @pytest.mark.cuda
@@ -469,7 +512,11 @@ def test_flash_attention_kernel_vs_plain(cuda, shape, dtype):
                                     q_offset=q_offset)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES[name] == before[name] + 1
-    assert sum(kernels.LAUNCHES.values()) == sum(before.values()) + 1
+    # the f32 route launches its prep kernel too
+    prep = int(dtype == torch.float32)
+    assert kernels.LAUNCHES["flash_attention_tf32_prep"] == (
+        before["flash_attention_tf32_prep"] + prep)
+    assert sum(kernels.LAUNCHES.values()) == sum(before.values()) + 1 + prep
     tr = lambda x: x.transpose(1, 2)  # noqa: E731
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     plain = tr(fa_ref.attention_ref(tr(q), tr(k), tr(v), **kw))
@@ -517,25 +564,108 @@ def test_flash_attention_reads_strided_layouts(cuda, dtype, D):
 
 @pytest.mark.cuda
 def test_flash_attention_counts_each_route(cuda):
-    """f32 launches the CUDA-core kernel, bf16 the tensor-core one, each
-    counted under its own name; the CUDA-core kernel on bf16 (how the smoke
-    run times it beside the other) agrees within the bf16 limit."""
+    """f32 launches the prep kernel and the 3xTF32 kernel, bf16 the bf16
+    tensor-core one, each counted under its own name; the two routes agree
+    within the bf16 limit on the same values."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
 
-    assert fa_kernel.ROUTES == {torch.float32: "flash_attention",
+    assert fa_kernel.ROUTES == {torch.float32: "flash_attention_tf32",
                                 torch.bfloat16: "flash_attention_tc"}
     q, k, v = _flash_inputs(cuda, (2, 256, 256, 8, 2, 64), torch.bfloat16)
     before = dict(kernels.LAUNCHES)
     tc = fa_kernel.flash_attention(q, k, v)
     assert kernels.LAUNCHES["flash_attention_tc"] == before["flash_attention_tc"] + 1
-    assert kernels.LAUNCHES["flash_attention"] == before["flash_attention"]
-    cores = fa_kernel.flash_attention_cuda_cores(q, k, v)
-    assert kernels.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
-    fa_kernel.flash_attention(q.float(), k.float(), v.float())
-    assert kernels.LAUNCHES["flash_attention"] == before["flash_attention"] + 2
+    assert sum(kernels.LAUNCHES.values()) == sum(before.values()) + 1
+    f32 = fa_kernel.flash_attention(q.float(), k.float(), v.float())
+    assert kernels.LAUNCHES["flash_attention_tf32"] == before["flash_attention_tf32"] + 1
+    assert kernels.LAUNCHES["flash_attention_tf32_prep"] == (
+        before["flash_attention_tf32_prep"] + 1)
     assert kernels.LAUNCHES["flash_attention_tc"] == before["flash_attention_tc"] + 1
     torch.cuda.synchronize()
-    assert float((tc.float() - cores.float()).abs().max()) <= FLASH_TOL[torch.bfloat16]
+    assert float((tc.float() - f32).abs().max()) <= FLASH_TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 130, 3, 64), (1, 64, 2, 8), (1, 70, 1, 128),
+                                   (2, 5, 2, 16), (3, 100, 2, 32)], ids=str)
+def test_flash_tf32_prep_is_its_plain_version_bitwise(cuda, shape):
+    """The f32 route's prep kernel writes exactly ``tf32_image_ref``'s image
+    (hi/lo planes, swizzle, Vᵀ key order, zeros past S and D), from
+    contiguous k/v and from views of one fused projection."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    B, S, Hkv, D = shape
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    fused = torch.randn((B, S, 3 * Hkv * D), generator=g, device=cuda)
+    k = fused[..., Hkv * D:2 * Hkv * D].view(B, S, Hkv, D)
+    v = fused[..., 2 * Hkv * D:].view(B, S, Hkv, D)
+    for kk, vv in ((k, v), (k.contiguous(), v.contiguous())):
+        before = kernels.LAUNCHES["flash_attention_tf32_prep"]
+        img = fa_kernel.tf32_image(kk, vv)
+        assert kernels.LAUNCHES["flash_attention_tf32_prep"] == before + 1
+        want = fa_ref.tf32_image_ref(kk, vv)
+        torch.cuda.synchronize()
+        assert torch.equal(img.view(torch.int32), want.view(torch.int32))
+
+
+def _attention_f64(q, k, v):
+    """Causal GQA attention of (B, T, H, D) operands in float64: the exact
+    answer that the f32 paths are all measured against."""
+    B, T, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qd = q.double().transpose(1, 2).reshape(B, Hkv, Hq // Hkv, T, D)
+    s = torch.einsum("bhgtd,bhsd->bhgts", qd, k.double().transpose(1, 2)) * D ** -0.5
+    mask = torch.ones((T, k.shape[1]), dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+    out = torch.einsum("bhgts,bhsd->bhgtd", p, v.double().transpose(1, 2))
+    return out.reshape(B, Hq, T, D).transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [2.0, 3.0])
+def test_flash_tf32_holds_at_the_split_worst_case(cuda, scale):
+    """Large q and k (logits of standard deviation scale²) whose every
+    element sits at the 3xTF32 split's worst case (low 13 bits 0x1001) stay
+    within the f32 limit of the exact (float64) attention, at
+    tinyllama-1.1b's heads (over one and over 32 key tiles) and at
+    qwen2-1.5b's.  The exact answer is the yardstick because f32
+    ``attention_ref`` itself leaves it by 1.6e-5–2.3e-5 at scale 3 on these
+    inputs (NVIDIA H100 80GB HBM3, 700 W)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    def worst(x):
+        return ((x.view(torch.int32) & ~0x1FFF) | 0x1001).view(torch.float32)
+
+    for shape in ((1, 512, 512, 32, 4, 64), (1, 2048, 2048, 8, 2, 64),
+                  (1, 300, 300, 12, 2, 128)):
+        q, k, v = _flash_inputs(cuda, shape, torch.float32)
+        q, k = worst(q * scale), worst(k * scale)
+        out = fa_kernel.flash_attention(q, k, v)
+        exact = _attention_f64(q, k, v)
+        torch.cuda.synchronize()
+        assert float((out.double() - exact).abs().max()) <= FLASH_TOL[torch.float32]
+
+
+@pytest.mark.cuda
+def test_flash_tf32_replays_in_a_cuda_graph(cuda):
+    """The f32 route's two launches need no host synchronisation: a CUDA
+    graph of a call replays bitwise to the eager result."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    q, k, v = _flash_inputs(cuda, (2, 300, 300, 8, 2, 64), torch.float32)
+    out = fa_kernel.flash_attention(q, k, v, window=100)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fa_kernel.flash_attention(q, k, v, window=100)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fa_kernel.flash_attention(q, k, v, window=100)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), out.view(torch.int32))
 
 
 @pytest.mark.cuda

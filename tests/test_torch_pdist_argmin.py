@@ -24,6 +24,7 @@ from repro.kernels.pdist_argmin import ops as j_ops  # noqa: E402
 from repro.kernels.pdist_argmin import ref as j_ref  # noqa: E402
 from repro.ml.clustering import pdist as j_pdist  # noqa: E402
 from repro_torch import kernels  # noqa: E402
+from repro_torch.kernels._tf32 import tf32_round  # noqa: E402
 from repro_torch.kernels.pdist_argmin import ops as t_ops  # noqa: E402
 from repro_torch.kernels.pdist_argmin import ref as t_ref  # noqa: E402
 
@@ -135,6 +136,36 @@ def test_kmeans_estep_equivalence():
     assert torch.equal(idx.long(), torch.argmin(D, dim=1))
 
 
+#: (N, K, d): shapes that force the l1/l∞ kernel's tiling on the card: all
+#: of C in shared memory beside the points at K 1,000 × d 42, points wider
+#: than the 64-column register tile at d 512, and N off the 256-point pass
+TILING_CASES = [(300, 1000, 42), (257, 64, 512), (513, 33, 17)]
+
+
+@pytest.mark.parametrize("metric", ["l1", "linf"])
+@pytest.mark.parametrize("case", TILING_CASES, ids=str)
+def test_cuda_core_route_tiling_cases_match_jax(case, metric):
+    """The l1/l∞ route's plain version, which the card's kernel is held to,
+    against the JAX kernel (interpret mode) and reference at the shapes that
+    force the kernel's tiling: distances within the JAX test's tolerance,
+    indices equal wherever the top-2 gap clears it."""
+    N, K, d = case
+    X, C = inputs(N, K, d, N + K + d)
+    j_idx, j_dist = j_ops.pdist_argmin(jnp.asarray(X), jnp.asarray(C), metric=metric, bn=64)
+    r_idx, r_dist = j_ref.pdist_argmin_ref(jnp.asarray(X), jnp.asarray(C), metric=metric)
+    before = dict(kernels.LAUNCHES)
+    idx, dist = t_ops.pdist_argmin(torch.from_numpy(X), torch.from_numpy(C), metric=metric)
+    assert kernels.LAUNCHES == before  # the CPU takes the plain version
+    assert idx.shape == (N,) and idx.dtype == torch.int32
+    tol = ATOL + RTOL * np.abs(dist.numpy())
+    clear = clear_rows(jax_distances(X, C, metric), C, tol)
+    assert clear.mean() > 0.9
+    for want in (j_idx, r_idx):
+        np.testing.assert_array_equal(idx.numpy()[clear], np.asarray(want)[clear])
+    for want in (j_dist, r_dist):
+        np.testing.assert_allclose(dist.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
 def test_pdist_argmin_refuses_other_devices_and_metrics():
     X = torch.zeros((4, 3), device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
@@ -228,10 +259,10 @@ def test_tf32_round_keeps_eleven_bits():
     """hi = tf32(v) rounds to nearest with ties to even, and v − hi − lo
     leaves at most 2⁻²² of v: the split that 3xTF32 relies on."""
     v = torch.tensor([1.0, 1.0 + 2**-11, 1.0 + 3 * 2**-11, -1.0 - 2**-12, float("inf")])
-    assert t_ref.tf32_round(v).tolist() == [1.0, 1.0, 1.0 + 2**-9, -1.0, float("inf")]
+    assert tf32_round(v).tolist() == [1.0, 1.0, 1.0 + 2**-9, -1.0, float("inf")]
     x = torch.from_numpy(np.random.default_rng(0).normal(size=4096).astype(np.float32))
-    hi = t_ref.tf32_round(x)
-    lo = t_ref.tf32_round(x - hi)
+    hi = tf32_round(x)
+    lo = tf32_round(x - hi)
     assert int((hi.view(torch.int32) & 0x1FFF).abs().max()) == 0
     assert float(((x - hi) / x).abs().max()) <= 2**-11
     assert float(((x.double() - hi.double() - lo.double()) / x.double()).abs().max()) <= 2**-22
