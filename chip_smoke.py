@@ -139,11 +139,33 @@
    trip) with ``torch.topk(x.abs().flatten(), k)`` (eager); encode and
    select on the leaf as one row at its exact k-th magnitude, bitwise the
    plain version, timed in turns as in 2.
-11. Prints the redesigned kernels' times in turns, one JSON line of
-   per-kernel numbers (thirteen kernels), the card's name and power limit,
-   and last ``{"ok": true, "device": {...}}``.
+11. Training: tinyllama-1.1b at full width and depth (f32 parameters from
+   a seeded ``torch.Generator`` on the card, bf16 compute, the reference's
+   train-shape settings ``remat_policy="full"`` and ``attn_q_chunk=512``)
+   trains through ``repro_torch.api.fit`` as ``launch/train.py`` drives
+   it: ``OptimizerStrategy`` (clip 1 ∘ Adam ∘ warmup-cosine) ×
+   ``delay_line(1)`` × ``topk:0.01+ef``, one fit a step resumed from the
+   last carry, 2 warm-up and 6 timed steps at B 8 × T 2048 of
+   ``synthetic_lm_batches``.  First the gradient with ``forward``'s one
+   ``unbind(0)`` against the same loss with the layer weights taken as
+   ``x[r]``: bitwise on every stacked leaf, with each one's device ms and
+   peak memory.  Checks: every loss finite and the last below the first;
+   the ledger's uplink exactly steps × Σ max(1, round(0.01·n))·8; the
+   encode kernel launched once per leaf per step and no other kernel; the
+   last step's encode of the largest gradient leaf (the (22, 2048, 5632)
+   FFN stack as one row) bitwise its plain version.  Prints per step the
+   wall ms, tokens/s and peak memory, and device ms (CUDA events) of
+   forward + backward, clip + Adam, the wire (of it ``torch.topk`` with
+   ``c = u + r`` and ``|c|``, and the encode kernel) and the delay line;
+   the model-FLOP share (6·N·tokens against 989 TFLOP/s dense bf16); the
+   state's size; and one more forward + backward under the profiler,
+   its device time by kind of kernel.
+12. Prints the redesigned kernels' times in turns, one JSON line of
+   per-kernel numbers (thirteen kernels; ``topk_encode``'s launches count
+   the training path's too), the card's name and power limit, and last
+   ``{"ok": true, "device": {...}}``.
 
-No earlier phase is cut to make room for 8–10.
+No earlier phase is cut to make room for 8–11.
 
 Imports nothing of JAX.  Exits non-zero, with no result line, when there
 is no CUDA device or ``src/repro_torch`` is not beside it.  Any failed
@@ -2139,6 +2161,296 @@ def topk_phase(torch, leaf):
     return launches, timings, whole, err, encode_t
 
 
+# ----------------------------------------------------------------------------
+# Training: tinyllama-1.1b at full width and depth through api.fit
+# ----------------------------------------------------------------------------
+
+TRAIN_ARCH = "tinyllama-1.1b"
+#: the reference's train-shape settings (src/repro/launch/specs.py:46-54)
+TRAIN_REMAT, TRAIN_Q_CHUNK = "full", 512
+TRAIN_B, TRAIN_T = 8, 2048
+TRAIN_WARM, TRAIN_TIMED = 2, 6
+#: at 1e-3 (examples/train_lm_e2e.py's rate) eight steps moved the loss
+#: 10.7634 -> 10.7626, inside the batch-to-batch spread of about 0.02; at
+#: 1e-2 it fell 0.05 (these seeds, on an H100 80GB HBM3 at 700 W)
+TRAIN_LR = 1e-2
+TRAIN_TOPK, TRAIN_STALENESS = 0.01, 1
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+
+
+class StepClock:
+    """CUDA events around calls, by label: ``wrap(fn, label)`` returns
+    ``fn`` recording an event before and after each call while a step is
+    open (``start``); ``read`` synchronises and sums each label's spans in
+    ms.  Recording an event adds no synchronisation."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.spans = None
+
+    def wrap(self, fn, label):
+        def timed(*args, **kwargs):
+            if self.spans is None:
+                return fn(*args, **kwargs)
+            e0 = self.torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*args, **kwargs)
+            e1 = self.torch.cuda.Event(enable_timing=True)
+            e1.record()
+            self.spans.setdefault(label, []).append((e0, e1))
+            return out
+
+        return timed
+
+    def start(self):
+        self.spans = {}
+
+    def read(self) -> dict:
+        self.torch.cuda.synchronize()
+        spans, self.spans = self.spans, None
+        return {label: sum(a.elapsed_time(b) for a, b in pairs) for label, pairs in spans.items()}
+
+
+def loss_by_select(torch, tf, cfg, params, batch):
+    """``loss_fn`` with each layer's weights taken as ``x[r]`` instead of
+    ``forward``'s one ``unbind(0)``: the same operations, another backward
+    for the stacked leaves (one zero-filled stack a layer, summed)."""
+    from repro_torch.models.layers import embed, rmsnorm
+    from repro_torch.utils.tree import tree_map
+
+    tokens = batch["tokens"]
+    positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
+    spec = tf.segments(cfg)[0].unit[0]
+    body = tf._remat_wrap(
+        lambda h, p: tf.apply_layer(p, cfg, spec, h, positions=positions)[0], cfg)
+    h = embed(params["embed"], tokens, compute_dtype=getattr(torch, cfg.compute_dtype))
+    for r in range(cfg.num_layers):
+        h = body(h, tree_map(lambda x, r=r: x[r], params["seg0"]["l0"]))
+    h = rmsnorm(params["final_norm"], h, eps=cfg.rms_eps)
+    return tf.chunked_ce(params, cfg, h, batch["labels"])
+
+
+def train_phase(torch):
+    """tinyllama-1.1b trains through ``api.fit`` as ``launch/train.py``
+    drives it: ``OptimizerStrategy`` (clip 1 ∘ Adam ∘ warmup-cosine) ×
+    ``delay_line(1)`` × ``topk:0.01+ef``, one fit a step resumed from the
+    last carry.  Returns the encode kernel's launches and the numbers."""
+    from repro_torch import api, kernels
+    from repro_torch.api import transport as transport_mod
+    from repro_torch.configs import get_config
+    from repro_torch.core.compression import kernel_plan
+    from repro_torch.data import synthetic_lm_batches
+    from repro_torch.kernels.topk_compress import ops as tk_ops, ref as tk_ref
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer as tf
+    from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_unflatten
+
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH).replace(remat_policy=TRAIN_REMAT, attn_q_chunk=TRAIN_Q_CHUNK)
+    steps = TRAIN_WARM + TRAIN_TIMED
+    t0 = time.perf_counter()
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    batches = synthetic_lm_batches(0, TRAIN_B, TRAIN_T, cfg.vocab_size, device="cuda")
+    stream = [next(batches) for _ in range(steps)]
+    torch.cuda.synchronize()
+    leaves, spec = tree_flatten(params)
+    n_params = sum(x.numel() for x in leaves)
+    eligible = kernel_plan(params)["kernel_leaves"]
+    push = sum(max(1, int(round(TRAIN_TOPK * x.numel()))) * 8 for x in leaves)
+    tokens = TRAIN_B * TRAIN_T
+    print(f"training {cfg.name}: {n_params:,} f32 parameters in {len(leaves)} leaves "
+          f"({eligible} take the encode kernel), B {TRAIN_B} × T {TRAIN_T}, "
+          f"{cfg.compute_dtype} compute, remat {cfg.remat_policy}, attn_q_chunk "
+          f"{cfg.attn_q_chunk}, set-up {time.perf_counter() - t0:.4f} s", flush=True)
+
+    optimizer = train_cli.make_optimizer(TRAIN_LR, steps)
+    strategy = train_cli.make_strategy(cfg, optimizer)
+
+    # the gradient with forward's one unbind(0) is the gradient with x[r]
+    # per layer, bit for bit on every stacked leaf; and what each costs
+    # (after a first backward that pays the process's one-off set-up)
+    state = strategy.init_state(params, None)
+    t0 = time.perf_counter()
+    strategy.local_updates(params, state, None, stream[0])
+    torch.cuda.synchronize()
+    print(f"first forward + backward of the process: {time.perf_counter() - t0:.4f} s",
+          flush=True)
+    grads_at = {}
+    for name, loss_of in (("unbind", None), ("select", loss_by_select)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        if loss_of is None:
+            g, _ = strategy.local_updates(params, state, None, stream[0])
+            g = tree_leaves(g)
+        else:
+            xs = [x.detach().requires_grad_() for x in leaves]
+            g = torch.autograd.grad(
+                loss_of(torch, tf, cfg, tree_unflatten(xs, spec), stream[0]), xs)
+        e1.record()
+        torch.cuda.synchronize()
+        grads_at[name] = (g, e0.elapsed_time(e1), torch.cuda.max_memory_allocated())
+    paths = [".".join(str(getattr(k, "key", k)) for k in path)
+             for path, _ in torch.utils._pytree.tree_flatten_with_path(params)[0]]
+    for path, a, b in zip(paths, grads_at["unbind"][0], grads_at["select"][0]):
+        if path.startswith("seg0"):
+            check(torch.equal(a, b), f"gradient of {path}: unbind(0) differs from x[r]")
+    other = max(float((a - b).abs().max()) for path, a, b in
+                zip(paths, grads_at["unbind"][0], grads_at["select"][0]))
+    grad_check = {name: {"device_ms": v[1], "peak_gib": v[2] / 2**30}
+                  for name, v in grads_at.items()}
+    grad_check["max_abs_diff_all_leaves"] = other
+    print(f"gradient, forward's unbind(0) against x[r] per layer: stacked leaves "
+          f"bitwise equal; {json.dumps(grad_check)}", flush=True)
+    del grads_at, g, state
+    torch.cuda.empty_cache()
+
+    clock = StepClock(torch)
+    wire = api.make_wire(train_cli.wire_spec(TRAIN_TOPK))
+    largest = max(x.numel() for x in leaves)
+    captured = {}
+    originals = (strategy.local_updates, strategy.apply_update, wire.encode_updates,
+                 tk_ops.topk_encode, tk_ops.encode_threshold, transport_mod.delay_push_pop)
+
+    def capture(fn):
+        def encode(c, t, *, with_residual):
+            out = fn(c, t, with_residual=with_residual)
+            if c.numel() == largest and "leaf" not in captured and clock.spans is not None \
+                    and len(losses) == steps - 1:
+                captured["leaf"] = (c, t, out)
+            return out
+
+        return encode
+
+    strategy.local_updates = clock.wrap(originals[0], "forward + backward")
+    strategy.apply_update = clock.wrap(originals[1], "clip + Adam")
+    wire.encode_updates = clock.wrap(originals[2], "wire")
+    tk_ops.topk_encode = clock.wrap(originals[3], "wire: c = u + r, |c|, torch.topk + kernel")
+    tk_ops.encode_threshold = clock.wrap(capture(originals[4]), "wire: encode kernel")
+    transport_mod.delay_push_pop = clock.wrap(originals[5], "delay line")
+    losses, walls, splits, peaks, uplink = [], [], [], [], 0
+    try:
+        theta, carry = params, None
+        del params, leaves
+        kernels.reset_launches()
+        for step in range(steps):
+            timed = step >= TRAIN_WARM
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            if timed:
+                clock.start()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            res = api.fit(strategy, None, transport="delay_line", staleness=TRAIN_STALENESS,
+                          wire=wire, stream=train_cli.stack_batches([stream[step]]),
+                          theta0=theta, carry=carry, tag="train", device="cuda")
+            e1.record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            theta, carry = res.theta, res.metrics["carry"]
+            losses.append(float(res.trajectory[0]))
+            uplink += res.ledger.uplink_bytes
+            hits = res.metrics["wire_kernel_hits"]
+            check(hits["active"] and hits["kernel_leaves"] == eligible,
+                  f"training step {step}: wire_kernel_hits {hits}")
+            line = {"step": step + 1, "loss": losses[-1], "wall_ms": wall,
+                    "tokens_per_s": tokens / wall * 1e3,
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            peaks.append(line["peak_gib"])
+            if timed:
+                split = clock.read()
+                split["fit on the device (first to last event)"] = e0.elapsed_time(e1)
+                splits.append(split)
+                walls.append(wall)
+                line["device_ms"] = split
+            print("training step:", json.dumps(line), flush=True)
+        launched = dict(kernels.LAUNCHES)
+    finally:
+        (strategy.local_updates, strategy.apply_update, wire.encode_updates,
+         tk_ops.topk_encode, tk_ops.encode_threshold, transport_mod.delay_push_pop) = originals
+
+    check(all(math.isfinite(v) for v in losses), f"training losses not finite: {losses}")
+    check(losses[-1] < losses[0], f"training loss did not fall: {losses}")
+    check(uplink == steps * push, f"training uplink {uplink} != {steps} × {push}")
+    want = {n: (eligible * steps if n == "topk_encode" else 0) for n in kernels.KERNEL_NAMES}
+    check(launched == want, f"training launches {launched}, expected {want}")
+    check(all(bool(torch.isfinite(x).all()) for x in tree_leaves(theta)), "θ not finite")
+
+    # the encode of the largest gradient leaf in the last step, bitwise its
+    # plain version on the same rows and threshold
+    c, t, (o, res_, cnt) = captured["leaf"]
+    o_r, res_r, cnt_r = tk_ref.encode_threshold_ref(c, t, with_residual=True)
+    torch.cuda.synchronize()
+    check(torch.equal(o.view(torch.int32), o_r.view(torch.int32))
+          and torch.equal(res_.view(torch.int32), res_r.view(torch.int32))
+          and torch.equal(cnt, cnt_r),
+          "encode of the largest gradient leaf differs from the plain version")
+    k = max(1, int(round(TRAIN_TOPK * largest)))
+    leaf_check = {"n": largest, "k": k, "kept": int(cnt[0]), "threshold": float(t[0])}
+    print(f"encode of the largest gradient leaf (last step, one row): bitwise the plain "
+          f"version, {json.dumps(leaf_check)}", flush=True)
+    del c, t, o, res_, cnt, o_r, res_r, cnt_r, captured
+
+    # where the forward + backward's device time goes: one more on the last
+    # batch under the profiler, kernels grouped by kind
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        strategy.local_updates(theta, carry[1], None, stream[-1])
+        torch.cuda.synchronize()
+        p_wall = (time.perf_counter() - t0) * 1e3
+    on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in on_card) / 1e3
+    kinds = {"f32 matmuls (the attention einsums)": 0.0,
+             "other matmuls (the bf16 projections and head)": 0.0, "softmax": 0.0,
+             "copies and casts": 0.0, "other elementwise and reductions": 0.0}
+    for e in on_card:
+        name = e.key.lower()
+        if any(w in name for w in ("gemm", "xmma", "cutlass", "nvjet")):
+            kind = ("f32 matmuls (the attention einsums)" if "f32f32" in name
+                    else "other matmuls (the bf16 projections and head)")
+        elif "softmax" in name:
+            kind = "softmax"
+        elif "copy" in name:
+            kind = "copies and casts"
+        else:
+            kind = "other elementwise and reductions"
+        kinds[kind] += e.self_device_time_total / 1e3
+    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:12]
+    profiled = {"wall_ms": p_wall, "device_busy_ms": busy, "by_kind_ms": kinds,
+                "top": [[e.key[:90], e.self_device_time_total / 1e3, e.count] for e in top]}
+    print("profiled forward + backward (one batch):", json.dumps(profiled), flush=True)
+
+    state_bytes = {"theta": theta, "adam m, v": carry[1][0], "EF residual": carry[2],
+                   "delay line": carry[3].buffer}
+    state_gb = {name: sum(x.numel() * x.element_size() for x in tree_leaves(tree)) / 1e9
+                for name, tree in state_bytes.items()}
+    med = {label: statistics.median(sp[label] for sp in splits) for label in splits[0]}
+    step_s = statistics.median(walls) / 1e3
+    model_flops = 6 * n_params * tokens
+    summary = {
+        "steps": steps, "timed": TRAIN_TIMED, "losses": losses,
+        "median_wall_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+        "median_device_ms": med, "peak_gib": max(peaks), "state_gb": state_gb,
+        "model_flops_per_step": model_flops,
+        "model_flop_share": model_flops / step_s / BF16_FLOPS_PER_S,
+        "uplink_bytes": uplink, "push_bytes": push, "encode_launches": launched["topk_encode"],
+        "encode_leaf": leaf_check, "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+        "gradient_check": grad_check, "profiled_forward_backward": profiled,
+    }
+    print("training:", json.dumps(summary), flush=True)
+    del theta, carry, res, stream, state_bytes
+    torch.cuda.empty_cache()
+    return launched["topk_encode"], summary
+
+
 REPLACES = {
     "topk_encode": "src/repro/kernels/topk_compress/kernel.py:73",
     "topk_select": "src/repro/kernels/topk_compress/kernel.py:106",
@@ -2244,6 +2556,8 @@ def main() -> int:
         timings[(name, "main")] = t
     for name, t in encode_leaf_t.items():
         timings[(name, "leaf")] = t
+    train_launches, train_stats = train_phase(torch)
+    launches["topk_encode"] += train_launches
     print("attention path:", json.dumps({"errors": attn_err, **attn_stats,
                                          "planted_control": attn_control}), flush=True)
     print("topk_sparsify:", json.dumps(tk_whole), flush=True)

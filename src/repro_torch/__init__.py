@@ -17,9 +17,13 @@ over the keys and merged (``csrc/decode_attention.cu``); the §4 clustering fami
 E-step in CUDA (``csrc/pdist_argmin.cu``); the cache-free attention core
 (``models.attention.attn_apply`` with ``use_kernel=True``, and
 ``_sdpa_q_chunked``) with flash attention in CUDA (bf16 on the tensor
-cores, ``csrc/flash_attention_tc.cu``; f32 on the CUDA cores,
-``csrc/flash_attention.cu``), and ``kernels.topk_compress.ops.topk_sparsify``
-with its count and mask in CUDA (``csrc/topk_sparsify.cu``).  Kernels are built with ``nvcc``
+cores, ``csrc/flash_attention_tc.cu``; f32 as 3xTF32 on the tensor cores,
+``csrc/flash_attention_tf32.cu``), ``kernels.topk_compress.ops.topk_sparsify``
+with its count and mask in CUDA (``csrc/topk_sparsify.cu``); and training
+— ``api.OptimizerStrategy`` under ``delay_line`` × ``topk:f+ef`` with
+``optim``, the LM loss (``models.transformer.loss_fn``), ``checkpoint``
+in the JAX package's format, the LM token stream (``data``) and
+``launch.train``.  Kernels are built with ``nvcc``
 on first use.  What is not ported raises ``NotImplementedError`` naming
 its ``ROADMAP.md`` item.
 

@@ -15,10 +15,14 @@ once and runnable under every transport:
   of consensus ADMM, for ``admm_consensus``.
 
 Ported: ``Strategy``, ``FunctionStrategy``, ``GradientDescent``,
-``ProxStrategy``.  The per-node gradient is ``torch.func.vmap`` over
-``torch.func.grad`` (the reference's ``jax.vmap(jax.grad(loss))``).
-``LBFGS`` and ``OptimizerStrategy`` raise ``NotImplementedError`` naming
-the ``ROADMAP.md`` item that ports them.
+``ProxStrategy`` and ``OptimizerStrategy``.  The per-node gradient is
+``torch.func.vmap`` over ``torch.func.grad`` (the reference's
+``jax.vmap(jax.grad(loss))``); ``OptimizerStrategy``, one logical node,
+takes its gradient with ``torch.autograd.grad`` instead, because
+``torch.func`` transforms refuse the saved-tensor hooks of the
+non-reentrant checkpointing that ``remat_policy`` turns on.  ``LBFGS``
+raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports
+it.
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ import torch
 from torch.func import grad, vmap
 
 from repro_torch.api import executor as _exec
-from repro_torch.utils.tree import tree_leaves
+from repro_torch.optim.optimizers import apply_updates
+from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_unflatten
 
 PyTree = Any
 
@@ -230,6 +235,73 @@ class ProxStrategy(Strategy):
         return Xs.shape[-1]
 
 
+class OptimizerStrategy(Strategy):
+    """Single-stream optimizer training (the ``launch/train.py`` workload):
+    one logical push per step whose message is the gradient of ``loss_fn``
+    on the round's batch, applied through a ``repro_torch.optim``
+    optimizer.  Compose with ``delay_line`` for §5 bounded staleness and a
+    compressed wire for the low-communication push::
+
+        strategy = api.OptimizerStrategy(loss_fn, adam(3e-4))
+        res = api.fit(strategy, None, transport="delay_line", staleness=1,
+                      wire="topk:0.05+ef", stream=batches, theta0=params,
+                      device="cuda")
+
+    One logical node (``num_nodes == 1``, ``stacked_msgs = False``).  The
+    state is ``(opt_state, loss)``, the loss being the round's batch loss
+    before the update.
+    """
+
+    stacked_msgs = False
+    #: the aggregate() override is the identity on ONE message, so a zeroed
+    #: (fault-masked) message drops out like a sum term: a dead round
+    #: applies a zero gradient
+    fault_maskable = True
+
+    def __init__(self, loss_fn: Callable, optimizer, *, has_aux: bool = False,
+                 predict_fn: Callable | None = None):
+        self.loss_fn = loss_fn
+        self.optimizer = optimizer
+        self.has_aux = has_aux
+        self.predict_fn = predict_fn
+
+    def num_nodes(self, data) -> int:
+        return 1
+
+    def init_state(self, theta, data):
+        device = tree_leaves(theta)[0].device
+        return (self.optimizer.init(theta), torch.zeros((), device=device))
+
+    def local_updates(self, theta, state, data, batch):
+        leaves, spec = tree_flatten(theta)
+        xs = [x.detach().requires_grad_() for x in leaves]
+        with torch.enable_grad():
+            out = self.loss_fn(tree_unflatten(xs, spec), batch)
+            loss = out[0] if self.has_aux else out
+            grads = torch.autograd.grad(loss, xs, materialize_grads=True)
+        return tree_unflatten(list(grads), spec), (state[0], loss.detach())
+
+    def aggregate(self, msgs):
+        return msgs  # one logical node — nothing to reduce
+
+    def apply_update(self, theta, agg, state, data):
+        updates, opt_state = self.optimizer.update(agg, state[0], theta)
+        return apply_updates(theta, updates), (opt_state, state[1])
+
+    def round_metric(self, theta, state, data):
+        return state[1]  # loss on the round's batch (pre-update)
+
+    def predict(self, theta, X):
+        """Serving an optimizer-trained model is workload-specific (for an
+        LM, ``repro_torch.serve.ContinuousLMEngine``): inject it as
+        ``predict_fn(θ, X)``."""
+        if self.predict_fn is None:
+            raise NotImplementedError(
+                "OptimizerStrategy needs predict_fn= to be served (e.g. a "
+                "closure over repro_torch.serve.ContinuousLMEngine)")
+        return self.predict_fn(theta, X)
+
+
 def _not_ported(name: str, item: str):
     class NotPorted:
         def __init__(self, *args, **kwargs):
@@ -242,6 +314,3 @@ def _not_ported(name: str, item: str):
 
 
 LBFGS = _not_ported("LBFGS", "queue 1, item 4 (api/strategy.py)")
-OptimizerStrategy = _not_ported(
-    "OptimizerStrategy", "queue 1, item 9 (optim/optimizers.py, LM model path)"
-)

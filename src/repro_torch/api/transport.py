@@ -216,12 +216,8 @@ class UpdateTransport(Transport):
 
     def run(self, strategy, data, *, wire, schedule, steps, stream, theta0, carry,
             executor, faults=None):
-        if not strategy.stacked_msgs:
-            raise NotImplementedError(
-                "single-stream strategies (stacked_msgs=False) are not "
-                "ported yet — ROADMAP.md queue 1, item 9 (OptimizerStrategy)"
-            )
         K = strategy.num_nodes(data)
+        stacked = strategy.stacked_msgs
         if stream is not None:
             T = tree_leaves(stream)[0].shape[0]
         elif steps is not None:
@@ -258,7 +254,7 @@ class UpdateTransport(Transport):
             carry = (
                 th0,
                 strategy.init_state(th0, data),
-                wire.init_state(th0, K),
+                wire.init_state(th0, K, stacked=stacked),
                 delay_init(tree_map(torch.zeros_like, th0), D_buf)
                 if D_buf > 0 else (),
             )
@@ -283,8 +279,19 @@ class UpdateTransport(Transport):
                 fault_t, batch = xt
                 theta, sstate, wstate, delay = c
                 msgs, sstate = strategy.local_updates(theta, sstate, shard_data, batch)
-                wstate_new, msgs_hat, up = wire.encode_updates(wstate, msgs)
-                if fault_t is not None:
+                wstate_new, msgs_hat, up = wire.encode_updates(wstate, msgs, stacked=stacked)
+                del msgs  # a θ-sized tree: let it go before the apply
+                if fault_t is not None and not stacked:
+                    # one logical node: alive[0] gates the push and the
+                    # wire state
+                    u_t, lag_t = fault_t
+                    alive = u_t >= faults.dropout_p
+                    live = int(alive.sum())
+                    if not alive[0]:
+                        msgs_hat = tree_map(torch.zeros_like, msgs_hat)
+                    else:
+                        wstate = wstate_new
+                elif fault_t is not None:
                     # participation: node k answers iff u_t[k] clears
                     # dropout_p; dead rows send zeros and keep their wire
                     # state (EF residuals must not absorb a discarded push)

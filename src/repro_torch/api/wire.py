@@ -10,11 +10,13 @@ cost of every message, from which the engine materializes the
   delta it computed on top of the handed-off parameter.
 * ``encode_updates`` — update transports (allreduce / delay line): the
   stacked (K, …) per-node messages are encoded before aggregation, error
-  feedback residuals carried per node.
+  feedback residuals carried per node; with ``stacked=False`` one
+  single-stream message (``OptimizerStrategy``), residuals shaped like θ.
 
 The top-k and int8 wires encode each eligible leaf (f32, ≥ 256 elements
 per node) with the port's CUDA kernels: one launch per leaf per round for
-all K nodes at once (the reference scans the nodes one at a time).
+all K nodes at once (the reference scans the nodes one at a time); a
+single-stream leaf is encoded as one row, a (1, n) view of it.
 ``use_kernel`` is tri-state: ``"auto"`` means "the tensors are on CUDA",
 ``True``/``False`` force it — ``False`` on CUDA runs the reference
 formulas, which is how ``chip_smoke.py`` shows the kernels change no bit
@@ -68,7 +70,7 @@ class Wire:
     #: True when encode is the identity (no information loss)
     lossless = True
 
-    def init_state(self, theta: PyTree, num_nodes: int):
+    def init_state(self, theta: PyTree, num_nodes: int, *, stacked: bool = True):
         """Per-run wire state (e.g. error-feedback residuals); () if none."""
         return ()
 
@@ -85,9 +87,10 @@ class Wire:
         """Encode one §5 contact push.  Returns (wstate, θ_push, up_bytes)."""
         return wstate, theta_new, torch.tensor(float(self.measure(theta_new)))
 
-    def encode_updates(self, wstate, msgs: PyTree):
-        """Encode the stacked (K, …) update messages.  Returns (wstate,
-        msgs_hat, up_bytes) with ``up_bytes`` summed over the nodes."""
+    def encode_updates(self, wstate, msgs: PyTree, *, stacked: bool = True):
+        """Encode the stacked (K, …) update messages (one θ-shaped message
+        with ``stacked=False``).  Returns (wstate, msgs_hat, up_bytes) with
+        ``up_bytes`` summed over the nodes."""
         return wstate, msgs, torch.tensor(float(tree_bytes(msgs)))
 
 
@@ -124,9 +127,11 @@ class CompressedWire(Wire):
         self.name = name
         self._pb_cache: dict = {}
 
-    def init_state(self, theta: PyTree, num_nodes: int):
+    def init_state(self, theta: PyTree, num_nodes: int, *, stacked: bool = True):
         if not self.error_feedback:
             return ()
+        if not stacked:
+            return tree_map(torch.zeros_like, theta)
         return tree_map(
             lambda p: torch.zeros((num_nodes,) + tuple(p.shape), dtype=p.dtype,
                                   device=p.device),
@@ -154,7 +159,14 @@ class CompressedWire(Wire):
             comp = self.compressor(delta)
         return wstate, tree_add(theta_start, comp.tree), comp.wire_bytes
 
-    def encode_updates(self, wstate, msgs):
+    def encode_updates(self, wstate, msgs, *, stacked: bool = True):
+        if not stacked:
+            if self.error_feedback:
+                corrected = tree_add(msgs, wstate)
+                comp = self.compressor(corrected)
+                return tree_sub(corrected, comp.tree), comp.tree, comp.wire_bytes
+            comp = self.compressor(msgs)
+            return wstate, comp.tree, comp.wire_bytes
         # the reference vmaps the codec over nodes; a codec maps one node's
         # whole tree, so here it runs once per node row
         K = tree_leaves(msgs)[0].shape[0]
@@ -228,16 +240,30 @@ class _FusedWire(CompressedWire):
         """Static byte cost of one node's push (mirrors the codec)."""
         raise NotImplementedError
 
-    def encode_updates(self, wstate, msgs):
+    def push_bytes(self, theta: PyTree) -> int | None:
+        # the codec's own count, from the shapes: the same number as the
+        # codec run on zeros, without a θ-sized tree of zeros to run it on
+        return int(self._per_push_bytes(theta))
+
+    def encode_updates(self, wstate, msgs, *, stacked: bool = True):
         if not self._kernel_active(msgs):
-            return super().encode_updates(wstate, msgs)
+            return super().encode_updates(wstate, msgs, stacked=stacked)
         leaves_m, spec = tree_flatten(msgs)
         leaves_r = tree_leaves(wstate) if self.error_feedback else [None] * len(leaves_m)
-        outs = [self._encode_rows(m, r) for m, r in zip(leaves_m, leaves_r)]
+        if stacked:
+            outs = [self._encode_rows(m, r) for m, r in zip(leaves_m, leaves_r)]
+            K = leaves_m[0].shape[0]
+            per = self._per_push_bytes(tree_map(lambda x: x[0], msgs))
+            up = torch.full((K,), per).sum()
+        else:
+            # one push: each leaf as one row, a (1, n) view of it
+            outs = [
+                tuple(None if x is None else x[0]
+                      for x in self._encode_rows(m[None], None if r is None else r[None]))
+                for m, r in zip(leaves_m, leaves_r)
+            ]
+            up = torch.tensor(self._per_push_bytes(msgs))
         hat = tree_unflatten([o[0] for o in outs], spec)
-        K = leaves_m[0].shape[0]
-        per = self._per_push_bytes(tree_map(lambda x: x[0], msgs))
-        up = torch.full((K,), per).sum()
         if self.error_feedback:
             return tree_unflatten([o[1] for o in outs], spec), hat, up
         return wstate, hat, up

@@ -46,9 +46,11 @@ def _convert(x, dev):
         return {k: _convert(v, dev) for k, v in x.items()}
     if isinstance(x, (int, float)) and not isinstance(x, bool):
         return x  # host-side counters (FaultCarry.next_round)
-    arr = np.ascontiguousarray(np.asarray(x))
-    if not arr.flags.writeable:  # JAX hands out read-only views
-        arr = arr.copy()
+    arr = np.asarray(x)
+    if not (arr.flags.c_contiguous and arr.flags.writeable):
+        # JAX hands out read-only views; a copy keeps 0-d arrays 0-d
+        # (np.ascontiguousarray would make them (1,))
+        arr = np.array(arr, order="C")
     if arr.dtype == object:
         raise TypeError(f"cannot convert {type(x).__name__} to a tensor")
     if arr.dtype.name == "bfloat16":

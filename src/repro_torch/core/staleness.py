@@ -36,8 +36,11 @@ def delay_push_pop(state: DelayLine, grads: PyTree) -> tuple[DelayLine, PyTree]:
     """Push fresh ``grads``, pop the D-step-old gradient to apply (zeros for
     the first D steps — the replies that have not arrived yet)."""
     popped = tree_map(lambda b: b[0], state.buffer)
+    # a line of depth 1 holds the push itself (a view, not a θ-sized copy:
+    # nothing writes to a pushed tensor)
     new_buf = tree_map(
-        lambda b, g: torch.cat([b[1:], g[None]], dim=0), state.buffer, grads
+        lambda b, g: g[None] if b.shape[0] == 1 else torch.cat([b[1:], g[None]], dim=0),
+        state.buffer, grads,
     )
     return DelayLine(buffer=new_buf, step=state.step + 1), popped
 

@@ -11,17 +11,30 @@ stacked arrays in place).
 
 Ported: ``layer_specs``, ``segments``, ``init_layer``, ``apply_layer``,
 ``init_params``, ``init_cache``, ``forward``, ``_head_logits``,
-``decode_step``, ``init_paged_cache``, ``paged_decode_step`` and
-``paged_insert_prompt``.  Other mixers and MoE FFNs raise
-``NotImplementedError`` (``ROADMAP.md`` queue 1, item 11); ``loss_fn``,
-``chunked_ce`` and MTP come with the training slice (queue 1, item 9).
+``decode_step``, ``init_paged_cache``, ``paged_decode_step``,
+``paged_insert_prompt``, and for training ``_remat_wrap``, ``chunked_ce``
+and ``loss_fn``.  Other mixers, MoE FFNs and multi-token prediction raise
+``NotImplementedError`` (``ROADMAP.md`` queue 1, item 11).
+
+Training differentiates through the Python loop with autograd.  Each
+stacked leaf is split once per forward with ``unbind(0)``, so its
+gradient is stacked in one pass; indexing ``x[r]`` per layer would have
+each layer's backward fill a zero tensor the size of the whole stack.
+``cfg.remat_policy`` maps the reference's ``jax.checkpoint`` policies
+onto ``torch.utils.checkpoint`` (non-reentrant) around each layer body.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models import cache as cache_lib
 from repro_torch.models.attention import attn_apply, attn_init
@@ -37,7 +50,7 @@ from repro_torch.models.layers import (
     swiglu_init,
     unembed,
 )
-from repro_torch.utils.tree import tree_map, tree_stack
+from repro_torch.utils.tree import tree_flatten, tree_stack, tree_unflatten
 
 
 @dataclass(frozen=True)
@@ -155,8 +168,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None):
     device = torch.device(device) if device is not None else gen.device
     if cfg.num_mtp_layers > 0:
         raise NotImplementedError(
-            "multi-token prediction comes with the training slice: ROADMAP.md "
-            "queue 1, item 9")
+            "multi-token prediction (deepseek-v3's MTP) is not ported yet: "
+            "ROADMAP.md queue 1, item 11")
     params = {"embed": embedding_init(gen, cfg.padded_vocab, cfg.d_model, dtype, device)}
     for si, seg in enumerate(segments(cfg)):
         params[f"seg{si}"] = tree_stack([
@@ -222,11 +235,37 @@ def _layer_cache(c, r: int):
     return cache_lib.KVCache(k=c.k[r], v=c.v[r], index=c.index)
 
 
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_policy="dots"``: keep the
+    outputs of plain matmuls (``x @ W`` reaches ``aten.mm``) and recompute
+    the rest, as ``dots_with_no_batch_dims_saveable`` keeps the dots with
+    no batch dimension (the attention einsums are batched: ``bmm``)."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, cfg: ModelConfig):
+    """``fn`` under the config's rematerialisation policy: ``"none"`` as it
+    is, ``"full"`` recomputing everything in the backward, ``"dots"``
+    keeping the matmul outputs."""
+    if cfg.remat_policy == "none":
+        return fn
+    if cfg.remat_policy == "dots":
+        ctx = partial(create_selective_checkpoint_contexts, _save_matmuls)
+        return partial(checkpoint, fn, use_reentrant=False, context_fn=ctx)
+    if cfg.remat_policy == "full":
+        return partial(checkpoint, fn, use_reentrant=False)
+    raise ValueError(cfg.remat_policy)
+
+
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, positions=None,
-            cache=None, pages: tuple | None = None, decode_attn: str = "off"):
-    """Returns (logits, aux_loss, new_cache).  Caches are updated in place;
-    ``new_cache`` holds the same tensors with the dense fill index
-    advanced."""
+            cache=None, pages: tuple | None = None, decode_attn: str = "off",
+            return_hidden: bool = False, skip_logits: bool = False):
+    """Returns (logits, aux_loss, new_cache[, hidden]).  Caches are updated
+    in place; ``new_cache`` holds the same tensors with the dense fill
+    index advanced.  ``skip_logits`` returns None for the logits (the loss
+    takes them chunk by chunk from ``hidden``, the final-normed states)."""
     cd = _dtype(cfg.compute_dtype)
     B, T = tokens.shape
     if positions is None:
@@ -236,10 +275,10 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, positions=None,
     aux = 0.0
     new_caches = {} if cache is not None else None
     for si, seg in enumerate(segments(cfg)):
-        seg_params = params[f"seg{si}"]
         seg_cache = cache[f"seg{si}"] if cache is not None else None
-        for r in range(seg.repeats):
-            p_r = tree_map(lambda x, r=r: x[r], seg_params)
+
+        def body(h, p_r, r, seg=seg, seg_cache=seg_cache):
+            aux = 0.0
             for li, spec in enumerate(seg.unit):
                 c_in = _layer_cache(seg_cache[f"l{li}"], r) if cache is not None else None
                 h, _, a = apply_layer(
@@ -247,6 +286,14 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, positions=None,
                     pages=pages, decode_attn=decode_attn,
                 )
                 aux = aux + a
+            return h, aux
+
+        body = _remat_wrap(body, cfg) if cache is None else body
+        leaves, spec = tree_flatten(params[f"seg{si}"])
+        layers = [x.unbind(0) for x in leaves]
+        for r in range(seg.repeats):
+            h, a = body(h, tree_unflatten([x[r] for x in layers], spec), r)
+            aux = aux + a
         if cache is not None:
             new_caches[f"seg{si}"] = {
                 key: c._replace(index=c.index + T) if isinstance(c, cache_lib.KVCache) else c
@@ -254,7 +301,9 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, positions=None,
             }
 
     h = rmsnorm(params["final_norm"], h, eps=cfg.rms_eps)
-    return _head_logits(params, cfg, h), aux, new_caches
+    logits = None if skip_logits else _head_logits(params, cfg, h)
+    out = (logits, aux, new_caches)
+    return out + (h,) if return_hidden else out
 
 
 def _head_logits(params, cfg: ModelConfig, h):
@@ -267,6 +316,57 @@ def _head_logits(params, cfg: ModelConfig, h):
         pad = torch.arange(cfg.padded_vocab, device=h.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)
     return logits
+
+
+# ----------------------------------------------------------------------------
+# Losses
+# ----------------------------------------------------------------------------
+
+def chunked_ce(params, cfg: ModelConfig, hidden, labels, *, mask=None, chunk=512):
+    """Cross entropy from final-normed ``hidden`` (B, T, d) in sequence
+    chunks, each under a checkpoint, so only (B, chunk, V) f32 logits are
+    ever live: the backward recomputes a chunk's logits (the reference's
+    ``jax.checkpoint`` inside its scan).  Sums over chunks in order, in
+    f32, and divides by the mask's sum (at least 1)."""
+    B, T, _ = hidden.shape
+    if mask is None:
+        mask = torch.ones((B, T), dtype=torch.float32, device=hidden.device)
+    c = min(chunk, T)
+    if T % c:
+        c = T  # one chunk for odd lengths, as the reference does
+
+    def piece(h_c, l_c, m_c):
+        logits = _head_logits(params, cfg, h_c).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, l_c[..., None].long())[..., 0]
+        return torch.sum((lse - gold) * m_c), torch.sum(m_c)
+
+    tot = torch.zeros((), device=hidden.device)
+    cnt = torch.zeros((), device=hidden.device)
+    for i in range(T // c):
+        sl = slice(i * c, (i + 1) * c)
+        s, n = checkpoint(piece, hidden[:, sl], labels[:, sl], mask[:, sl],
+                          use_reentrant=False)
+        tot, cnt = tot + s, cnt + n
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """``(total, {"ce", "aux"})`` for ``batch`` = tokens (B, T), labels
+    (B, T) and an optional ``loss_mask``."""
+    if cfg.num_mtp_layers > 0:
+        raise NotImplementedError(
+            "the multi-token-prediction loss (deepseek-v3's MTP) is not ported "
+            "yet: ROADMAP.md queue 1, item 11")
+    if "mrope_positions" in batch or "vision_embeds" in batch:
+        raise NotImplementedError(
+            "the VLM front end (M-RoPE, vision embeddings) is not ported yet: "
+            "ROADMAP.md queue 1, item 11")
+    _, aux, _, hidden = forward(
+        params, cfg, batch["tokens"], return_hidden=True, skip_logits=True)
+    loss = chunked_ce(params, cfg, hidden, batch["labels"], mask=batch.get("loss_mask"))
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+    return loss + aux, {"ce": loss, "aux": aux}
 
 
 def decode_step(params, cfg: ModelConfig, tokens, cache, *, positions=None,

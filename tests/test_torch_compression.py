@@ -199,6 +199,23 @@ def test_delay_line_push_pop_and_read():
         assert int(js.step) == int(ts.step)
 
 
+def test_delay_line_of_depth_one_holds_the_push():
+    """Depth 1 (``delay_line(1)``, the training slice's line): the popped
+    value and the buffer bitwise the reference's; the buffer is the push
+    itself, a view, not a copy."""
+    g = tree_np(10, [(4, 5)])
+    js = j_stale.delay_init(to_j({"w0": g["w0"][0]}), 1)
+    ts = t_stale.delay_init(to_t({"w0": g["w0"][0]}), 1)
+    for t in range(4):
+        push = to_t({"w0": g["w0"][t]})
+        js, jr = j_stale.delay_push_pop(js, to_j({"w0": g["w0"][t]}))
+        ts, tr = t_stale.delay_push_pop(ts, push)
+        assert_bits_equal(jr["w0"], tr["w0"])
+        assert_bits_equal(js.buffer["w0"], ts.buffer["w0"])
+        assert ts.buffer["w0"].data_ptr() == push["w0"].data_ptr()
+        assert int(js.step) == int(ts.step)
+
+
 @pytest.mark.parametrize("handoff", ["sequential", "stale"])
 def test_run_protocol(handoff):
     shifts = np.random.default_rng(10).normal(size=(4, 6)).astype(np.float32)

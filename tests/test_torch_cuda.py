@@ -1058,3 +1058,100 @@ def test_topk_encode_on_two_streams_at_once(cuda):
         o_r, res_r, cnt_r = wants[i]
         assert same_bits(o, o_r) and same_bits(res, res_r) and torch.equal(cnt, cnt_r)
 
+
+
+# ----------------------------------------------------------------------------
+# The training slice: single-stream fits and real gradient leaves
+# ----------------------------------------------------------------------------
+
+
+def _train_setup(cuda, steps):
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_lm_batches
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer as tf
+
+    cfg = get_config("tinyllama-1.1b").reduced().replace(
+        compute_dtype="bfloat16", remat_policy="full", attn_q_chunk=32)
+    params = tf.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    it = synthetic_lm_batches(0, 4, 128, cfg.vocab_size, device=cuda)
+    stream = train_cli.stack_batches([next(it) for _ in range(steps)])
+    strategy = train_cli.make_strategy(cfg, train_cli.make_optimizer(1e-3, steps))
+    return cfg, params, stream, strategy
+
+
+@pytest.mark.cuda
+def test_single_stream_fit_kernel_on_off_bitwise(cuda):
+    """``OptimizerStrategy`` × ``delay_line(1)`` × ``topk:0.01+ef`` at the
+    reduced tinyllama-1.1b (bf16 compute, remat full, query chunks): the
+    fit through the encode kernel — one launch per leaf per step, each
+    leaf as one row — is bitwise the fit through the reference codec."""
+    from repro_torch import api
+    from repro_torch.core.compression import kernel_plan
+    from repro_torch.utils.tree import tree_leaves
+
+    steps = 3
+    _, params, stream, strategy = _train_setup(cuda, steps)
+    runs = {}
+    for use in (True, False):
+        before = dict(kernels.LAUNCHES)
+        runs[use] = api.fit(strategy, None, transport="delay_line", staleness=1,
+                            wire=api.TopKWire(0.01, error_feedback=True, use_kernel=use),
+                            stream=stream, theta0=params, device="cuda")
+        torch.cuda.synchronize()
+        delta = {n: kernels.LAUNCHES[n] - before[n] for n in kernels.KERNEL_NAMES}
+        eligible = kernel_plan(params)["kernel_leaves"]
+        want = {n: (steps * eligible if use and n == "topk_encode" else 0)
+                for n in kernels.KERNEL_NAMES}
+        assert delta == want, (use, delta)
+    on, off = runs[True], runs[False]
+    for a, b in zip(tree_leaves(on.theta), tree_leaves(off.theta)):
+        assert same_bits(a, b)
+    for a, b in zip(tree_leaves(on.metrics["carry"][2]), tree_leaves(off.metrics["carry"][2])):
+        assert same_bits(a, b)
+    assert torch.equal(on.trajectory, off.trajectory)
+    assert on.ledger.summary() == off.ledger.summary()
+    push = sum(max(1, round(0.01 * x.numel())) * 8 for x in tree_leaves(params))
+    assert on.ledger.uplink_bytes == steps * push
+    assert bool(torch.isfinite(on.trajectory).all())
+
+
+@pytest.mark.cuda
+def test_encode_of_real_gradient_leaves_is_the_plain_version(cuda):
+    """The gradient of the reduced model's loss, each leaf plus a residual
+    encoded as one row by the kernel: bitwise the plain version; and the
+    gradient with ``forward``'s ``unbind(0)`` equals the gradient with the
+    layer weights taken as ``x[r]``."""
+    from repro_torch.kernels.topk_compress import ops as tk_ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
+
+    cfg, params, stream, strategy = _train_setup(cuda, 1)
+    batch = {k: v[0] for k, v in stream.items()}
+    grads, _ = strategy.local_updates(params, strategy.init_state(params, None), None, batch)
+    g_leaves, spec = tree_flatten(grads)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for g in g_leaves:
+        r = 1e-3 * torch.randn(g.shape, generator=gen, device=cuda)
+        k = max(1, round(0.01 * g.numel()))
+        o, res, cnt = tk_ops.topk_encode(g[None], r[None], k=k)
+        c = (g + r).reshape(1, -1)
+        t = torch.topk(c.abs(), k, dim=1).values[:, -1].contiguous()
+        o_r, res_r, cnt_r = tk_ref.encode_threshold_ref(c, t, with_residual=True)
+        assert same_bits(o.reshape(1, -1), o_r) and same_bits(res.reshape(1, -1), res_r)
+        assert torch.equal(cnt, cnt_r) and int(cnt[0]) >= k
+
+    # x[r] per layer: another backward for the stacked leaves, same numbers
+    leaves = [x.detach().requires_grad_() for x in tree_flatten(params)[0]]
+    p = tree_unflatten(leaves, spec)
+    positions = torch.arange(batch["tokens"].shape[1], device=cuda).expand(batch["tokens"].shape)
+    layer = tf.segments(cfg)[0].unit[0]
+    h = tf.embed(p["embed"], batch["tokens"], compute_dtype=torch.bfloat16)
+    for i in range(cfg.num_layers):
+        h = tf._remat_wrap(lambda h, w: tf.apply_layer(w, cfg, layer, h, positions=positions)[0],
+                           cfg)(h, tree_map(lambda x, i=i: x[i], p["seg0"]["l0"]))
+    h = tf.rmsnorm(p["final_norm"], h, eps=cfg.rms_eps)
+    by_select = torch.autograd.grad(tf.chunked_ce(p, cfg, h, batch["labels"]), leaves)
+    for (path, a), b in zip(torch.utils._pytree.tree_flatten_with_path(grads)[0], by_select):
+        if getattr(path[0], "key", None) == "seg0":
+            assert torch.equal(a, b), path

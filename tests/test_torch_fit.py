@@ -28,6 +28,7 @@ from repro.ml.linear import logistic_loss as j_logistic  # noqa: E402
 from repro.ml.linear import lsq_loss as j_lsq  # noqa: E402
 from repro_torch import api as tapi  # noqa: E402
 from repro_torch.convert import carry_from_reference, theta_from_reference  # noqa: E402
+from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.ml.linear import logistic_loss as t_logistic  # noqa: E402
 from repro_torch.ml.linear import lsq_loss as t_lsq  # noqa: E402
 
@@ -241,7 +242,8 @@ def test_default_device_needs_a_gpu():
 
 
 # "admm" and "prox": the admm_consensus transport and ProxStrategy are
-# ported; what of their path is not yet is a tracer and a sweep over ρ
+# ported; what of their path is not yet is a tracer and a sweep over ρ.
+# OptimizerStrategy is ported; the train CLI's staleness sweep is not
 @pytest.mark.parametrize("call", [
     lambda: tapi.fit(tapi.GradientDescent(t_lsq), None, executor="mesh", device="cpu"),
     lambda: tapi.fit(tapi.GradientDescent(t_lsq), None, sweep={"lr": [0.1]}, device="cpu"),
@@ -255,9 +257,10 @@ def test_default_device_needs_a_gpu():
     lambda: tapi.fit(tapi.ProxStrategy(lambda d: None, dim=3), None,
                      transport="admm_consensus", steps=2, sweep={"rho": [0.5, 1.0]},
                      device="cpu"),
-    lambda: tapi.OptimizerStrategy(None, None),
+    lambda: train_main(["--reduced", "--steps", "1", "--sweep-staleness", "0,1",
+                        "--device", "cpu"]),
 ], ids=["mesh", "sweep", "tracer", "admm", "dp", "secagg", "chain", "lbfgs", "prox",
-        "optimizer"])
+        "train-sweep-staleness"])
 def test_out_of_slice_raises_naming_roadmap(call):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         call()

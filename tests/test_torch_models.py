@@ -532,7 +532,7 @@ def test_unported_families_raise():
     gen = torch.Generator()
     with pytest.raises(NotImplementedError, match="item 11"):
         t_tf.init_params(gen, tc.replace(mixer="mla"), device="meta")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 11"):
         t_tf.init_params(gen, tc.replace(num_mtp_layers=1), device="meta")
     with pytest.raises(ValueError, match="attn-only"):
         t_tf.init_paged_cache(tc.replace(mixer="mla"), 4, 2, torch.float32)
