@@ -29,6 +29,30 @@
    (d) sequential_server × dense.  Checks that the loss falls, that each
    kernel was launched steps × eligible leaves times, the ledger bytes,
    and that (a) and (b) with ``use_kernel=False`` are bitwise the same fit.
+   Then, on the same data and counted with them: (e) allreduce ×
+   ``LBFGS(logistic_loss)`` × dense (loss falls, θ finite, ledger rounds
+   21, the initial gradient charged as one Allreduce of θ; its loss beside
+   dense GD's), (f) allreduce × ``dp:1.0,0.0001>topk:0.01+ef`` (the encode
+   kernel 20 times, uplink 20 × 16 top-k pushes, loss falls; beside run
+   (a)'s), (g) delay_line(2) × ``topk:0.01>secagg`` and (h) allreduce ×
+   ``int8+ef>secagg``, bitwise runs (c) and (b) (θ, trajectory, ledger)
+   with their kernels' launches.  The security wires on the card at
+   (16, 2000): DP with σ = 0 gives each row norm min(‖m‖, clip) to rtol
+   1e-4; on zero messages its noise has std within 5 % of σ·clip and
+   |mean| < 0.05, the same counters give the same draws and advanced ones
+   new draws; secagg's payloads each differ from their message and sum to
+   the aggregate to rtol = atol = 1e-3.  ``private_second_order`` at the
+   epsilon shape: θ within rtol 1e-4 (atol 1e-4 of max |θ|) of a float64
+   solve on the card, uplink 16 × (2000² + 2000) × 4 = 256,128,000 bytes
+   and downlink 8,000.  The rest of ``ml/``, each within 60 s, with its
+   wall time, peak memory and cuts: the cascade SVM (16 × 1,250 rows of
+   the epsilon shape, 20,000 pooled, 4 rounds: each round's global SVs
+   inside its pushed union, decision signs above chance), the GP experts
+   and ``distributed_sgpr`` (1-D, 16 × 2,000 points: the four rules within
+   rmse 0.12 of the exact GP in float64, the sparse posterior at its
+   inducing points inside the exact GP's 2σ predictive band) and
+   consensus MPLE (a 50-variable chain GMRF, 16 × 5,000 samples: support
+   F1 above 0.95, the primal residual shrinking).
 4. Decode-attention kernel phase: the kernels (split over S, then the
    merge) against their plain version (``decode_attention_plain``) in f32
    and bf16 at the JAX package's test shapes, the serving shape (B 16, S
@@ -574,6 +598,17 @@ def main_path(torch):
         "d": dict(transport="sequential_server", wire="dense",
                   schedule=schedules.round_robin(K, STEPS), expect={},
                   push=4 * D, pushes=STEPS * K),
+        # (f): the encode kernel after the privatization, once a round
+        "f": dict(transport="allreduce", wire="dp:1.0,0.0001>topk:0.01+ef", steps=STEPS,
+                  expect={"topk_encode": STEPS}, push=topk_push, pushes=STEPS * K,
+                  loss_beside="a"),
+        # (g), (h): secagg after a compressed stage is bitwise that stage alone
+        "g": dict(transport="delay_line", staleness=2, wire="topk:0.01>secagg", steps=STEPS,
+                  expect={"topk_select": STEPS}, push=topk_push, pushes=STEPS * K,
+                  bitwise_of="c"),
+        "h": dict(transport="allreduce", wire="int8+ef>secagg", steps=STEPS,
+                  expect={"int8_absmax": STEPS, "int8_quant": STEPS},
+                  push=int8_push, pushes=STEPS * K, bitwise_of="b"),
     }
     # the first fit of a process pays one-off set-up (CUDA/cuBLAS handles,
     # lazy kernel loading, torch.func): time it apart from the runs
@@ -583,19 +618,22 @@ def main_path(torch):
     torch.cuda.synchronize()
     print(f"warm-up fit (1 round, first in the process): "
           f"{time.perf_counter() - t0:.4f} s", flush=True)
+    # runs (e) and (f) bring code the warm-up did not run (L-BFGS's
+    # recursion, the DP draws): one round of each, timed apart too
+    for label, strat, wire in (("e", api.LBFGS(logistic_loss), "dense"),
+                               ("f", strategy, "dp:1.0,0.0001>topk:0.01+ef")):
+        t0 = time.perf_counter()
+        api.fit(strat, data, transport="allreduce", wire=wire, steps=1, device="cuda")
+        torch.cuda.synchronize()
+        print(f"warm-up fit of run {label} (1 round): {time.perf_counter() - t0:.4f} s",
+              flush=True)
     results = {}
     kernels.reset_launches()
     for tag, spec in runs.items():
         spec = dict(spec)
         expect, push, pushes = spec.pop("expect"), spec.pop("push"), spec.pop("pushes")
-        before = dict(kernels.LAUNCHES)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        res = api.fit(strategy, data, executor="local", device="cuda", **spec)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        delta = {n: kernels.LAUNCHES[n] - before[n] for n in kernels.KERNEL_NAMES}
+        base, beside = spec.pop("bitwise_of", None), spec.pop("loss_beside", None)
+        res, wall, delta, peak = timed_fit(torch, api, kernels, strategy, data, **spec)
         want = {n: expect.get(n, 0) for n in kernels.KERNEL_NAMES}
         check(delta == want, f"run {tag}: launches {delta}, expected {want}")
         loss = float(res.metrics["loss"])
@@ -604,16 +642,23 @@ def main_path(torch):
               f"run {tag}: θ not finite of shape ({D},)")
         check(res.ledger.uplink_bytes == pushes * push,
               f"run {tag}: uplink {res.ledger.uplink_bytes} != {pushes} × {push}")
-        if "wire_kernel_hits" in res.metrics:
+        if ">" in spec["wire"]:
+            check("wire_kernel_hits" not in res.metrics, f"run {tag}: a chain reports kernel hits")
+        elif "wire_kernel_hits" in res.metrics:
             hits = res.metrics["wire_kernel_hits"]
             check(hits["kernel_leaves"] == 1 and hits["active"],
                   f"run {tag}: wire_kernel_hits {hits}")
+        if base is not None:
+            check(same_fit(torch, res, results[base]),
+                  f"run {tag}: not bitwise run {base} (θ, trajectory, ledger)")
         rounds = STEPS if tag != "d" else STEPS * K
         results[tag] = res
+        note = (f" (run {beside}: {float(results[beside].metrics['loss']):.6f})"
+                if beside else "") + (f", bitwise run {base} (θ, trajectory, ledger)"
+                                      if base else "")
         print(f"run {tag} {spec.get('transport')} × {spec.get('wire')}: "
-              f"loss {loss0:.6f} -> {loss:.6f}, {rounds} rounds in {wall:.4f} s "
-              f"({rounds / wall:.2f} rounds/s), peak "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, launches {delta}, "
+              f"loss {loss0:.6f} -> {loss:.6f}{note}, {rounds} rounds in {wall:.4f} s "
+              f"({rounds / wall:.2f} rounds/s), peak {peak:.3f} GiB, launches {delta}, "
               f"uplink {res.ledger.uplink_bytes} B, total {res.ledger.total_bytes} B",
               flush=True)
 
@@ -632,7 +677,281 @@ def main_path(torch):
         check(on.ledger.summary() == off.ledger.summary(),
               f"run {tag}: ledger differs with use_kernel=False")
         print(f"run {tag}: use_kernel on ≡ off, bitwise (θ, trajectory, ledger)", flush=True)
+    lbfgs_run(torch, data, strategy, loss0)
     return dict(kernels.LAUNCHES)
+
+
+def timed_fit(torch, api, kernels, strategy, data, **spec):
+    """One fit on the card: (result, wall s, launches by kernel, peak GiB)."""
+    before = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = api.fit(strategy, data, executor="local", device="cuda", **spec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    delta = {n: kernels.LAUNCHES[n] - before[n] for n in kernels.KERNEL_NAMES}
+    return res, wall, delta, torch.cuda.max_memory_allocated() / 2**30
+
+
+def same_fit(torch, a, b) -> bool:
+    """θ, trajectory and ledger of two fits bit for bit."""
+    return (torch.equal(a.theta.view(torch.int32), b.theta.view(torch.int32))
+            and torch.equal(a.trajectory.view(torch.int32), b.trajectory.view(torch.int32))
+            and a.ledger.summary() == b.ledger.summary()
+            and a.ledger.events == b.ledger.events)
+
+
+def lbfgs_run(torch, data, strategy, loss0):
+    """Run (e) of the main path: allreduce × LBFGS(logistic_loss) × dense
+    on the epsilon-shaped data of runs (a)–(d), beside dense GD."""
+    from repro_torch import api, kernels
+    from repro_torch.core.allreduce import CommLedger
+    from repro_torch.ml.linear import logistic_loss
+
+    none = dict.fromkeys(kernels.KERNEL_NAMES, 0)
+    lb, wall, delta, peak = timed_fit(torch, api, kernels, api.LBFGS(logistic_loss), data,
+                                      transport="allreduce", wire="dense", steps=STEPS)
+    gd, gd_wall, gd_delta, _ = timed_fit(torch, api, kernels, strategy, data,
+                                         transport="allreduce", wire="dense", steps=STEPS)
+    init = CommLedger()
+    init.record_allreduce(torch.zeros((D,), device="cuda"), K, tag="fit/init")
+    loss_e, loss_gd = float(lb.metrics["loss"]), float(gd.metrics["loss"])
+    check(delta == none and gd_delta == none, f"run e launched kernels: {delta}, {gd_delta}")
+    check(math.isfinite(loss_e) and loss_e < loss0, f"run e: loss {loss_e} did not fall")
+    check(bool(torch.isfinite(lb.theta).all()) and lb.theta.shape == (D,), "run e: θ not finite")
+    check(lb.ledger.rounds == STEPS + 1, f"run e: ledger rounds {lb.ledger.rounds}")
+    check(lb.ledger.events[0] == init.events[0],
+          f"run e: init charge {lb.ledger.events[0]} != {init.events[0]}")
+    check(lb.ledger.uplink_bytes == init.uplink_bytes + STEPS * K * 4 * D,
+          f"run e: uplink {lb.ledger.uplink_bytes}")
+    print(f"run e allreduce × LBFGS × dense: loss {loss0:.6f} -> {loss_e:.6f} (dense GD "
+          f"lr 1.0: {loss_gd:.6f}), ledger rounds {lb.ledger.rounds}, init charge "
+          f"{lb.ledger.events[0]}, {STEPS} rounds in {wall:.4f} s ({STEPS / wall:.2f} "
+          f"rounds/s; dense GD {STEPS / gd_wall:.2f}), peak {peak:.3f} GiB", flush=True)
+
+
+def security_phase(torch):
+    """The DP and secagg wires on the card at the fit's (K, D), and
+    ``private_second_order`` at the epsilon shape."""
+    from repro_torch import api
+    from repro_torch.ml.linear import private_second_order
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    # DP with σ = 0 is the clip alone: each row's norm min(‖m‖, clip); the
+    # rows' norms run from ≈ 0.045 to ≈ 45, so some are clipped and some not
+    msgs = torch.randn((K, D), generator=gen, device="cuda")
+    msgs = msgs * torch.logspace(-3, 0, K, device="cuda")[:, None]
+    wi = api.DPWire(1.0, 0.0)
+    _, hat, nb = wi.encode_updates(wi.init_state(msgs[0], K), msgs)
+    norms = torch.linalg.norm(msgs, dim=1)
+    want = torch.clamp(norms, max=1.0)
+    rel = float(((torch.linalg.norm(hat, dim=1) - want).abs() / want).max())
+    check(hat.device.type == "cuda", "dp: the privatized message left the card")
+    check(rel <= 1e-4, f"dp σ=0: norms off min(‖m‖, clip) by {rel} (limit 1e-4)")
+    check(int(nb) == K * D * 4, f"dp: metered {int(nb)} bytes")
+    out["dp_clip"] = {"max_rel_err": rel, "rows_clipped": int((norms > 1.0).sum())}
+    # zero messages: the output is the noise, N(0, (σ·clip)²) drawn on the card
+    wi = api.DPWire(2.0, 0.5)
+    zeros = torch.zeros((K, D), device="cuda")
+    st = wi.init_state(zeros[0], K)
+    st1, a, _ = wi.encode_updates(st, zeros)
+    std, mean = float(a.std()), float(a.mean())
+    check(abs(std - 1.0) <= 0.05 and abs(mean) < 0.05,
+          f"dp noise: std {std} (want 1.0 ± 5 %), mean {mean} (want |mean| < 0.05)")
+    _, a2, _ = wi.encode_updates(st, zeros)
+    _, b, _ = wi.encode_updates(st1, zeros)
+    check(torch.equal(a, a2), "dp: the same counters gave other draws")
+    check(not torch.equal(a, b), "dp: advanced counters gave the same draws")
+    check(st.device.type == "cpu", "dp: round counters are not on the host")
+    dp_ms = eager_ms(torch, lambda: wi.encode_updates(st, msgs), inner=10)
+    out["dp_noise"] = {"std": std, "want_std": 1.0, "mean": mean, "encode_ms": dp_ms}
+    # secagg: each payload masked away from its message, the sum recovers
+    # the aggregate (tests/test_property.py:241: rtol = atol = 1e-3)
+    raw = torch.randn((K, D), generator=gen, device="cuda")
+    sa = api.SecAggWire()
+    st = sa.init_state(raw[0], K)
+    pay = sa.uplink_payloads(st, raw)
+    check(pay.device.type == "cuda", "secagg: payloads left the card")
+    for k in range(K):
+        check(not torch.allclose(pay[k], raw[k], atol=1e-3), f"secagg: payload {k} unmasked")
+    sum_err = float((pay.sum(0) - raw.sum(0)).abs().max())
+    check(torch.allclose(pay.sum(0), raw.sum(0), rtol=1e-3, atol=1e-3),
+          f"secagg: the payload sum is {sum_err} off the aggregate")
+    sa_ms = eager_ms(torch, lambda: sa.uplink_payloads(st, raw), inner=2, reps=5)
+    out["secagg"] = {"sum_max_abs_err": sum_err, "payloads_ms": sa_ms,
+                     "mask_draws": K * (K - 1) // 2}
+    print(f"dp and secagg on the card at ({K}, {D}):", json.dumps(out), flush=True)
+    del msgs, hat, zeros, a, a2, b, raw, pay
+
+    # private_second_order at the epsilon shape: (16, 2000, 2000) f32 XᵀX
+    Xs, ys = make_epsilon_shaped(torch, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    theta, ledger = private_second_order(Xs, ys, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    W64 = torch.zeros((D, D), dtype=torch.float64, device="cuda")
+    V64 = torch.zeros((D,), dtype=torch.float64, device="cuda")
+    for k in range(K):
+        x = Xs[k].double()
+        W64 += x.T @ x
+        V64 += x.T @ ys[k].double()
+    th64 = torch.linalg.solve(W64, V64)
+    diff = (theta.double() - th64).abs()
+    scale = float(th64.abs().max())
+    tol_ok = bool((diff <= 1e-4 * th64.abs() + 1e-4 * scale).all())
+    norm_rel = float(torch.linalg.norm(theta.double() - th64) / torch.linalg.norm(th64))
+    up, down = K * (D * D + D) * 4, D * 4  # 256,128,000 and 8,000 at the epsilon shape
+    check(tol_ok, f"private_second_order: θ off the float64 solve (max {float(diff.max())})")
+    check(ledger.uplink_bytes == up and ledger.downlink_bytes == down,
+          f"private_second_order: ledger {ledger.uplink_bytes} / {ledger.downlink_bytes}")
+    out["private_second_order"] = {
+        "wall_s": wall, "peak_gib": peak, "uplink": ledger.uplink_bytes,
+        "downlink": ledger.downlink_bytes, "max_abs_err_vs_f64": float(diff.max()),
+        "max_abs_theta": scale, "norm_rel_err_vs_f64": norm_rel,
+        "check": "|θ − θ64| ≤ 1e-4·|θ64| + 1e-4·max|θ64| elementwise"}
+    print(f"private_second_order at ({K}, {N}, {D}):",
+          json.dumps(out["private_second_order"]), flush=True)
+    del W64, V64, th64, theta
+
+    del Xs, ys
+    torch.cuda.empty_cache()
+    return out
+
+
+#: the item-7 families on the card (each listing its cuts):
+#: cascade SVM at epsilon's width, 16 nodes × 1,250 rows = 20,000 pooled
+#: (a 1.6 GB Gram matrix), linear kernel, C 1, 500 dual steps, 4 rounds;
+CASCADE_NK, CASCADE_ROUNDS = 1_250, 4
+#: GP: 1-D inputs in [-3, 3], y = sin 2x + 0.05 noise, 16 experts × 2,000
+#: (the exact GP on all 32,000, in float64, is the yardstick: its 8.2 GB
+#: Cholesky bounds N); 10 PoE-factorized hyper steps; M = 16 inducing
+#: points as tests/test_sparse_gp_graphical.py (f32 solves of Σ bound M on
+#: 1-D data); 64 query points;
+GP_NK, GP_HYPER_STEPS, GP_M, GP_Q = 2_000, 10, 16, 64
+#: MPLE: a 50-variable chain GMRF (tests/test_sparse_gp_graphical.py's
+#: chain at d 50), 16 nodes × 5,000 samples, 50 ADMM iterations of 50
+#: inner steps
+MPLE_D, MPLE_NK = 50, 5_000
+FAMILY_LIMIT_S = 60.0
+
+
+def family_run(torch, name, fn):
+    """Run ``fn`` on the card, timed; fails past ``FAMILY_LIMIT_S``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(wall < FAMILY_LIMIT_S, f"{name}: {wall:.1f} s, over {FAMILY_LIMIT_S} s")
+    return out, wall, peak
+
+
+def ml_families_phase(torch):
+    """The cascade SVM, the GP experts and SGPR, and consensus MPLE on the card."""
+    from repro_torch import api
+    from repro_torch.ml import gp, graphical, svm
+
+    out = {}
+    # cascade SVM: the global SVs of each round ⊆ that round's pushed union
+    Xs, ys = make_epsilon_shaped(torch, 1)
+    Xs, ys = Xs[:, :CASCADE_NK].contiguous(), ys[:, :CASCADE_NK].contiguous()
+    torch.cuda.empty_cache()
+    res, wall, peak = family_run(torch, "cascade SVM", lambda: api.fit(
+        svm.CascadeStrategy(C=1.0), (Xs, ys), transport="allreduce",
+        steps=CASCADE_ROUNDS, device="cuda"))
+    per = (D + 1) * 4
+    union = [round(v) for v in (res.metrics["uplink_bytes_per_round"] / per).tolist()]
+    svs = res.trajectory.sum(dim=1).tolist()
+    # the byte hooks price in f32, as the reference's do: round back to counts
+    check(svs == [round(v) for v in (res.metrics["downlink_bytes_per_round"] / per).tolist()],
+          f"cascade: downlink {res.metrics['downlink_bytes_per_round']} != SVs {svs}")
+    check(all(u >= v for u, v in zip(union, svs)), f"cascade: SVs {svs} beyond unions {union}")
+    _, pushed = res.metrics["carry"][1]
+    check(not bool((res.theta.sv_mask & ~pushed).any()), "cascade: an SV outside the union")
+    X, y = Xs.reshape(-1, D), ys.reshape(-1)
+    acc = float((torch.sign(svm.decision_function(res.theta, X)) == y).float().mean())
+    check(acc > 0.5, f"cascade: training accuracy {acc} not above chance")
+    out["cascade_svm"] = {
+        "wall_s": wall, "peak_gib": peak, "pooled_rows": X.shape[0], "width": D,
+        "union_per_round": union, "global_svs_per_round": svs,
+        "union_non_decreasing": all(b >= a for a, b in zip(union, union[1:])),
+        "stable_last_round": bool(torch.equal(res.trajectory[-1], res.trajectory[-2])),
+        "train_accuracy": acc, "ledger_bytes": res.ledger.total_bytes,
+        "cuts": f"16 × {CASCADE_NK} rows of the epsilon shape, {CASCADE_ROUNDS} rounds"}
+    print("cascade SVM:", json.dumps(out["cascade_svm"]), flush=True)
+    del Xs, ys, X, y, res, pushed
+    torch.cuda.empty_cache()
+
+    # GP: PoE-factorized hypers, the four expert rules and SGPR against the
+    # exact GP on all points in float64
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    N = K * GP_NK
+    Xg = torch.rand((N, 1), generator=gen, device="cuda") * 6.0 - 3.0
+    yg = torch.sin(2.0 * Xg[:, 0]) + 0.05 * torch.randn((N,), generator=gen, device="cuda")
+    Xs, ys = Xg.reshape(K, GP_NK, 1), yg.reshape(K, GP_NK)
+    Xq = torch.linspace(-2.5, 2.5, GP_Q, device="cuda")[:, None]
+    Z = torch.linspace(-3.0, 3.0, GP_M, device="cuda")[:, None]
+
+    def gp_family():
+        hyp = gp.fit_hypers_distributed(Xs, ys, steps=GP_HYPER_STEPS, device="cuda")
+        preds = gp.expert_predictions(hyp, Xs, ys, Xq)
+        pv = gp.prior_variance(hyp, Xq)
+        rules = {"poe": gp.poe(preds), "gpoe": gp.gpoe(preds), "bcm": gp.bcm(preds, pv),
+                 "gbcm": gp.gbcm(preds, pv)}
+        sgpr = gp.distributed_sgpr(hyp, Z, Xs, ys, Z, device="cuda")
+        return hyp, rules, sgpr
+
+    (hyp, rules, sgpr), wall, peak = family_run(torch, "GP experts and SGPR", gp_family)
+    hyp64 = gp.GPHypers(*(v.double() for v in hyp))
+    mu_e, var_e = gp.gp_posterior(hyp64, Xg.double(), yg.double(),
+                                  torch.cat([Xq, Z]).double())
+    sn2 = float(torch.exp(2.0 * hyp64.log_noise))
+    rmse = {name: float(torch.sqrt(torch.mean((mu.double() - mu_e[:GP_Q]) ** 2)))
+            for name, (mu, _) in rules.items()}
+    check(all(math.isfinite(v) and v < 0.12 for v in rmse.values()),
+          f"GP experts: rmse against the exact GP {rmse} (limit 0.12, tests/test_gp.py:82)")
+    mu_s, var_s, stats_bytes = sgpr
+    band = 2.0 * torch.sqrt(var_e[GP_Q:] + sn2)
+    off = (mu_s.double() - mu_e[GP_Q:]).abs()
+    check(bool(torch.isfinite(mu_s).all()) and bool((off <= band).all()),
+          f"SGPR: mean at the inducing points leaves the exact GP's 2σ band by "
+          f"{float((off - band).max())}")
+    check(stats_bytes == (GP_M * GP_M + GP_M + 2) * 4, f"SGPR: {stats_bytes} bytes a node")
+    out["gp"] = {
+        "wall_s": wall, "peak_gib": peak, "points": N, "experts": K,
+        "hypers": [float(v) for v in hyp], "rmse_vs_exact": rmse,
+        "sgpr_max_off_exact_at_Z": float(off.max()), "sgpr_band_min": float(band.min()),
+        "sgpr_bytes_per_node": stats_bytes,
+        "cuts": f"1-D, {K} × {GP_NK} points, {GP_HYPER_STEPS} hyper steps, M {GP_M}"}
+    print("GP experts and SGPR:", json.dumps(out["gp"]), flush=True)
+    del Xg, yg, Xs, ys, mu_e, var_e, rules, sgpr
+    torch.cuda.empty_cache()
+
+    # consensus MPLE on a chain GMRF sampled on the card
+    Theta = torch.eye(MPLE_D, device="cuda") * 1.5
+    idx = torch.arange(MPLE_D - 1, device="cuda")
+    Theta[idx, idx + 1] = Theta[idx + 1, idx] = 0.5
+    Xm = graphical.sample_gmrf(torch.Generator(device="cuda").manual_seed(7), Theta,
+                               K * MPLE_NK)
+    (Th, admm), wall, peak = family_run(torch, "consensus MPLE", lambda: graphical.mple_consensus(
+        Xm.reshape(K, MPLE_NK, MPLE_D), iters=50, inner_iters=50, device="cuda"))
+    f1 = float(graphical.support_f1(Th, Theta))
+    hist = admm.history[:, 0].tolist()
+    check(f1 > 0.95, f"MPLE: support F1 {f1} (limit 0.95, tests/test_sparse_gp_graphical.py:97)")
+    check(hist[-1] < hist[2], f"MPLE: primal residual {hist[2]} -> {hist[-1]} did not shrink")
+    out["mple"] = {"wall_s": wall, "peak_gib": peak, "support_f1": f1,
+                   "primal_residual": [hist[0], hist[2], hist[-1]],
+                   "max_abs_err_vs_truth": float((Th - Theta).abs().max()),
+                   "cuts": f"d {MPLE_D}, {K} × {MPLE_NK} samples, 50 × 50 steps"}
+    print("consensus MPLE:", json.dumps(out["mple"]), flush=True)
+    return out
 
 
 # the decode kernel's shapes: (B, S, Hq, Hkv, D) of tests/test_kernels_decode.py,
@@ -2523,6 +2842,8 @@ def main() -> int:
     timings[("decode_attention", "main")] = decode_t["main"]
     timings[("decode_attention_merge", "main")] = merge_t
     launches = main_path(torch)
+    secure = security_phase(torch)
+    families = ml_families_phase(torch)
     served = serve_phase(torch)
     for name in ("decode_attention", "decode_attention_merge"):
         launches[name] = served[name]
@@ -2558,6 +2879,8 @@ def main() -> int:
         timings[(name, "leaf")] = t
     train_launches, train_stats = train_phase(torch)
     launches["topk_encode"] += train_launches
+    print("security wires and private regression:", json.dumps(secure), flush=True)
+    print("ml families:", json.dumps(families), flush=True)
     print("attention path:", json.dumps({"errors": attn_err, **attn_stats,
                                          "planted_control": attn_control}), flush=True)
     print("topk_sparsify:", json.dumps(tk_whole), flush=True)

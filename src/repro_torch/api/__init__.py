@@ -30,9 +30,12 @@ from repro_torch.api.transport import (
     make_transport,
 )
 from repro_torch.api.wire import (
+    ChainWire,
     CompressedWire,
     DenseWire,
+    DPWire,
     Int8Wire,
+    SecAggWire,
     ThresholdWire,
     TopKWire,
     Wire,
@@ -47,7 +50,7 @@ __all__ = [
     "make_transport",
     "TRANSPORTS",
     "Wire", "DenseWire", "CompressedWire", "ThresholdWire", "TopKWire",
-    "Int8Wire", "make_wire",
+    "Int8Wire", "DPWire", "SecAggWire", "ChainWire", "make_wire",
     "Executor", "LocalExecutor", "make_executor", "EXECUTORS",
     "FaultPlan", "FaultDraws", "FaultCarry",
 ]

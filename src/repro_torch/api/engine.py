@@ -112,7 +112,8 @@ def fit(
       transport: ``sequential_server`` / ``stale_server`` / ``delay_line``
         / ``allreduce`` / ``admm_consensus``, or a ``Transport`` instance.
       wire: ``"dense"``, ``"topk:<f>[+ef]"``, ``"thresh:<τ>[+ef]"``,
-        ``"int8[+ef]"``, or a ``Wire``.
+        ``"int8[+ef]"``, ``"dp:<clip>,<sigma>"``, ``"secagg"``, a
+        ``>``-chain of those, or a ``Wire``.
       executor: ``"local"`` (the only executor ported so far).
       schedule: contact schedule (server transports), any int sequence.
       steps: number of rounds (update transports).
@@ -145,6 +146,13 @@ def fit(
     ups = np.asarray(raw.uplink)
     downs = np.asarray(raw.downlink)
     ledger = CommLedger()
+    if strategy.init_rounds and carry is None:
+        # rounds the strategy charges before its loop (LBFGS: the initial
+        # gradient Allreduce)
+        K = strategy.num_nodes(data)
+        theta_like = raw.theta if theta0 is None else theta0
+        for _ in range(strategy.init_rounds):
+            ledger.record_allreduce(theta_like, K, tag=f"{tag}/init")
     T = int(ups.shape[0])
     up_tot, down_tot = _total(ups), _total(downs)
     ledger.uplink_bytes += up_tot

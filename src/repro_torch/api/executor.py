@@ -5,7 +5,8 @@ executor only).
 rounds in a Python loop (the reference's ``lax.scan``).  The primitive set
 the transports and strategies are written against (``aggregate``,
 ``broadcast``, ``local_rows``, ``local_node``, ``node_global_index``,
-``from_owner``, ``commit_owner``, ``metric_mean``, ``sum_bytes``) is the
+``node_shard_index``, ``from_owner``, ``commit_owner``, ``metric_mean``,
+``sum_bytes``) is the
 local identity: aggregation is the stacked ``server_allreduce`` and every
 cross-shard step is a no-op.  The reference's ``StatsDeferral`` defers cross-shard metric
 and byte collectives; locally there are none, so it has no counterpart.
@@ -35,6 +36,12 @@ _NOT_PORTED = "ROADMAP.md queue 1, item 8 (executors beyond local)"
 def num_node_shards() -> int:
     """How many shards the node axis is split over: 1 locally."""
     return 1
+
+
+def node_shard_index() -> int:
+    """Index of this shard along the node axis: 0 locally.  Strategies that
+    replicate the data (``replicate_data``) find their node slice from it."""
+    return 0
 
 
 def local_rows(x):

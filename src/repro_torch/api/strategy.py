@@ -15,24 +15,24 @@ once and runnable under every transport:
   of consensus ADMM, for ``admm_consensus``.
 
 Ported: ``Strategy``, ``FunctionStrategy``, ``GradientDescent``,
-``ProxStrategy`` and ``OptimizerStrategy``.  The per-node gradient is
-``torch.func.vmap`` over ``torch.func.grad`` (the reference's
-``jax.vmap(jax.grad(loss))``); ``OptimizerStrategy``, one logical node,
-takes its gradient with ``torch.autograd.grad`` instead, because
-``torch.func`` transforms refuse the saved-tensor hooks of the
-non-reentrant checkpointing that ``remat_policy`` turns on.  ``LBFGS``
-raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports
-it.
+``LBFGS``, ``ProxStrategy`` and ``OptimizerStrategy``; the cascade SVM and
+k-windows strategies live next to their algorithms in ``ml/``.  The
+per-node gradient is ``torch.func.vmap`` over ``torch.func.grad`` (the
+reference's ``jax.vmap(jax.grad(loss))``); ``OptimizerStrategy``, one
+logical node, takes its gradient with ``torch.autograd.grad`` instead,
+because ``torch.func`` transforms refuse the saved-tensor hooks of the
+non-reentrant checkpointing that ``remat_policy`` turns on.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import torch
 from torch.func import grad, vmap
 
 from repro_torch.api import executor as _exec
+from repro_torch.core.allreduce import server_allreduce
 from repro_torch.optim.optimizers import apply_updates
 from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_unflatten
 
@@ -44,8 +44,16 @@ class Strategy:
 
     #: messages from ``local_updates`` carry a leading node axis
     stacked_msgs: bool = True
-    #: reduction the base ``aggregate`` applies over the node axis
+    #: communication rounds charged before the loop (e.g. an initial
+    #: gradient Allreduce): the engine adds them to the ledger
+    init_rounds: int = 0
+    #: reduction the base ``aggregate`` applies over the node axis ("sum" /
+    #: "mean" / "max" / "any", the set union of boolean masks)
     aggregate_op: str = "sum"
+    #: True when every node's computation reads the whole dataset (the
+    #: cascade SVM's shared SV pool): a mesh executor would replicate the
+    #: data, and the strategy finds its nodes from ``node_shard_index``
+    replicate_data: bool = False
 
     def init_theta(self, data) -> PyTree:
         raise NotImplementedError(
@@ -115,6 +123,16 @@ class Strategy:
         raise NotImplementedError(
             f"{type(self).__name__} does not implement predict()"
         )
+
+    # -- wire-cost hooks -----------------------------------------------------
+    def uplink_bytes(self, msgs_hat: PyTree, data):
+        """Override to report a round's semantic (data-dependent) push cost;
+        None → the wire's measurement."""
+        return None
+
+    def downlink_bytes(self, theta: PyTree, data):
+        """Override a round's broadcast cost; None → K dense copies of θ."""
+        return None
 
 
 class FunctionStrategy(Strategy):
@@ -202,6 +220,124 @@ class GradientDescent(Strategy):
 
     def predict(self, theta, X):
         """Linear score X @ θ — regression values (lsq) or logits."""
+        return X @ theta
+
+
+class _LBFGSState(NamedTuple):
+    g: torch.Tensor
+    S: torch.Tensor
+    Y: torch.Tensor
+    rho: torch.Tensor
+    valid: torch.Tensor
+    it: torch.Tensor
+    theta_prop: torch.Tensor
+
+
+def _two_loop(g, S, Y, rho, valid):
+    """L-BFGS two-loop recursion over the m history rows with a validity
+    mask (the reference's two ``lax.scan``s, as loops)."""
+    m = S.shape[0]
+    q = g
+    alphas = [None] * m
+    for i in reversed(range(m)):
+        v = valid[i] > 0
+        alphas[i] = torch.where(v, rho[i] * torch.dot(S[i], q), 0.0)
+        q = q - alphas[i] * Y[i] * torch.where(v, 1.0, 0.0)
+    num = torch.sum(S * Y, dim=1)
+    den = torch.sum(Y * Y, dim=1)
+    on = valid > 0
+    gamma = torch.where(
+        torch.any(on),
+        torch.sum(torch.where(on, num, 0.0))
+        / torch.clamp_min(torch.sum(torch.where(on, den, 0.0)), 1e-12),
+        1.0,
+    )
+    r_vec = gamma * q
+    for i in range(m):
+        v = valid[i] > 0
+        beta = torch.where(v, rho[i] * torch.dot(Y[i], r_vec), 0.0)
+        r_vec = r_vec + (alphas[i] - beta) * S[i] * torch.where(v, 1.0, 0.0)
+    return r_vec
+
+
+class LBFGS(Strategy):
+    """[5]'s distributed L-BFGS: ONE gradient Allreduce per iteration; the
+    (s, y) history and the two-loop recursion run identically on every
+    node.  ``aggregate_op = "mean"``; ``init_rounds = 1`` charges the
+    initial global gradient to the ledger::
+
+        res = api.fit(api.LBFGS(lsq_loss), (Xs, ys),
+                      transport="allreduce", steps=25, device="cuda")
+        res.ledger.rounds    # steps + 1
+    """
+
+    init_rounds = 1  # the initial global gradient
+    aggregate_op = "mean"
+
+    def __init__(self, loss: Callable, *, history: int = 8, lr: float = 1.0,
+                 l2: float = 1e-4):
+        self.loss = loss
+        self.history = history
+        self.lr = lr
+        self.l2 = l2
+        self._grad_local = vmap(grad(loss), in_dims=(None, 0, 0))
+        self._loss_local = vmap(loss, in_dims=(None, 0, 0))
+
+    def init_theta(self, data):
+        Xs, _ = data
+        return torch.zeros((Xs.shape[-1],), dtype=torch.float32, device=Xs.device)
+
+    def init_state(self, theta, data):
+        Xs, ys = data
+        n, m = theta.shape[0], self.history
+        g0 = server_allreduce(self._grad_local(theta, Xs, ys), op="mean") + self.l2 * theta
+        zeros = dict(dtype=theta.dtype, device=theta.device)
+        return _LBFGSState(
+            g=g0,
+            S=torch.zeros((m, n), **zeros),
+            Y=torch.zeros((m, n), **zeros),
+            rho=torch.zeros((m,), **zeros),
+            valid=torch.zeros((m,), **zeros),
+            it=torch.zeros((), dtype=torch.int32, device=theta.device),
+            theta_prop=theta,
+        )
+
+    def local_updates(self, theta, state, data, batch):
+        Xs, ys = data
+        d = -_two_loop(state.g, state.S, state.Y, state.rho, state.valid)
+        theta_prop = theta + self.lr * d
+        return self._grad_local(theta_prop, Xs, ys), state._replace(theta_prop=theta_prop)
+
+    def apply_update(self, theta, agg, state, data):
+        theta_new = state.theta_prop
+        g_new = agg + self.l2 * theta_new
+        s = theta_new - theta
+        yv = g_new - state.g
+        sy = torch.dot(s, yv)
+        ok = sy > 1e-10  # curvature condition
+
+        def push(buf, row):
+            return torch.where(ok, torch.cat([buf[1:], row[None]]), buf)
+
+        new_state = _LBFGSState(
+            g=g_new,
+            S=push(state.S, s),
+            Y=push(state.Y, yv),
+            rho=push(state.rho, 1.0 / torch.clamp_min(sy, 1e-12)),
+            valid=push(state.valid, torch.ones((), dtype=sy.dtype, device=sy.device)),
+            it=state.it + 1,
+            theta_prop=state.theta_prop,
+        )
+        return theta_new, new_state
+
+    def round_metric(self, theta, state, data):
+        Xs, ys = data
+        return _exec.metric_mean(torch.mean(self._loss_local(theta, Xs, ys)))
+
+    def summary(self, theta, data) -> dict:
+        return {"loss": self.round_metric(theta, (), data)}
+
+    def predict(self, theta, X):
         return X @ theta
 
 
@@ -300,17 +436,3 @@ class OptimizerStrategy(Strategy):
                 "OptimizerStrategy needs predict_fn= to be served (e.g. a "
                 "closure over repro_torch.serve.ContinuousLMEngine)")
         return self.predict_fn(theta, X)
-
-
-def _not_ported(name: str, item: str):
-    class NotPorted:
-        def __init__(self, *args, **kwargs):
-            raise NotImplementedError(
-                f"{name} is not ported to repro_torch yet — ROADMAP.md {item}"
-            )
-
-    NotPorted.__name__ = NotPorted.__qualname__ = name
-    return NotPorted
-
-
-LBFGS = _not_ported("LBFGS", "queue 1, item 4 (api/strategy.py)")

@@ -82,8 +82,9 @@ def _unwrap_fault_carry(carry, faults, name):
 
 
 def _uplink_array(ups: list) -> np.ndarray:
-    """Per-round value-dependent byte counts (f32, as the reference's)."""
-    return torch.stack([torch.as_tensor(u) for u in ups]).cpu().numpy()
+    """Per-round value-dependent byte counts (f32, as the reference's), up
+    or down."""
+    return torch.stack([torch.as_tensor(u).cpu() for u in ups]).numpy()
 
 
 class ServerTransport(Transport):
@@ -245,6 +246,13 @@ class UpdateTransport(Transport):
                     "aggregate() (set fault_maskable = True only if the "
                     "override is linear)"
                 )
+            if (type(strategy).uplink_bytes is not Strategy.uplink_bytes
+                    or type(strategy).downlink_bytes is not Strategy.downlink_bytes):
+                raise ValueError(
+                    f"faults= meters survivors host-side from the plan's "
+                    f"draws; {type(strategy).__name__}'s byte-accounting "
+                    "overrides would disagree with it"
+                )
             draws = faults.draws(t0, T, K)
         straggler = 0 if faults is None else faults.straggler
         D_buf = self.staleness + straggler
@@ -260,7 +268,12 @@ class UpdateTransport(Transport):
             )
         theta_template = carry[0]
         push_bytes = wire.push_bytes(theta_template)
-        if faults is not None and push_bytes is None:
+        # static byte accounting unless the strategy prices its own pushes
+        # or broadcasts (the cascade SVM's SVs-only messages)
+        up_is_static = (type(strategy).uplink_bytes is Strategy.uplink_bytes
+                        and push_bytes is not None)
+        down_is_static = type(strategy).downlink_bytes is Strategy.downlink_bytes
+        if faults is not None and not up_is_static:
             raise ValueError(
                 f"faults= with wire {wire.name!r}: per-survivor byte "
                 "accounting needs a shape-static push cost "
@@ -279,7 +292,8 @@ class UpdateTransport(Transport):
                 fault_t, batch = xt
                 theta, sstate, wstate, delay = c
                 msgs, sstate = strategy.local_updates(theta, sstate, shard_data, batch)
-                wstate_new, msgs_hat, up = wire.encode_updates(wstate, msgs, stacked=stacked)
+                wstate_new, msgs_hat, up_wire = wire.encode_updates(
+                    wstate, msgs, stacked=stacked)
                 del msgs  # a θ-sized tree: let it go before the apply
                 if fault_t is not None and not stacked:
                     # one logical node: alive[0] gates the push and the
@@ -310,6 +324,9 @@ class UpdateTransport(Transport):
                     wstate = tree_map(_rows, wstate_new, wstate)
                 else:
                     wstate = wstate_new
+                up = strategy.uplink_bytes(msgs_hat, shard_data)
+                if up is None and not up_is_static:
+                    up = _exec.sum_bytes(up_wire)
                 agg = _exec.broadcast(strategy.aggregate(msgs_hat))
                 if straggler > 0:
                     # the round completes when its slowest LIVE node
@@ -319,6 +336,11 @@ class UpdateTransport(Transport):
                 elif D_buf > 0:
                     delay, agg = delay_push_pop(delay, agg)
                 theta_new, sstate = strategy.apply_update(theta, agg, sstate, shard_data)
+                down = None
+                if not down_is_static:
+                    down = strategy.downlink_bytes(theta_new, shard_data)
+                    if down is None:
+                        down = torch.tensor(float(K * wire.measure(theta_new)))
                 new_c = (theta_new, sstate, wstate, delay)
                 if fault_t is not None and faults.quorum is not None \
                         and live < faults.quorum:
@@ -326,7 +348,7 @@ class UpdateTransport(Transport):
                     # whole carry rolls back
                     new_c = c
                 m = strategy.round_metric(new_c[0], new_c[1], shard_data)
-                return new_c, (m, None if push_bytes is not None else _exec.sum_bytes(up))
+                return new_c, (m, up, down)
 
             return step
 
@@ -350,11 +372,14 @@ class UpdateTransport(Transport):
             )
             downs = np.where(commit, live_np, 0) * int(down_unit)
         else:
-            if push_bytes is not None:
-                ups = np.full((T,), push_bytes * K, dtype=np.int64)
+            if up_is_static:
+                ups = np.full((T,), push_bytes * (K if stacked else 1), dtype=np.int64)
             else:
                 ups = _uplink_array([y[1] for y in ys])
-            downs = np.full((T,), K * down_unit, dtype=np.int64)
+            if down_is_static:
+                downs = np.full((T,), K * down_unit, dtype=np.int64)
+            else:
+                downs = _uplink_array([y[2] for y in ys])
         out_carry = carry
         if faults is not None:
             out_carry = FaultCarry(inner=carry, next_round=t0 + T)

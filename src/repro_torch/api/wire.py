@@ -23,8 +23,18 @@ formulas, which is how ``chip_smoke.py`` shows the kernels change no bit
 of a fit.  Server transports encode through ``CompressedWire.encode_push``
 with the reference codecs, as in the JAX package.
 
-Not ported yet: ``dp:``, ``secagg`` and ``>``-chains (``ROADMAP.md``
-queue 1, item 5).
+The security wires: ``dp:<clip>,<sigma>`` clips each node's message to an
+L2 norm and adds Gaussian noise; ``secagg`` simulates pairwise-masked
+secure aggregation (the aggregate is the unmasked sum by construction,
+``uplink_payloads`` shows what each uplink carries); ``"a>b"`` chains
+stages left to right (``"dp:1.0,0.5>topk:0.1+ef"``), so a chained top-k or
+int8 stage still runs its kernels.  Their noise and masks are drawn from a
+``torch.Generator`` on the message's device seeded by ``_stream_seed`` of
+(seed, round counter, global node index, leaf index): the same invariants
+as the reference's ``fold_in`` chain (one fixed function of those four, so
+placement- and occupancy-invariant), not its bits.  The per-node round
+counters are int32 tensors on the host, so seeding a draw never waits for
+the card.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ from __future__ import annotations
 from functools import partial
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from repro_torch.core.compression import (
@@ -69,6 +80,10 @@ class Wire:
     name = "dense"
     #: True when encode is the identity (no information loss)
     lossless = True
+    #: True when this wire re-encodes a payload without changing its size
+    #: (secure aggregation masks): a ``ChainWire`` then keeps the previous
+    #: stage's byte count
+    preserves_bytes = False
 
     def init_state(self, theta: PyTree, num_nodes: int, *, stacked: bool = True):
         """Per-run wire state (e.g. error-feedback residuals); () if none."""
@@ -330,23 +345,281 @@ class Int8Wire(_FusedWire):
         return float(sum(x.numel() * 1 + 4 for x in tree_leaves(tree)))
 
 
-_NOT_PORTED = "ROADMAP.md queue 1, item 5 (ChainWire, SecAggWire, DPWire)"
+_MASK64 = (1 << 64) - 1
+
+
+def _splitmix64(h: int) -> int:
+    h = (h + 0x9E3779B97F4A7C15) & _MASK64
+    h = ((h ^ (h >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    h = ((h ^ (h >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return h ^ (h >> 31)
+
+
+def _stream_seed(*words: int) -> int:
+    """The 64-bit seed of one noise or mask draw: SplitMix64 folded over
+    the words (h ← splitmix64(h ⊕ w), from h = 0), e.g. (wire seed, round
+    counter, global node index, leaf index).  A fixed function of the
+    words alone, so a node's stream does not depend on where it runs or
+    on which other nodes are alive."""
+    h = 0
+    for w in words:
+        h = _splitmix64(h ^ (int(w) & _MASK64))
+    return h
+
+
+def _normal(shape, device, *words: int) -> torch.Tensor:
+    """Standard normal f32 draws of ``shape`` on ``device`` from the stream
+    ``_stream_seed(*words)``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(_stream_seed(*words))
+    return torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+
+
+def _counters(num_nodes: int, stacked: bool) -> torch.Tensor:
+    # host-side int32 round counters: reading one to seed a draw needs no
+    # device sync
+    if stacked:
+        return torch.zeros((num_nodes,), dtype=torch.int32)
+    return torch.zeros((), dtype=torch.int32)
+
+
+class DPWire(Wire):
+    """Differentially-private uplink: per-node L2 clip + Gaussian noise.
+
+    Each node's whole-tree message is scaled to L2 norm ≤ ``dp_clip`` and
+    perturbed with N(0, (dp_sigma · dp_clip)²) noise per coordinate before
+    it leaves the node.  The draw for node k at round t is one fixed
+    function of (seed, t, global k, leaf): placement-invariant, and a dead
+    row under a ``FaultPlan`` shifts no other node's stream.  The payload
+    is dense, so the ledger meters dense bytes; chain a sparsifier to trade
+    bytes too::
+
+        api.fit(strategy, data, transport="allreduce", steps=20,
+                wire="dp:1.0,0.01>topk:0.1+ef", device="cuda")
+    """
+
+    lossless = False
+
+    def __init__(self, clip: float, sigma: float, *, seed: int = 0):
+        if float(clip) <= 0.0:
+            raise ValueError(f"dp clip must be > 0, got {clip}")
+        if float(sigma) < 0.0:
+            raise ValueError(f"dp sigma must be >= 0, got {sigma}")
+        self.dp_clip = float(clip)
+        self.dp_sigma = float(sigma)
+        self.seed = int(seed)
+        self.name = f"dp:{self.dp_clip},{self.dp_sigma}"
+
+    def init_state(self, theta, num_nodes, *, stacked: bool = True):
+        # per-node round counters: where each node is in its noise stream
+        return _counters(num_nodes, stacked)
+
+    def _privatize(self, leaves: list, cnts: list, gidx: list) -> list:
+        """Clip + noise the rows of ``leaves`` (each (R, …), row r one
+        node's leaf), row r with counter ``cnts[r]`` and global index
+        ``gidx[r]``."""
+        R = leaves[0].shape[0]
+        sq = sum(torch.sum(torch.square(x.float()).reshape(R, -1), dim=1) for x in leaves)
+        nrm = torch.sqrt(sq)
+        # clip and σ·clip as the reference's f32 scalars, passed as kernel
+        # arguments: a tensor made from them would be a host-to-device
+        # copy, which waits for the card every round
+        clip = float(np.float32(self.dp_clip))
+        noise_scale = float(np.float32(self.dp_sigma) * np.float32(self.dp_clip))
+        # a true divide (``scalar / tensor`` is a reciprocal and a multiply)
+        scale = torch.clamp(torch.full_like(nrm, clip) / torch.clamp_min(nrm, 1e-12), max=1.0)
+        out = []
+        for i, x in enumerate(leaves):
+            shape = tuple(x.shape[1:])
+            noise = torch.stack([
+                _normal(shape, x.device, self.seed, cnts[r], gidx[r], i) for r in range(R)
+            ])
+            s = scale.reshape((R,) + (1,) * len(shape))
+            y = x.float() * s + noise_scale * noise
+            out.append(y.to(x.dtype))
+        return out
+
+    def encode_push(self, wstate, k, theta_start, theta_new):
+        delta = tree_sub(theta_new, theta_start)
+        leaves, spec = tree_flatten(delta)
+        kg = int(_node_global_index(k))
+        priv = self._privatize([x[None] for x in leaves], [int(wstate[k])], [kg])
+        theta_push = tree_add(theta_start, tree_unflatten([p[0] for p in priv], spec))
+        wstate = wstate.clone()
+        wstate[k] += 1
+        return wstate, theta_push, torch.tensor(float(self.measure(theta_new)))
+
+    def encode_updates(self, wstate, msgs, *, stacked: bool = True):
+        nb = torch.tensor(float(tree_bytes(msgs)))
+        leaves, spec = tree_flatten(msgs)
+        if not stacked:
+            priv = self._privatize([x[None] for x in leaves], [int(wstate)],
+                                   [int(_node_global_index(0))])
+            return wstate + 1, tree_unflatten([p[0] for p in priv], spec), nb
+        K = leaves[0].shape[0]
+        gidx = [int(_node_global_index(k)) for k in range(K)]
+        priv = self._privatize(leaves, wstate.tolist(), gidx)
+        return wstate + 1, tree_unflatten(priv, spec), nb
+
+
+class SecAggWire(Wire):
+    """Secure-aggregation simulation: pairwise antisymmetric uplink masks.
+
+    Nodes g < j share a seeded pairwise mask m_gj (stream (seed, g's round
+    counter, g, j, leaf)); node g uploads x_g + Σ_{j>g} m_gj − Σ_{j<g} m_jg,
+    and the masks cancel in the sum.  Floating-point sums cannot cancel
+    exactly, so ``encode_updates`` hands the aggregate the unmasked
+    messages (bitwise equal to the dense wire by construction, as the
+    real protocol's modular arithmetic is exact) and meters the dense
+    payload; ``uplink_payloads`` builds what each uplink carries.  Under a
+    ``FaultPlan`` a dropped node's counter freezes, and masks between
+    nodes whose counters diverged no longer cancel — secure aggregation's
+    dropout problem, shown rather than hidden::
+
+        api.fit(strategy, data, transport="allreduce", steps=20,
+                wire="topk:0.1+ef>secagg", device="cuda")
+    """
+
+    lossless = True
+    preserves_bytes = True
+
+    def __init__(self, *, seed: int = 0):
+        self.seed = int(seed)
+        self.name = "secagg"
+
+    def init_state(self, theta, num_nodes, *, stacked: bool = True):
+        return _counters(num_nodes, stacked)
+
+    def _masked(self, leaves: list, cnts: list, gidx: list, num_global: int) -> list:
+        """Rows r of ``leaves`` plus node ``gidx[r]``'s pairwise masks, each
+        mask drawn once per (counter, pair, leaf)."""
+        R = leaves[0].shape[0]
+        out = []
+        for i, x in enumerate(leaves):
+            shape = tuple(x.shape[1:])
+            draws: dict = {}
+            rows = []
+            for r in range(R):
+                g = gidx[r]
+                total = torch.zeros(shape, dtype=torch.float32, device=x.device)
+                for j in range(num_global):
+                    if j == g:
+                        continue
+                    key = (cnts[r], min(g, j), max(g, j))
+                    if key not in draws:
+                        draws[key] = _normal(shape, x.device, self.seed, *key, i)
+                    total = total + draws[key] if g < j else total - draws[key]
+                rows.append((x[r].float() + total).to(x.dtype))
+            out.append(torch.stack(rows))
+        return out
+
+    def uplink_payloads(self, wstate, msgs, *, stacked: bool = True):
+        """What each uplink carries at the current round counter: message +
+        pairwise masks, as large as the message."""
+        leaves, spec = tree_flatten(msgs)
+        if not stacked:
+            pay = self._masked([x[None] for x in leaves], [int(wstate)], [0], 1)
+            return tree_unflatten([p[0] for p in pay], spec)
+        K = leaves[0].shape[0]
+        num_global = K * _num_node_shards()
+        gidx = [int(_node_global_index(k)) for k in range(K)]
+        return tree_unflatten(self._masked(leaves, wstate.tolist(), gidx, num_global), spec)
+
+    def encode_push(self, wstate, k, theta_start, theta_new):
+        raise NotImplementedError(
+            "secagg masks only cancel inside an aggregate — use an update "
+            "transport (allreduce/delay line); a §5 server contact has "
+            "nothing to cancel against"
+        )
+
+    def encode_updates(self, wstate, msgs, *, stacked: bool = True):
+        # the aggregate sees the unmasked messages (exact cancellation);
+        # the wire carries the masked payload, dense-sized, metered here
+        return wstate + 1, msgs, torch.tensor(float(tree_bytes(msgs)))
+
+
+class ChainWire(Wire):
+    """Wire stages applied left to right (``"a>b"``): ``"dp:1.0,0.5>topk:0.1+ef"``
+    privatizes, then sparsifies the private message (EF recycles only
+    noised residue); ``"topk:0.1+ef>secagg"`` sparsifies, then masks the
+    compressed payload.  Each stage re-prices the payload except
+    ``preserves_bytes`` stages (secagg), which keep the previous count::
+
+        wire = api.make_wire("dp:1.0,0.5>topk:0.1+ef")
+        wire.stages          # (DPWire, TopKWire)
+    """
+
+    def __init__(self, stages):
+        stages = tuple(stages)
+        if len(stages) < 2:
+            raise ValueError("a wire chain needs at least two stages")
+        for s in stages:
+            if isinstance(s, ChainWire):
+                raise ValueError("wire chains do not nest")
+        self.stages = stages
+        self.name = ">".join(s.name for s in stages)
+        self.lossless = all(s.lossless for s in stages)
+        self.preserves_bytes = all(s.preserves_bytes for s in stages)
+
+    def init_state(self, theta, num_nodes, *, stacked: bool = True):
+        return tuple(s.init_state(theta, num_nodes, stacked=stacked) for s in self.stages)
+
+    def push_bytes(self, theta):
+        pb: int | None = self.measure(theta)
+        for s in self.stages:
+            if not s.preserves_bytes:
+                pb = s.push_bytes(theta)  # None propagates: value-dependent
+        return pb
+
+    def encode_push(self, wstate, k, theta_start, theta_new):
+        new_states = []
+        theta, nb = theta_new, torch.tensor(float(self.measure(theta_new)))
+        for s, st in zip(self.stages, wstate):
+            st, theta, b = s.encode_push(st, k, theta_start, theta)
+            new_states.append(st)
+            if not s.preserves_bytes:
+                nb = b
+        return tuple(new_states), theta, nb
+
+    def encode_updates(self, wstate, msgs, *, stacked: bool = True):
+        new_states = []
+        nb = torch.tensor(float(tree_bytes(msgs)))
+        for s, st in zip(self.stages, wstate):
+            st, msgs, b = s.encode_updates(st, msgs, stacked=stacked)
+            new_states.append(st)
+            if not s.preserves_bytes:
+                nb = b
+        return tuple(new_states), msgs, nb
+
+
+def _node_global_index(k_local):
+    # late-bound: the executor module imports nothing from here, but the
+    # edge stays one-way at import time
+    from repro_torch.api.executor import node_global_index
+
+    return node_global_index(k_local)
+
+
+def _num_node_shards() -> int:
+    from repro_torch.api.executor import num_node_shards
+
+    return num_node_shards()
 
 
 def make_wire(spec: str | Wire | None) -> Wire:
     """Resolve a wire spec: a ``Wire``, ``None``/``"dense"``, or
-    ``"<codec>[+ef]"`` with codecs ``topk:<fraction>``, ``thresh:<tau>``
-    and ``int8`` — e.g. ``"topk:0.05+ef"``."""
+    ``"<codec>[+ef]"`` with codecs ``topk:<fraction>``, ``thresh:<tau>``,
+    ``int8``, ``dp:<clip>,<sigma>`` and ``secagg`` — e.g.
+    ``"topk:0.05+ef"``; stages compose left to right with ``>``:
+    ``"dp:1.0,0.5>topk:0.1+ef"``."""
     if spec is None:
         return DenseWire()
     if isinstance(spec, Wire):
         return spec
     if not isinstance(spec, str):
         raise TypeError(f"wire spec must be a Wire or str, got {type(spec)!r}")
-    if ">" in spec or spec.startswith(("dp:", "secagg")):
-        raise NotImplementedError(
-            f"wire {spec!r} is not ported to repro_torch yet — {_NOT_PORTED}"
-        )
+    if ">" in spec:
+        return ChainWire([make_wire(part) for part in spec.split(">")])
     if spec == "dense":
         return DenseWire()
     ef = spec.endswith("+ef")
@@ -357,7 +630,22 @@ def make_wire(spec: str | Wire | None) -> Wire:
         return TopKWire(float(base.split(":", 1)[1]), error_feedback=ef)
     if base == "int8":
         return Int8Wire(error_feedback=ef)
+    if base.startswith("dp:"):
+        if ef:
+            raise ValueError(
+                "dp takes no +ef (noise is not a compression residual); "
+                "chain it with a sparsifier instead: 'dp:<c>,<s>>topk:<f>+ef'"
+            )
+        parts = base.split(":", 1)[1].split(",")
+        if len(parts) != 2:
+            raise ValueError(f"dp wire spec must be 'dp:<clip>,<sigma>', got {spec!r}")
+        return DPWire(float(parts[0]), float(parts[1]))
+    if base == "secagg":
+        if ef:
+            raise ValueError("secagg takes no +ef (masking is lossless)")
+        return SecAggWire()
     raise ValueError(
         f"unknown wire spec {spec!r} — expected 'dense', 'topk:<f>[+ef]', "
-        "'thresh:<tau>[+ef]' or 'int8[+ef]'"
+        "'thresh:<tau>[+ef]', 'int8[+ef]', 'dp:<clip>,<sigma>', 'secagg', "
+        "or a '>'-chain of those"
     )

@@ -1155,3 +1155,179 @@ def test_encode_of_real_gradient_leaves_is_the_plain_version(cuda):
     for (path, a), b in zip(torch.utils._pytree.tree_flatten_with_path(grads)[0], by_select):
         if getattr(path[0], "key", None) == "seg0":
             assert torch.equal(a, b), path
+
+
+def _fit_problem(cuda, K=8, N=200, D=2000, task="classification"):
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    Xs = torch.randn((K, N, D), generator=gen, device=cuda) / D ** 0.5
+    w = torch.randn((D,), generator=gen, device=cuda)
+    ys = Xs @ w
+    if task == "classification":
+        ys = torch.where(ys >= 0, 1.0, -1.0)
+    return Xs, ys
+
+
+@pytest.mark.cuda
+def test_dp_wire_statistics_on_the_card(cuda):
+    """σ = 0: each row's norm is min(‖m‖, clip) to rtol 1e-4
+    (tests/test_property.py:262); zero messages: the noise drawn on the
+    card has std within 5 % of σ·clip and |mean| < 0.05
+    (tests/test_faults.py ``test_noise_scale_statistical``); the same
+    counters give the same draws, advanced ones new draws; the draw on the
+    card is a function of the counters alone, as on the CPU."""
+    from repro_torch import api
+    from repro_torch.api import wire as W
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    msgs = torch.randn((16, 2000), generator=gen, device=cuda)
+    msgs = msgs * torch.logspace(-3, 0, 16, device=cuda)[:, None]
+    wi = api.DPWire(1.0, 0.0)
+    _, hat, _ = wi.encode_updates(wi.init_state(msgs[0], 16), msgs)
+    want = torch.clamp(torch.linalg.norm(msgs, dim=1), max=1.0)
+    torch.testing.assert_close(torch.linalg.norm(hat, dim=1), want, rtol=1e-4, atol=0)
+    wi = api.DPWire(2.0, 0.5, seed=5)
+    zeros = torch.zeros((16, 2000), device=cuda)
+    st = wi.init_state(zeros[0], 16)
+    st1, a, _ = wi.encode_updates(st, zeros)
+    assert a.device.type == "cuda" and st.device.type == "cpu"
+    assert abs(float(a.std()) - 1.0) <= 0.05 and abs(float(a.mean())) < 0.05
+    _, a2, _ = wi.encode_updates(st, zeros)
+    _, b, _ = wi.encode_updates(st1, zeros)
+    assert torch.equal(a, a2) and not torch.equal(a, b)
+    assert torch.equal(a[3], 0.5 * 2.0 * W._normal((2000,), a.device, 5, 0, 3, 0))
+
+
+@pytest.mark.cuda
+def test_secagg_payloads_on_the_card(cuda):
+    """Every payload differs from its message; the sum recovers the
+    aggregate to rtol = atol = 1e-3 (tests/test_property.py:241)."""
+    from repro_torch import api
+
+    raw = torch.randn((16, 2000), generator=torch.Generator(device=cuda).manual_seed(4),
+                      device=cuda)
+    sa = api.SecAggWire()
+    pay = sa.uplink_payloads(sa.init_state(raw[0], 16), raw)
+    assert pay.device.type == "cuda"
+    for k in range(16):
+        assert not torch.allclose(pay[k], raw[k], atol=1e-3)
+    torch.testing.assert_close(pay.sum(0), raw.sum(0), rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire, base, expect", [
+    ("topk:0.01>secagg", "topk:0.01", {"topk_select": 4}),
+    ("topk:0.01+ef>secagg", "topk:0.01+ef", {"topk_encode": 4}),
+    ("int8+ef>secagg", "int8+ef", {"int8_absmax": 4, "int8_quant": 4}),
+])
+def test_secagg_chain_fit_bitwise_its_first_stage(cuda, wire, base, expect):
+    """A chain ending in secagg launches its first stage's kernels once a
+    round and is bitwise that stage's fit (θ, trajectory, ledger)."""
+    from repro_torch import api
+    from repro_torch.ml.linear import logistic_loss
+
+    data = _fit_problem(cuda)
+    runs = {}
+    for spec in (wire, base):
+        before = dict(kernels.LAUNCHES)
+        runs[spec] = api.fit(api.GradientDescent(logistic_loss, lr=1.0), data,
+                             transport="allreduce", wire=spec, steps=4, device="cuda")
+        torch.cuda.synchronize()
+        delta = {n: kernels.LAUNCHES[n] - before[n] for n in kernels.KERNEL_NAMES}
+        assert delta == {n: expect.get(n, 0) for n in kernels.KERNEL_NAMES}
+    a, b = runs[wire], runs[base]
+    assert same_bits(a.theta, b.theta) and same_bits(a.trajectory, b.trajectory)
+    assert a.ledger.summary() == b.ledger.summary()
+
+
+@pytest.mark.cuda
+def test_dp_chain_drives_the_encode_kernel(cuda):
+    """``dp:c,0>topk:f+ef`` on the card: one encode launch a round, and the
+    fit bitwise the same chain with the top-k stage on the reference codec
+    (the kernel changes no bit after the privatization)."""
+    from repro_torch import api
+    from repro_torch.ml.linear import logistic_loss
+
+    data = _fit_problem(cuda)
+    runs = {}
+    for use in (True, False):
+        chain = api.ChainWire([api.DPWire(0.05, 0.0),
+                               api.TopKWire(0.01, error_feedback=True, use_kernel=use)])
+        before = kernels.LAUNCHES["topk_encode"]
+        runs[use] = api.fit(api.GradientDescent(logistic_loss, lr=1.0), data,
+                            transport="allreduce", wire=chain, steps=5, device="cuda")
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["topk_encode"] - before == (5 if use else 0)
+    assert same_bits(runs[True].theta, runs[False].theta)
+    assert same_bits(runs[True].trajectory, runs[False].trajectory)
+
+
+@pytest.mark.cuda
+def test_lbfgs_on_the_card_matches_the_cpu(cuda):
+    """``LBFGS`` × allreduce on the card against the same fit on the CPU:
+    the trajectory to rtol 1e-4 / atol 1e-5 (cuBLAS and the CPU sum in
+    other orders, which L-BFGS's curvature pairs magnify: ROADMAP queue 3,
+    item 15), the ledger exactly (steps + 1 rounds)."""
+    from repro_torch import api
+    from repro_torch.ml.linear import lsq_loss
+
+    Xs, ys = _fit_problem(cuda, K=4, N=100, D=500, task="regression")
+    on = api.fit(api.LBFGS(lsq_loss), (Xs, ys), transport="allreduce", steps=10,
+                 device="cuda")
+    off = api.fit(api.LBFGS(lsq_loss), (Xs.cpu(), ys.cpu()), transport="allreduce",
+                  steps=10, device="cpu")
+    torch.testing.assert_close(on.trajectory.cpu(), off.trajectory, rtol=1e-4, atol=1e-5)
+    assert on.ledger.summary() == off.ledger.summary() and on.ledger.rounds == 11
+
+
+@pytest.mark.cuda
+def test_private_second_order_on_the_card(cuda):
+    """θ within rtol 1e-4 (atol 1e-4 of its largest element) of a float64
+    solve on the card; the ledger K·(n² + n) numbers up, n down."""
+    from repro_torch.ml.linear import private_second_order
+
+    Xs, ys = _fit_problem(cuda, K=16, N=3000, D=500, task="regression")
+    theta, ledger = private_second_order(Xs, ys, device="cuda")
+    W = torch.einsum("kni,knj->ij", Xs.double(), Xs.double())
+    V = torch.einsum("kni,kn->i", Xs.double(), ys.double())
+    th64 = torch.linalg.solve(W, V)
+    torch.testing.assert_close(theta.double(), th64, rtol=1e-4,
+                               atol=1e-4 * float(th64.abs().max()))
+    assert ledger.uplink_bytes == 16 * (500 * 500 + 500) * 4 and ledger.downlink_bytes == 2000
+
+
+@pytest.mark.cuda
+def test_ml_families_run_on_the_card(cuda):
+    """The cascade SVM, the GP experts and consensus MPLE on the card at a
+    small size: the cascade's SVs inside its pushed union and its decision
+    signs above chance; the GP expert means within 0.12 of the exact GP
+    (tests/test_gp.py:82); the MPLE support F1 above 0.95
+    (tests/test_sparse_gp_graphical.py:97)."""
+    from repro_torch import api
+    from repro_torch.ml import gp, graphical, svm
+
+    Xs, ys = _fit_problem(cuda, K=4, N=100, D=50)
+    res = api.fit(svm.CascadeStrategy(), (Xs, ys), transport="allreduce", steps=3,
+                  device="cuda")
+    _, pushed = res.metrics["carry"][1]
+    assert not bool((res.theta.sv_mask & ~pushed).any())
+    acc = (torch.sign(svm.decision_function(res.theta, Xs.reshape(-1, 50))) == ys.reshape(-1))
+    assert float(acc.float().mean()) > 0.5
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    X = torch.rand((256, 1), generator=gen, device=cuda) * 6 - 3
+    y = torch.sin(X[:, 0]) + 0.05 * torch.randn((256,), generator=gen, device=cuda)
+    Xq = torch.linspace(-2.5, 2.5, 12, device=cuda)[:, None]
+    hyp = gp.fit_hypers_distributed(X.reshape(4, 64, 1), y.reshape(4, 64), steps=20,
+                                    device="cuda")
+    mu_full, _ = gp.gp_posterior(hyp, X, y, Xq)
+    preds = gp.expert_predictions(hyp, X.reshape(4, 64, 1), y.reshape(4, 64), Xq)
+    for mu, _ in (gp.poe(preds), gp.gpoe(preds), gp.bcm(preds, gp.prior_variance(hyp, Xq))):
+        assert float(torch.sqrt(torch.mean((mu - mu_full) ** 2))) < 0.12
+
+    Theta = torch.eye(6, device=cuda) * 1.5
+    idx = torch.arange(5, device=cuda)
+    Theta[idx, idx + 1] = Theta[idx + 1, idx] = 0.5
+    Xm = graphical.sample_gmrf(torch.Generator(device=cuda).manual_seed(0), Theta, 2000)
+    Th, _ = graphical.mple_consensus(Xm.reshape(4, 500, 6), iters=30, inner_iters=30,
+                                     device="cuda")
+    assert float(graphical.support_f1(Th, Theta)) > 0.95
