@@ -20,7 +20,8 @@
    turns with a device copy of the rows, beside the first design's
    recorded times (one atomic a warp, behind a zero fill); absmax in turns
    with ``vector_norm(x, inf, dim=1)``; quant-dequant the median of 20
-   replays of a CUDA graph of the launches.
+   replays of a CUDA graph of the launches; all four also at the
+   executors phase's (8 × 16, 2000) rows.
 3. Main path: ``repro_torch.api.fit`` with ``GradientDescent(logistic_loss)``
    on the local executor at the shape of the dense PASCAL "epsilon" set
    (400,000 × 2,000 f32, K = 16 nodes of 25,000 rows; synthetic, made on
@@ -53,6 +54,22 @@
    inducing points inside the exact GP's 2σ predictive band) and
    consensus MPLE (a 50-variable chain GMRF, 16 × 5,000 samples: support
    F1 above 0.95, the primal residual shrinking).
+   The executors phase, on the same data: (i) ``executor="sweep"`` over 8
+   learning rates × allreduce × ``topk:0.01+ef`` (the encode kernel 20
+   times for the 8 × 20 scenario-rounds), scenario-rounds/s beside run
+   (a)'s rounds/s, and 5 rounds of each under the profiler (device time
+   against wall); (ii) a staleness sweep D ∈ {0, 1, 2, 3} × delay_line ×
+   ``topk:0.01`` (the select kernel 20 times); (iii) a dropout sweep p ∈
+   {0, 0.2, 0.5} × a ``FaultPlan`` (a straggler lag, a quorum of 10) ×
+   ``int8+ef`` (absmax and quant 20 times each).  Each sweep: kernel on ≡
+   off bitwise, every scenario's ledger its solo fit's, the same sweep
+   over the dense wire within rtol 1e-6 / atol 1e-7 of its solo fits, and
+   the kernel wire's θ gap to its solo fits with the first round apart
+   (a swapped survivor or the next quantum: ROADMAP queue 3, item 18).
+   Then over NCCL on a world of one: (iv) the mesh on run (a)'s spec,
+   bitwise run (a); (v) multipod on a (1, 1) mesh, bitwise (iv), its
+   ``by_hop`` split summing to the total; (vi) ``mesh+sweep`` of (i)'s 8
+   learning rates, bitwise (i).
 4. Decode-attention kernel phase: the kernels (split over S, then the
    merge) against their plain version (``decode_attention_plain``) in f32
    and bf16 at the JAX package's test shapes, the serving shape (B 16, S
@@ -185,8 +202,9 @@
    state's size; and one more forward + backward under the profiler,
    its device time by kind of kernel.
 12. Prints the redesigned kernels' times in turns, one JSON line of
-   per-kernel numbers (thirteen kernels; ``topk_encode``'s launches count
-   the training path's too), the card's name and power limit, and last
+   per-kernel numbers (thirteen kernels; the wire kernels' launches count
+   the executors phase's and ``topk_encode``'s the training path's too),
+   the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
 No earlier phase is cut to make room for 8–11.
@@ -406,7 +424,7 @@ def encode_timings(torch, x, t, inner: int, label: str) -> dict:
             "plain_ms": graph_ms(torch, lambda w=with_res: tkr.encode_threshold_ref(
                 x, t, with_residual=w), inner=max(1, inner // 5), reps=5),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "shape": [rows, n],
-            "first_design_ms_recorded": EARLIER_ENCODE_MS[(f"topk_{name}", label)]}
+            "first_design_ms_recorded": EARLIER_ENCODE_MS.get((f"topk_{name}", label))}
     return out
 
 
@@ -492,9 +510,11 @@ def kernel_phase(torch):
         print(f"absmax edge rows {shape}: bitwise equal ({m[:5].tolist()})", flush=True)
     print(f"kernel phase: {checked} comparisons, all bitwise equal", flush=True)
 
-    # times at the main path's shape (one θ leaf of D for K nodes) and at 2^24
+    # times at the main path's shape (one θ leaf of D for K nodes), at the
+    # executors phase's sweep of 8 scenarios (S·K rows) and at 2^24
     timings = {}
-    for label, shape, inner in (("main", (K, D), 50), ("2^24", (1, 1 << 24), 10)):
+    for label, shape, inner in (("main", (K, D), 50), ("sweep", (8 * K, D), 50),
+                                ("2^24", (1, 1 << 24), 10)):
         rows, n = shape
         x = torch.randn(shape, generator=gen, device="cuda")
         k = max(1, int(round(TOPK_F * n)))
@@ -574,12 +594,11 @@ def make_epsilon_shaped(torch, seed: int):
     return Xs, ys
 
 
-def main_path(torch):
+def main_path(torch, data):
     from repro_torch import api, kernels
     from repro_torch.core import schedules
     from repro_torch.ml.linear import logistic_loss
 
-    data = make_epsilon_shaped(torch, 0)
     strategy = api.GradientDescent(logistic_loss, lr=1.0)
     loss0 = float(strategy.summary(strategy.init_theta(data), data)["loss"])
     print(f"data {tuple(data[0].shape)} f32 on the card "
@@ -627,7 +646,7 @@ def main_path(torch):
         torch.cuda.synchronize()
         print(f"warm-up fit of run {label} (1 round): {time.perf_counter() - t0:.4f} s",
               flush=True)
-    results = {}
+    results, walls = {}, {}
     kernels.reset_launches()
     for tag, spec in runs.items():
         spec = dict(spec)
@@ -653,6 +672,7 @@ def main_path(torch):
                   f"run {tag}: not bitwise run {base} (θ, trajectory, ledger)")
         rounds = STEPS if tag != "d" else STEPS * K
         results[tag] = res
+        walls[tag] = wall
         note = (f" (run {beside}: {float(results[beside].metrics['loss']):.6f})"
                 if beside else "") + (f", bitwise run {base} (θ, trajectory, ledger)"
                                       if base else "")
@@ -678,7 +698,7 @@ def main_path(torch):
               f"run {tag}: ledger differs with use_kernel=False")
         print(f"run {tag}: use_kernel on ≡ off, bitwise (θ, trajectory, ledger)", flush=True)
     lbfgs_run(torch, data, strategy, loss0)
-    return dict(kernels.LAUNCHES)
+    return dict(kernels.LAUNCHES), {"res": results["a"], "rounds_per_s": STEPS / walls["a"]}
 
 
 def timed_fit(torch, api, kernels, strategy, data, **spec):
@@ -687,7 +707,7 @@ def timed_fit(torch, api, kernels, strategy, data, **spec):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = api.fit(strategy, data, executor="local", device="cuda", **spec)
+    res = api.fit(strategy, data, device="cuda", **{"executor": "local", **spec})
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     delta = {n: kernels.LAUNCHES[n] - before[n] for n in kernels.KERNEL_NAMES}
@@ -700,6 +720,229 @@ def same_fit(torch, a, b) -> bool:
             and torch.equal(a.trajectory.view(torch.int32), b.trajectory.view(torch.int32))
             and a.ledger.summary() == b.ledger.summary()
             and a.ledger.events == b.ledger.events)
+
+
+#: the executors phase: 8 learning rates around run (a)'s, 4 staleness
+#: levels, 3 dropout rates
+SWEEP_LRS = (0.25, 0.5, 0.75, 1.0, 1.25, 1.5, 2.0, 3.0)
+SWEEP_DS = (0, 1, 2, 3)
+SWEEP_PS = (0.0, 0.2, 0.5)
+S_RTOL, S_ATOL = 1e-6, 1e-7  # sweep ≡ solo fits, the reference's tolerance
+
+
+def swept_vs_solo(torch, what, res, solos):
+    """Each scenario of ``res`` against its solo fit: θ and trajectory at
+    rtol 1e-6 / atol 1e-7, ledgers exact.  Returns the largest |Δθ|."""
+    gap = 0.0
+    for i, solo in enumerate(solos):
+        for a, b, name in ((res.theta[i], solo.theta, "θ"),
+                           (res.trajectory[i], solo.trajectory, "trajectory")):
+            check(bool(torch.isfinite(a).all()), f"{what} scenario {i}: {name} not finite")
+            check(torch.allclose(a, b, rtol=S_RTOL, atol=S_ATOL),
+                  f"{what} scenario {i}: {name} off its solo fit by "
+                  f"{float((a - b).abs().max())}")
+        gap = max(gap, float((res.theta[i] - solo.theta).abs().max()))
+        check(res.ledger[i].summary() == solo.ledger.summary(),
+              f"{what} scenario {i}: ledger differs from its solo fit")
+    return gap
+
+
+def same_sweep(torch, x, y) -> bool:
+    """θ, trajectory and every scenario's ledger of two sweeps bit for bit."""
+    return (torch.equal(x.theta.view(torch.int32), y.theta.view(torch.int32))
+            and torch.equal(x.trajectory.view(torch.int32), y.trajectory.view(torch.int32))
+            and [led.summary() for led in x.ledger] == [led.summary() for led in y.ledger])
+
+
+def executors_phase(torch, data, run_a):
+    """The executors beyond local on the main path's data: (i) a sweep of 8
+    learning rates × allreduce × topk:0.01+ef (the encode kernel once a
+    round for all 8), (ii) a staleness sweep × delay_line × topk:0.01 (the
+    select kernel), (iii) a dropout sweep × a FaultPlan × int8+ef (absmax
+    and quant).  Each sweep: kernel on ≡ off bitwise, every scenario's
+    ledger its solo fit's, the same sweep over the dense wire held to its
+    solo fits at rtol 1e-6 / atol 1e-7, and the kernel wire's gap to its
+    solo fits reported (a selecting or rounding wire turns the batched
+    products' last-bit differences into a swapped survivor or the next
+    quantum: ROADMAP queue 3, items 13 and 18).  Then over NCCL on a world
+    of one: (iv) the mesh on run (a), (v) multipod on a (1, 1) mesh, (vi)
+    mesh+sweep, bitwise (i).  Returns the launches of the counted runs and a
+    summary."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import api, kernels
+    from repro_torch.ml.linear import logistic_loss
+
+    def gd(lr=1.0):
+        return api.GradientDescent(logistic_loss, lr=lr)
+
+    total = dict.fromkeys(kernels.KERNEL_NAMES, 0)
+    out = {}
+
+    def run(tag, expect, **spec):
+        kernels.reset_launches()
+        res, wall, delta, peak = timed_fit(torch, api, kernels, gd(), data, **spec)
+        want = {n: expect.get(n, 0) for n in kernels.KERNEL_NAMES}
+        check(delta == want, f"run {tag}: launches {delta}, expected {want}")
+        for n in kernels.KERNEL_NAMES:
+            total[n] += delta[n]
+        return res, wall, peak, delta
+
+    def sweep_checks(tag, res, spec, off_wire, solo_specs):
+        """The counted sweep ``res`` of ``spec``: on ≡ off, ledgers, the
+        dense twin at the sweep tolerance, the wire's gap."""
+        off = api.fit(gd(), data, device="cuda", **dict(spec, wire=off_wire))
+        check(same_sweep(torch, res, off), f"run {tag}: use_kernel on ≢ off under the sweep")
+        solos = [api.fit(gd(sp.pop("lr", 1.0)), data, device="cuda", **sp)
+                 for sp in (dict(x, wire=spec["wire"]) for x in solo_specs)]
+        for i, solo in enumerate(solos):
+            check(bool(torch.isfinite(res.theta[i]).all()), f"run {tag} scenario {i}: not finite")
+            check(res.ledger[i].summary() == solo.ledger.summary(),
+                  f"run {tag} scenario {i}: ledger differs from its solo fit")
+        gaps = [float((res.theta[i] - s.theta).abs().max()) for i, s in enumerate(solos)]
+        within = sum(bool(torch.allclose(res.theta[i], s.theta, rtol=S_RTOL, atol=S_ATOL))
+                     for i, s in enumerate(solos))
+        # the first round whose metric leaves the solo fit's (None: none does)
+        apart = []
+        for i, s in enumerate(solos):
+            off_rounds = (~torch.isclose(res.trajectory[i], s.trajectory, rtol=S_RTOL,
+                                         atol=S_ATOL)).nonzero()
+            apart.append(int(off_rounds[0]) if len(off_rounds) else None)
+        dense = api.fit(gd(), data, device="cuda", **dict(spec, wire="dense"))
+        dense_gap = swept_vs_solo(torch, f"run {tag} (dense)", dense, [
+            api.fit(gd(sp.pop("lr", 1.0)), data, device="cuda", **sp)
+            for sp in (dict(x, wire="dense") for x in solo_specs)])
+        return {"kernel_on_off_bitwise": True, "max_dtheta_vs_solo": gaps,
+                "within_sweep_tol": within, "first_round_apart": apart,
+                "dense_max_dtheta_vs_solo": dense_gap}
+
+    # warm-up: the first vmapped round pays torch.func's set-up
+    api.fit(gd(), data, transport="allreduce", wire="topk:0.01+ef", steps=1,
+            executor="sweep", sweep={"lr": list(SWEEP_LRS)}, device="cuda")
+    torch.cuda.synchronize()
+    S = len(SWEEP_LRS)
+    spec_i = dict(transport="allreduce", wire="topk:0.01+ef", steps=STEPS, executor="sweep",
+                  sweep={"lr": list(SWEEP_LRS)})
+    res_i, wall, peak, delta = run("i", {"topk_encode": STEPS}, **spec_i)
+    out["i"] = {"scenarios": S, "rounds": STEPS, "wall_s": wall,
+                "scenario_rounds_per_s": S * STEPS / wall,
+                "run_a_rounds_per_s": run_a["rounds_per_s"], "peak_gib": peak,
+                "launches": delta["topk_encode"],
+                "losses": [float(x) for x in res_i.metrics["loss"]],
+                **sweep_checks("i", res_i, spec_i,
+                               api.TopKWire(TOPK_F, error_feedback=True, use_kernel=False),
+                               [dict(transport="allreduce", steps=STEPS, lr=lr)
+                                for lr in SWEEP_LRS])}
+    print(f"run i sweep of {S} lr × allreduce × topk:0.01+ef: {S * STEPS} scenario-rounds "
+          f"in {wall:.4f} s ({S * STEPS / wall:.2f} scenario-rounds/s; run a "
+          f"{run_a['rounds_per_s']:.2f} rounds/s), topk_encode launched "
+          f"{delta['topk_encode']} times for {S} × {STEPS}, kernel on ≡ off bitwise; "
+          f"|Δθ| against the solo fits {out['i']['max_dtheta_vs_solo']} "
+          f"({out['i']['within_sweep_tol']} of {S} within rtol 1e-6 / atol 1e-7; first "
+          f"round apart {out['i']['first_round_apart']}), dense "
+          f"wire {out['i']['dense_max_dtheta_vs_solo']:.3g}; peak {peak:.3f} GiB", flush=True)
+
+    # where a round's time goes: 5 rounds of run (a) and of the sweep under
+    # the profiler, device busy time against the wall of the same rounds
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prof_out = {}
+    for label, extra in (("a", {}), ("i", {"executor": "sweep",
+                                           "sweep": {"lr": list(SWEEP_LRS)}})):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            api.fit(gd(), data, transport="allreduce", wire="topk:0.01+ef", steps=5,
+                    device="cuda", **extra)
+            torch.cuda.synchronize()
+            p_wall = (time.perf_counter() - t0) * 1e3
+        on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in on_card) / 1e3
+        top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:4]
+        prof_out[label] = {
+            "wall_ms_a_round": p_wall / 5, "device_ms_a_round": busy / 5,
+            "idle_share": 1 - busy / p_wall if busy > 0 else None,
+            "top": [[e.key[:70], e.self_device_time_total / 5e3, e.count / 5] for e in top]}
+    out["profiled"] = prof_out
+    print("profiled rounds (5 each, under the profiler): " + json.dumps(prof_out), flush=True)
+
+    spec_ii = dict(transport="delay_line", wire="topk:0.01", steps=STEPS, executor="sweep",
+                   sweep={"staleness": list(SWEEP_DS)})
+    res, wall, peak, delta = run("ii", {"topk_select": STEPS}, **spec_ii)
+    out["ii"] = {"scenarios": len(SWEEP_DS), "wall_s": wall,
+                 "scenario_rounds_per_s": len(SWEEP_DS) * STEPS / wall,
+                 "launches": delta["topk_select"],
+                 **sweep_checks("ii", res, spec_ii, api.TopKWire(TOPK_F, use_kernel=False),
+                                [dict(transport="delay_line", staleness=d, steps=STEPS)
+                                 for d in SWEEP_DS])}
+    print(f"run ii staleness sweep D ∈ {SWEEP_DS} × delay_line × topk:0.01: "
+          f"{len(SWEEP_DS) * STEPS / wall:.2f} scenario-rounds/s, topk_select launched "
+          f"{delta['topk_select']} times: " + json.dumps(out["ii"]), flush=True)
+
+    plan = dict(seed=5, straggler=1, quorum=10)
+    spec_iii = dict(transport="delay_line", staleness=1, wire="int8+ef", steps=STEPS,
+                    faults=api.FaultPlan(**plan), executor="sweep",
+                    sweep={"dropout_p": list(SWEEP_PS)})
+    res, wall, peak, delta = run("iii", {"int8_absmax": STEPS, "int8_quant": STEPS},
+                                 **spec_iii)
+    out["iii"] = {"scenarios": len(SWEEP_PS), "wall_s": wall,
+                  "scenario_rounds_per_s": len(SWEEP_PS) * STEPS / wall,
+                  "launches": [delta["int8_absmax"], delta["int8_quant"]],
+                  "uplink_bytes": [led.uplink_bytes for led in res.ledger],
+                  **sweep_checks("iii", res, spec_iii,
+                                 api.Int8Wire(error_feedback=True, use_kernel=False),
+                                 [dict(transport="delay_line", staleness=1, steps=STEPS,
+                                       faults=api.FaultPlan(dropout_p=p, **plan))
+                                  for p in SWEEP_PS])}
+    print(f"run iii dropout sweep p ∈ {SWEEP_PS} × FaultPlan({plan}) × int8+ef: "
+          f"{len(SWEEP_PS) * STEPS / wall:.2f} scenario-rounds/s, absmax and quant "
+          f"launched {delta['int8_absmax']} and {delta['int8_quant']} times: "
+          + json.dumps(out["iii"]), flush=True)
+
+    # NCCL: one card takes a world of one; ranks across cards are not here
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous",
+                                world_size=1, rank=0)
+        try:
+            check(dist.get_backend() == "nccl", "no NCCL process group")
+            from repro_torch.launch.mesh import make_multipod_mesh, make_node_mesh
+
+            mesh, pods = make_node_mesh(), make_multipod_mesh()
+            check(type(mesh).__name__ == "DeviceMesh" and tuple(pods.shape) == (1, 1),
+                  f"meshes {mesh}, {pods}")
+            spec = dict(transport="allreduce", wire="topk:0.01+ef", steps=STEPS)
+            api.fit(gd(), data, executor=api.MeshExecutor(mesh), device="cuda",
+                    **dict(spec, steps=1))  # NCCL's communicator set-up, untimed
+            res_m, wall_m, _, delta = run("iv", {"topk_encode": STEPS},
+                                          executor=api.MeshExecutor(mesh), **spec)
+            check(same_fit(torch, res_m, run_a["res"]),
+                  "run iv: the mesh over NCCL is not bitwise run (a)")
+            res_p, wall_p, _, _ = run("v", {"topk_encode": STEPS},
+                                      executor=api.MultiPodExecutor(pods), **spec)
+            check(torch.equal(res_p.theta.view(torch.int32), res_m.theta.view(torch.int32)),
+                  "run v: multipod is not bitwise the mesh")
+            by_hop = res_p.ledger.summary()["by_hop"]
+            check(set(by_hop) == {"intra_pod", "inter_pod"}
+                  and sum(v["total_bytes"] for v in by_hop.values())
+                  == res_p.ledger.total_bytes == res_m.ledger.total_bytes,
+                  f"run v: by_hop {by_hop}")
+            res_ms, wall_ms, _, delta = run(
+                "vi", {"topk_encode": STEPS}, executor="mesh+sweep",
+                sweep={"lr": list(SWEEP_LRS)}, **spec)
+            check(same_sweep(torch, res_ms, res_i), "run vi: mesh+sweep is not bitwise run i")
+        finally:
+            dist.destroy_process_group()
+    out["iv"] = {"rounds_per_s": STEPS / wall_m, "bitwise_run_a": True}
+    out["v"] = {"rounds_per_s": STEPS / wall_p, "by_hop": by_hop}
+    out["vi"] = {"scenario_rounds_per_s": S * STEPS / wall_ms, "bitwise_run_i": True}
+    print(f"run iv mesh over NCCL (world of one): bitwise run (a), {STEPS / wall_m:.2f} "
+          f"rounds/s; run v multipod (1, 1): bitwise run iv, by_hop {json.dumps(by_hop)}; "
+          f"run vi mesh+sweep of {S} lr: {S * STEPS / wall_ms:.2f} scenario-rounds/s, "
+          f"bitwise run i", flush=True)
+    return total, out
 
 
 def lbfgs_run(torch, data, strategy, loss0):
@@ -2841,7 +3084,13 @@ def main() -> int:
     err.update(decode_err)
     timings[("decode_attention", "main")] = decode_t["main"]
     timings[("decode_attention_merge", "main")] = merge_t
-    launches = main_path(torch)
+    data = make_epsilon_shaped(torch, 0)
+    launches, run_a = main_path(torch, data)
+    exec_launches, executors = executors_phase(torch, data, run_a)
+    for name, n in exec_launches.items():
+        launches[name] += n
+    del data, run_a
+    torch.cuda.empty_cache()
     secure = security_phase(torch)
     families = ml_families_phase(torch)
     served = serve_phase(torch)
@@ -2879,6 +3128,7 @@ def main() -> int:
         timings[(name, "leaf")] = t
     train_launches, train_stats = train_phase(torch)
     launches["topk_encode"] += train_launches
+    print("executors:", json.dumps(executors), flush=True)
     print("security wires and private regression:", json.dumps(secure), flush=True)
     print("ml families:", json.dumps(families), flush=True)
     print("attention path:", json.dumps({"errors": attn_err, **attn_stats,
@@ -2905,6 +3155,8 @@ def main() -> int:
 
     print("times at 2^24:", json.dumps({n: timings[(n, "2^24")] for n in REPLACES
                                         if (n, "2^24") in timings}))
+    print(f"times at the sweep's rows ({8 * K}, {D}):", json.dumps(
+        {n: timings[(n, "sweep")] for n in REPLACES if (n, "sweep") in timings}))
     rows = []
     for name in REPLACES:
         t = timings[(name, "main")]

@@ -1,5 +1,7 @@
 """``repro_torch.api`` — the unified training API on PyTorch (port of
-``repro.api``: Strategy × Transport × Wire on the local executor).
+``repro.api``: Strategy × Transport × Wire × Executor; the executors are
+``local``, ``mesh``, ``multipod``, ``sweep`` and ``mesh+sweep`` /
+``multipod+sweep``).
 
     from repro_torch import api
     from repro_torch.ml.linear import lsq_loss
@@ -11,7 +13,16 @@
 """
 
 from repro_torch.api.engine import FitResult, fit
-from repro_torch.api.executor import EXECUTORS, Executor, LocalExecutor, make_executor
+from repro_torch.api.executor import (
+    COMPOSED_EXECUTORS,
+    EXECUTORS,
+    Executor,
+    LocalExecutor,
+    MeshExecutor,
+    MultiPodExecutor,
+    SweepExecutor,
+    make_executor,
+)
 from repro_torch.api.faults import FaultCarry, FaultDraws, FaultPlan
 from repro_torch.api.strategy import (
     LBFGS,
@@ -51,6 +62,7 @@ __all__ = [
     "TRANSPORTS",
     "Wire", "DenseWire", "CompressedWire", "ThresholdWire", "TopKWire",
     "Int8Wire", "DPWire", "SecAggWire", "ChainWire", "make_wire",
-    "Executor", "LocalExecutor", "make_executor", "EXECUTORS",
+    "Executor", "LocalExecutor", "MeshExecutor", "MultiPodExecutor", "SweepExecutor",
+    "make_executor", "EXECUTORS", "COMPOSED_EXECUTORS",
     "FaultPlan", "FaultDraws", "FaultCarry",
 ]

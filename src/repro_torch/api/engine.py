@@ -1,16 +1,19 @@
 """``repro_torch.api.fit`` — one entry point for the distributed trainers
-(port of ``repro.api.engine``, local executor).
+(port of ``repro.api.engine``).
 
-    fit(strategy, data, transport=..., wire=..., schedule=..., device="cuda")
+    fit(strategy, data, transport=..., wire=..., executor=..., schedule=...,
+        device="cuda")
 
-runs a (strategy × transport × wire) combination on the local executor and
-returns a ``FitResult``:
+runs a (strategy × transport × wire × executor) combination and returns a
+``FitResult``:
 
 * ``theta``       — the final parameter;
 * ``trajectory``  — per-round trace: the handed-back θ for server
   transports, the strategy's ``round_metric`` for update transports;
 * ``ledger``      — byte-exact ``CommLedger`` under the paper's
-  client-server cost model;
+  client-server cost model (decomposed by tier under ``multipod``); a list
+  of one per scenario under a sweep, where ``theta``, ``trajectory`` and
+  the carry gain a leading S axis;
 * ``metrics``     — the strategy's summary, plus ``uplink_bytes_per_round``
   / ``downlink_bytes_per_round`` (numpy), ``wire_kernel_hits`` for the
   kernel wires, and ``carry`` — a resume token for ``fit(..., carry=...)``
@@ -23,6 +26,7 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+from torch.func import vmap
 
 from repro_torch.api.executor import make_executor
 from repro_torch.api.faults import FaultPlan, make_fault_plan
@@ -114,7 +118,8 @@ def fit(
       wire: ``"dense"``, ``"topk:<f>[+ef]"``, ``"thresh:<τ>[+ef]"``,
         ``"int8[+ef]"``, ``"dp:<clip>,<sigma>"``, ``"secagg"``, a
         ``>``-chain of those, or a ``Wire``.
-      executor: ``"local"`` (the only executor ported so far).
+      executor: ``"local"``, ``"mesh"``, ``"multipod"``, ``"sweep"``,
+        ``"mesh+sweep"``, ``"multipod+sweep"`` or an ``Executor``.
       schedule: contact schedule (server transports), any int sequence.
       steps: number of rounds (update transports).
       stream: optional pytree with a leading time axis, one element per
@@ -123,20 +128,22 @@ def fit(
       carry: resume token from a previous ``FitResult.metrics["carry"]``.
       faults: optional ``FaultPlan`` — seeded dropout / straggler / quorum.
       device: ``"cuda"`` (default; raises without a GPU) or ``"cpu"``.
-      sweep, tracer, trace: not ported yet; anything but None raises.
+      sweep: the scenario values of a sweep executor spec, e.g.
+        ``executor="sweep", sweep={"lr": [0.05, 0.1]}``.
+      tracer, trace: not ported yet; anything but None raises.
       transport_options: ``staleness=...`` for delay_line; ``rho=``,
         ``g=``, ``g_lam=`` for admm_consensus.
     """
-    if sweep is not None:
-        raise _not_ported("fit(sweep=...)", "queue 1, item 8 (sweep executor)")
     if tracer is not None or trace is not None:
         raise _not_ported("fit(tracer=/trace=)", "queue 1, item 12 (telemetry/)")
     dev = resolve_device(device)
     w = make_wire(wire)
     tr = make_transport(transport, **transport_options)
-    ex = make_executor(executor)
+    ex = make_executor(executor, sweep_params=sweep)
     plan = make_fault_plan(faults)
     data, stream, theta0, carry = to_device((data, stream, theta0, carry), dev)
+    if ex.num_scenarios is not None:
+        ex.params = to_device(ex.params, dev)
     raw = tr.run(
         strategy, data,
         wire=w, schedule=schedule, steps=steps, stream=stream,
@@ -145,22 +152,39 @@ def fit(
 
     ups = np.asarray(raw.uplink)
     downs = np.asarray(raw.downlink)
-    ledger = CommLedger()
-    if strategy.init_rounds and carry is None:
-        # rounds the strategy charges before its loop (LBFGS: the initial
-        # gradient Allreduce)
-        K = strategy.num_nodes(data)
-        theta_like = raw.theta if theta0 is None else theta0
-        for _ in range(strategy.init_rounds):
-            ledger.record_allreduce(theta_like, K, tag=f"{tag}/init")
-    T = int(ups.shape[0])
-    up_tot, down_tot = _total(ups), _total(downs)
-    ledger.uplink_bytes += up_tot
-    ledger.downlink_bytes += down_tot
-    ledger.rounds += raw.rounds_per_step * T
-    ledger.events.append((raw.event_kind, f"{tag}[0:{T}]", up_tot + down_tot))
+    # topology-aware executors decompose the flat totals by reduction tier
+    hop_split = ex.ledger_hops(strategy, data)
 
-    metrics = dict(strategy.summary(raw.theta, data))
+    def materialize(u: np.ndarray, d: np.ndarray, suffix: str = "") -> CommLedger:
+        led = CommLedger()
+        if strategy.init_rounds and carry is None:
+            # rounds the strategy charges before its loop (LBFGS: the
+            # initial gradient Allreduce)
+            K = strategy.num_nodes(data)
+            theta_like = ex.scenario_template(raw.theta) if theta0 is None else theta0
+            for _ in range(strategy.init_rounds):
+                led.record_allreduce(theta_like, K, tag=f"{tag}/init")
+        T = int(u.shape[0])
+        up_tot, down_tot = _total(u), _total(d)
+        led.uplink_bytes += up_tot
+        led.downlink_bytes += down_tot
+        led.rounds += raw.rounds_per_step * T
+        led.events.append((raw.event_kind, f"{tag}{suffix}[0:{T}]", up_tot + down_tot))
+        if hop_split:
+            led.attribute_hops(hop_split)
+        return led
+
+    S = ex.num_scenarios
+    if S is None:
+        ledger = materialize(ups, downs)
+        metrics = dict(strategy.summary(raw.theta, data))
+    else:
+        ledger = [materialize(ups[s], downs[s], f"/s{s}") for s in range(S)]
+        try:
+            batched = vmap(lambda th: strategy.summary(th, data))(raw.theta)
+            metrics = {k: v.cpu().numpy() for k, v in batched.items()}
+        except Exception:  # summaries need not be vmappable — skip
+            metrics = {}
     metrics.update(raw.extras)
     metrics["uplink_bytes_per_round"] = ups
     metrics["downlink_bytes_per_round"] = downs
@@ -171,7 +195,7 @@ def fit(
     if hasattr(w, "kernel_report"):
         # which leaves the wire's kernels covered vs the <256/non-f32
         # reference fallback
-        metrics["wire_kernel_hits"] = w.kernel_report(raw.theta)
+        metrics["wire_kernel_hits"] = w.kernel_report(ex.scenario_template(raw.theta))
     return FitResult(
         theta=raw.theta, trajectory=raw.trajectory, ledger=ledger, metrics=metrics
     )

@@ -39,6 +39,28 @@ from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_unflatten
 PyTree = Any
 
 
+class _NodeMap:
+    """``fn(θ, X_k, y_k)`` for every node k, stacked: one ``vmap`` over the
+    K nodes.  Where a sweep batches θ over its scenarios, the nodes are
+    mapped OUTSIDE the scenarios instead: θ's (S, …) values are read out of
+    the sweep's batch, ``vmap`` over the nodes of ``vmap`` over the
+    scenarios runs on them, and the (S, K, …) result goes back into the
+    batch.  A node's matrix-vector products then become one matrix product
+    with the S scenarios as its columns, reading X once; mapped inside the
+    scenarios, they would be batched products whose batching rule copies
+    X once per scenario."""
+
+    def __init__(self, fn: Callable):
+        self._local = vmap(fn, in_dims=(None, 0, 0))
+        self._swept = vmap(vmap(fn, in_dims=(0, None, None)), in_dims=(None, 0, 0))
+
+    def __call__(self, theta, Xs, ys):
+        thetas, level = _exec.scenario_split(theta)
+        if level is None:
+            return self._local(theta, Xs, ys)
+        return _exec.scenario_join(self._swept(thetas, Xs, ys).movedim(1, 0), level)
+
+
 class Strategy:
     """Base strategy.  Subclasses override the families they support."""
 
@@ -51,9 +73,12 @@ class Strategy:
     #: "mean" / "max" / "any", the set union of boolean masks)
     aggregate_op: str = "sum"
     #: True when every node's computation reads the whole dataset (the
-    #: cascade SVM's shared SV pool): a mesh executor would replicate the
-    #: data, and the strategy finds its nodes from ``node_shard_index``
+    #: cascade SVM's shared SV pool): a mesh executor replicates the data,
+    #: and the strategy finds its nodes from ``node_shard_index``
     replicate_data: bool = False
+    #: False when the update step cannot run under ``torch.func.vmap``: a
+    #: sweep then runs the scenarios in turn inside each round
+    vmappable: bool = True
 
     def init_theta(self, data) -> PyTree:
         raise NotImplementedError(
@@ -183,8 +208,8 @@ class GradientDescent(Strategy):
         self.loss = loss
         self.lr = lr
         self.l2 = l2
-        self._grad_local = vmap(grad(loss), in_dims=(None, 0, 0))
-        self._loss_local = vmap(loss, in_dims=(None, 0, 0))
+        self._grad_local = _NodeMap(grad(loss))
+        self._loss_local = _NodeMap(loss)
 
     def init_theta(self, data):
         Xs, _ = data
@@ -280,8 +305,8 @@ class LBFGS(Strategy):
         self.history = history
         self.lr = lr
         self.l2 = l2
-        self._grad_local = vmap(grad(loss), in_dims=(None, 0, 0))
-        self._loss_local = vmap(loss, in_dims=(None, 0, 0))
+        self._grad_local = _NodeMap(grad(loss))
+        self._loss_local = _NodeMap(loss)
 
     def init_theta(self, data):
         Xs, _ = data
@@ -385,10 +410,13 @@ class OptimizerStrategy(Strategy):
 
     One logical node (``num_nodes == 1``, ``stacked_msgs = False``).  The
     state is ``(opt_state, loss)``, the loss being the round's batch loss
-    before the update.
+    before the update.  Not vmappable (its gradient is
+    ``torch.autograd.grad``): a sweep runs its scenarios in turn inside each
+    round, S copies of the training state side by side.
     """
 
     stacked_msgs = False
+    vmappable = False
     #: the aggregate() override is the identity on ONE message, so a zeroed
     #: (fault-masked) message drops out like a sum term: a dead round
     #: applies a zero gradient

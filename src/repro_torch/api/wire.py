@@ -414,26 +414,45 @@ class DPWire(Wire):
         # per-node round counters: where each node is in its noise stream
         return _counters(num_nodes, stacked)
 
-    def _privatize(self, leaves: list, cnts: list, gidx: list) -> list:
+    def _privatize(self, leaves: list, cnts, gidx: list, level=None) -> list:
         """Clip + noise the rows of ``leaves`` (each (R, …), row r one
         node's leaf), row r with counter ``cnts[r]`` and global index
-        ``gidx[r]``."""
+        ``gidx[r]``.  Under a sweep whose scenarios' counters parted
+        (a swept ``dropout_p``), ``cnts`` is (S, R) and ``level`` the
+        sweep's vmap level: each scenario's noise is drawn outside the
+        batch and handed in as its slice."""
         R = leaves[0].shape[0]
         sq = sum(torch.sum(torch.square(x.float()).reshape(R, -1), dim=1) for x in leaves)
         nrm = torch.sqrt(sq)
-        # clip and σ·clip as the reference's f32 scalars, passed as kernel
-        # arguments: a tensor made from them would be a host-to-device
-        # copy, which waits for the card every round
-        clip = float(np.float32(self.dp_clip))
-        noise_scale = float(np.float32(self.dp_sigma) * np.float32(self.dp_clip))
-        # a true divide (``scalar / tensor`` is a reciprocal and a multiply)
-        scale = torch.clamp(torch.full_like(nrm, clip) / torch.clamp_min(nrm, 1e-12), max=1.0)
+        if isinstance(self.dp_clip, torch.Tensor) or isinstance(self.dp_sigma, torch.Tensor):
+            # swept: the scenario's clip and σ·clip as f32 tensors
+            clip = torch.as_tensor(self.dp_clip, dtype=torch.float32, device=nrm.device)
+            sigma = torch.as_tensor(self.dp_sigma, dtype=torch.float32, device=nrm.device)
+            noise_scale = sigma * clip
+            scale = torch.clamp(clip / torch.clamp_min(nrm, 1e-12), max=1.0)
+        else:
+            # clip and σ·clip as the reference's f32 scalars, passed as
+            # kernel arguments: a tensor made from them would be a
+            # host-to-device copy, which waits for the card every round
+            clip = float(np.float32(self.dp_clip))
+            noise_scale = float(np.float32(self.dp_sigma) * np.float32(self.dp_clip))
+            # a true divide (``scalar / tensor`` is a reciprocal and a multiply)
+            scale = torch.clamp(torch.full_like(nrm, clip) / torch.clamp_min(nrm, 1e-12),
+                                max=1.0)
         out = []
         for i, x in enumerate(leaves):
             shape = tuple(x.shape[1:])
-            noise = torch.stack([
-                _normal(shape, x.device, self.seed, cnts[r], gidx[r], i) for r in range(R)
-            ])
+            if level is None:
+                noise = torch.stack([
+                    _normal(shape, x.device, self.seed, cnts[r], gidx[r], i)
+                    for r in range(R)
+                ])
+            else:
+                noise = _scenario_join(torch.stack([
+                    torch.stack([_normal(shape, x.device, self.seed, c[r], gidx[r], i)
+                                 for r in range(R)])
+                    for c in cnts
+                ]), level)
             s = scale.reshape((R,) + (1,) * len(shape))
             y = x.float() * s + noise_scale * noise
             out.append(y.to(x.dtype))
@@ -453,12 +472,21 @@ class DPWire(Wire):
         nb = torch.tensor(float(tree_bytes(msgs)))
         leaves, spec = tree_flatten(msgs)
         if not stacked:
-            priv = self._privatize([x[None] for x in leaves], [int(wstate)],
-                                   [int(_node_global_index(0))])
+            cnt, level = _scenario_split(wstate)
+            if level is not None and bool((cnt == cnt[0]).all()):
+                cnt, level = cnt[0], None
+            cnts = [[c] for c in cnt.tolist()] if level is not None else [int(cnt)]
+            priv = self._privatize([x[None] for x in leaves], cnts,
+                                   [int(_node_global_index(0))], level)
             return wstate + 1, tree_unflatten([p[0] for p in priv], spec), nb
         K = leaves[0].shape[0]
         gidx = [int(_node_global_index(k)) for k in range(K)]
-        priv = self._privatize(leaves, wstate.tolist(), gidx)
+        # under a sweep the counters are batched: read them outside the
+        # batch; alike in every scenario, one draw serves all of them
+        cnts, level = _scenario_split(wstate)
+        if level is not None and bool((cnts == cnts[0]).all()):
+            cnts, level = cnts[0], None
+        priv = self._privatize(leaves, cnts.tolist(), gidx, level)
         return wstate + 1, tree_unflatten(priv, spec), nb
 
 
@@ -604,6 +632,18 @@ def _num_node_shards() -> int:
     from repro_torch.api.executor import num_node_shards
 
     return num_node_shards()
+
+
+def _scenario_split(x):
+    from repro_torch.api.executor import scenario_split
+
+    return scenario_split(x)
+
+
+def _scenario_join(x, level):
+    from repro_torch.api.executor import scenario_join
+
+    return scenario_join(x, level)
 
 
 def make_wire(spec: str | Wire | None) -> Wire:

@@ -22,7 +22,7 @@ _WAITING = {
     "whisper-base": "queue 1, item 11 (models/whisper.py)",
     "minicpm3-4b": "queue 1, item 11 (models/mla.py)",
     "deepseek-v3-671b": "queue 1, item 11 (models/mla.py, models/moe.py, MTP)",
-    "deepseek-67b": "queue 1, item 11 (a 67B dense model needs the mesh executors, item 8)",
+    "deepseek-67b": "queue 1, item 11 (a 67B dense model needs sharded weights, item 13)",
     "xlstm-125m": "queue 1, item 11 (models/xlstm.py)",
     "jamba-1.5-large-398b": "queue 1, item 11 (models/mamba.py, models/moe.py)",
     "olmoe-1b-7b": "queue 1, item 11 (models/moe.py)",

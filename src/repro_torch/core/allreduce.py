@@ -1,15 +1,33 @@
-"""Allreduce over a stacked node axis + byte-accurate communication accounting
-(port of ``repro.core.allreduce``).
+"""Allreduce primitives + byte-accurate communication accounting (port of
+``repro.core.allreduce``).
 
 The paper (§3.1) observes that the MPI ``Allreduce`` used by [47] and [5]
 "can be simulated by a two step communication with a central server".
-``server_allreduce`` is that two-phase simulation over a leading node axis
-of K logical nodes on one device.  ``CommLedger`` counts bytes under the
-paper's client-server cost model, optionally decomposed by reduction tier.
+Both forms are here:
 
-The mesh and hierarchical collectives (``psum_allreduce``,
-``mesh_allreduce``, ``hierarchical_allreduce`` and the overlap halves) are
-not ported yet: they come with the mesh executors (``ROADMAP.md``).
+* ``server_allreduce`` — the two-phase simulation over a leading node axis
+  of K logical nodes on one device (the local executor);
+* ``psum_allreduce`` / ``pmean_allreduce`` / ``mesh_allreduce`` — the
+  native collective over a ``torch.distributed`` process group (the mesh
+  executors: gloo on the CPU, NCCL on the card), with the same ``op``
+  vocabulary;
+* ``hierarchical_allreduce`` — one staged collective per reduction hop of a
+  ``core.topology.Topology`` (intra-pod first, inter-pod last), optionally
+  with the innermost hop as reduce-scatter → outer hops → all-gather; and
+  ``partial_allreduce`` / ``complete_allreduce``, its two halves for the
+  comm/compute overlap (the outer half can run as an ``async_op``
+  collective).
+
+Where the reference names mesh axes, these functions take the axes'
+process groups, one per hop, innermost first; a group of None (a world of
+one with no process group, ``launch.mesh.SoloMesh``) is the identity.
+Every collective goes through one custom op, ``repro_torch::staged_reduce``,
+whose ``vmap`` rule moves the scenario axis into the tensor, so a sweep's S
+scenarios ride ONE collective (``torch.distributed.all_reduce`` itself has
+no batching rule).
+
+``CommLedger`` counts bytes under the paper's client-server cost model,
+optionally decomposed by reduction tier.
 """
 
 from __future__ import annotations
@@ -18,10 +36,168 @@ from dataclasses import dataclass, field
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.utils.tree import tree_bytes, tree_map
+from repro_torch.utils.tree import tree_bytes, tree_flatten, tree_map, tree_unflatten
 
 PyTree = Any
+
+#: process groups by the name the custom op carries them under
+_GROUPS: dict = {}
+
+
+def _group_name(group) -> str:
+    name = f"pg{id(group)}"
+    _GROUPS[name] = group  # held here, so the id is never reused
+    return name
+
+
+def _group_size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+@torch.library.custom_op("repro_torch::staged_reduce", mutates_args=())
+def _staged_reduce(x: torch.Tensor, groups: str, op: str, scatter: bool) -> torch.Tensor:
+    """``x`` reduced over each of ``groups`` (registered names, comma
+    separated) in turn, innermost first; a new tensor.  ``scatter`` stages the first group as reduce-scatter →
+    the other groups → all-gather where x's leading axis tiles over it;
+    each element then sees the same additions in the same order."""
+    y = x.contiguous().clone()
+    gs = [_GROUPS[g] for g in groups.split(",")]
+    n = dist.get_world_size(gs[0])
+    if scatter and op == "sum" and n > 1 and y.dim() >= 1 and y.shape[0] % n == 0:
+        part = torch.empty((y.shape[0] // n,) + tuple(y.shape[1:]), dtype=y.dtype,
+                           device=y.device)
+        dist.reduce_scatter_tensor(part, y, op=dist.ReduceOp.SUM, group=gs[0])
+        for g in gs[1:]:
+            dist.all_reduce(part, op=dist.ReduceOp.SUM, group=g)
+        parts = [torch.empty_like(part) for _ in range(n)]
+        dist.all_gather(parts, part, group=gs[0])
+        return torch.cat(parts)
+    for g in gs:
+        dist.all_reduce(y, op=_REDUCE_OPS[op], group=g)
+    return y
+
+
+@_staged_reduce.register_fake
+def _(x, groups, op, scatter):
+    return torch.empty_like(x)
+
+
+def _staged_reduce_vmap(info, in_dims, x, groups, op, scatter):
+    # the scenario axis goes INTO the collective: one launch for all S.  A
+    # reduce-scatter tiles the scenario's own leading axis, so the batch
+    # sits second there
+    bd = in_dims[0]
+    if bd is None:
+        return _staged_reduce(x, groups, op, scatter), None
+    if scatter and x.dim() >= 2:
+        return _staged_reduce(x.movedim(bd, 1), groups, op, True), 1
+    return _staged_reduce(x.movedim(bd, 0), groups, op, False), 0
+
+
+torch.library.register_vmap("repro_torch::staged_reduce", _staged_reduce_vmap)
+
+
+def _reduce(x: torch.Tensor, groups, op: str = "sum", scatter: bool = False) -> torch.Tensor:
+    names = [_group_name(g) for g in groups if g is not None]
+    if not names:
+        return x  # a world of one: the identity
+    return _staged_reduce(x, ",".join(names), op, scatter)
+
+
+def psum_allreduce(tree: PyTree, group) -> PyTree:
+    """Sum every leaf over the ranks of ``group`` (a ``ProcessGroup``, or
+    None for a world of one)."""
+    return tree_map(lambda x: _reduce(x, [group]), tree)
+
+
+def pmean_allreduce(tree: PyTree, group) -> PyTree:
+    n = _group_size(group)
+    return tree_map(lambda x: _reduce(x, [group]) / n, tree)
+
+
+def mesh_allreduce(tree: PyTree, group, op: str = "sum") -> PyTree:
+    """The native collective with ``server_allreduce``'s ``op`` vocabulary
+    — the §3.1 equivalence made literal.  ``op="any"`` is the union of
+    boolean masks, a sum of int32s."""
+    if op == "sum":
+        return psum_allreduce(tree, group)
+    if op == "mean":
+        return pmean_allreduce(tree, group)
+    if op == "max":
+        return tree_map(lambda x: _reduce(x, [group], "max"), tree)
+    if op == "any":
+        return tree_map(lambda x: _reduce(x.to(torch.int32), [group]) > 0, tree)
+    raise ValueError(f"unknown op: {op!r}")
+
+
+def hierarchical_allreduce(tree: PyTree, groups, op: str = "sum", *,
+                           reduce_scatter: bool = False) -> PyTree:
+    """Topology-aware allreduce: one staged collective per reduction hop.
+
+    ``groups`` holds one process group per hop, innermost (cheapest)
+    first.  A single hop over all node axes is exactly ``mesh_allreduce``.
+    ``op="mean"`` stages as a sum per hop with ONE final division by the
+    total fan-in, so the result does not depend on how the hops split the
+    axes.  ``reduce_scatter=True`` restages the innermost hop as
+    reduce-scatter → outer hops → all-gather for leaves whose leading axis
+    tiles over it (the others take the staged sums)."""
+    if op in ("sum", "mean"):
+        out = tree_map(lambda x: _reduce(x, groups, "sum", reduce_scatter), tree)
+        if op == "mean":
+            denom = 1.0
+            for g in groups:
+                denom *= _group_size(g)
+            out = tree_map(lambda x: x / denom, out)
+        return out
+    for g in groups:
+        tree = mesh_allreduce(tree, g, op=op)
+    return tree
+
+
+def partial_allreduce(tree: PyTree, groups) -> PyTree:
+    """The synchronous front of an overlapped hierarchical sum: every hop
+    but the outermost (on a flat topology none: the whole reduction is
+    deferred)."""
+    return tree_map(lambda x: _reduce(x, list(groups[:-1])), tree)
+
+
+class PendingSum:
+    """An outermost hop in flight (``complete_allreduce(async_op=True)``):
+    ``wait()`` returns the completed tree."""
+
+    def __init__(self, tree: PyTree, works: list):
+        self._tree = tree
+        self._works = works
+
+    def wait(self) -> PyTree:
+        for w in self._works:
+            w.wait()
+        self._works = []
+        return self._tree
+
+
+def complete_allreduce(tree: PyTree, groups, *, async_op: bool = False):
+    """The deferred back half of an overlapped hierarchical sum: the
+    outermost hop only.  With ``async_op`` the collective is started and a
+    ``PendingSum`` returned, so it runs while the next round's local
+    compute is enqueued."""
+    group = groups[-1]
+    if not async_op:
+        return psum_allreduce(tree, group)
+    if group is None:
+        return PendingSum(tree, [])
+    leaves, spec = tree_flatten(tree)
+    outs, works = [], []
+    for x in leaves:
+        y = x.contiguous().clone()
+        works.append(dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group, async_op=True))
+        outs.append(y)
+    return PendingSum(tree_unflatten(outs, spec), works)
 
 
 def server_allreduce(stacked: PyTree, op: str = "sum") -> PyTree:

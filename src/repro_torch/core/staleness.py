@@ -46,17 +46,25 @@ def delay_push_pop(state: DelayLine, grads: PyTree) -> tuple[DelayLine, PyTree]:
 
 
 def delay_push_read(
-    state: DelayLine, grads: PyTree, delay: int
+    state: DelayLine, grads: PyTree, delay
 ) -> tuple[DelayLine, PyTree]:
     """Push fresh ``grads`` and read the value pushed ``delay`` steps ago,
     ``delay`` in ``[0, D]``: ``delay == D`` is ``delay_push_pop``,
-    ``delay == 0`` reads the fresh push."""
+    ``delay == 0`` reads the fresh push.  ``delay`` may be a Python int or
+    an int tensor — under a scenario sweep a batched one, each scenario's
+    own staleness: S levels then share one line of depth max D, read at a
+    per-scenario index (an ``index_select``, which batches)."""
     depth = tree_leaves(state.buffer)[0].shape[0]
-    if not 0 <= int(delay) <= depth:
-        raise ValueError(f"delay {delay} outside [0, {depth}]")
     ext = tree_map(
         lambda b, g: torch.cat([b, g[None]], dim=0), state.buffer, grads
     )
-    read = tree_map(lambda e: e[depth - int(delay)], ext)
+    if isinstance(delay, torch.Tensor):
+        idx = (depth - delay).reshape(1).to(torch.long)
+        read = tree_map(
+            lambda e: torch.index_select(e, 0, idx.to(e.device))[0], ext)
+    else:
+        if not 0 <= int(delay) <= depth:
+            raise ValueError(f"delay {delay} outside [0, {depth}]")
+        read = tree_map(lambda e: e[depth - int(delay)], ext)
     new_buf = tree_map(lambda e: e[1:], ext)
     return DelayLine(buffer=new_buf, step=state.step + 1), read

@@ -26,12 +26,13 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 def to_device(tree, device: torch.device):
-    """Move every array leaf of ``tree`` (tensors or numpy arrays) to
-    ``device``; other leaves (ints, None) pass through."""
+    """Move every array leaf of ``tree`` (tensors, numpy arrays or numpy
+    scalars) to ``device``; other leaves (ints, None) pass through."""
 
     def move(x):
-        if isinstance(x, np.ndarray):
-            x = torch.from_numpy(np.ascontiguousarray(x))
+        if isinstance(x, (np.ndarray, np.generic)):
+            x = np.asarray(x)  # a numpy scalar: 0-d, as it came
+            x = torch.from_numpy(x if x.flags.c_contiguous else np.ascontiguousarray(x))
         if isinstance(x, torch.Tensor):
             return x.to(device)
         return x

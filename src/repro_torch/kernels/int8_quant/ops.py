@@ -43,10 +43,34 @@ def quant_dequant(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"int8 quant: no kernel for device {x.device}")
 
 
-def int8_roundtrip(x: torch.Tensor):
-    """``(dequantized, scale)`` for the stacked leaf ``x`` (K, …), with
-    ``scale`` the (K,) per-row scales.  For one unstacked leaf call
-    ``int8_roundtrip(x[None])``."""
+@torch.library.custom_op("repro_torch::int8_roundtrip", mutates_args=())
+def _int8_roundtrip_op(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     m = absmax(x)
     scale = torch.clamp_min(m, 1e-12) * (1.0 / 127.0)
     return quant_dequant(x, scale), scale
+
+
+@_int8_roundtrip_op.register_fake
+def _(x):
+    return torch.empty_like(x), x.new_empty((x.shape[0],))
+
+
+def _int8_roundtrip_vmap(info, in_dims, x):
+    # (S, K, …) scenarios fold into S·K rows, one scale a row: the absmax
+    # and quant kernels launch once for all S
+    x = x.movedim(in_dims[0], 0)
+    S, K = x.shape[0], x.shape[1]
+    out, scale = _int8_roundtrip_op(x.reshape((S * K,) + tuple(x.shape[2:])))
+    return (out.view(x.shape), scale.view(S, K)), (0, 0)
+
+
+torch.library.register_vmap("repro_torch::int8_roundtrip", _int8_roundtrip_vmap)
+
+
+def int8_roundtrip(x: torch.Tensor):
+    """``(dequantized, scale)`` for the stacked leaf ``x`` (K, …), with
+    ``scale`` the (K,) per-row scales.  For one unstacked leaf call
+    ``int8_roundtrip(x[None])``.  A custom op
+    (``repro_torch::int8_roundtrip``): under ``torch.func.vmap`` the S
+    scenarios' stacks run as one absmax and one quant launch on S·K rows."""
+    return _int8_roundtrip_op(x)

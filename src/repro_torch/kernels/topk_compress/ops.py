@@ -38,6 +38,39 @@ def encode_threshold(c: torch.Tensor, t: torch.Tensor, *, with_residual: bool):
     raise ValueError(f"topk encode: no kernel for device {c.device}")
 
 
+@torch.library.custom_op("repro_torch::topk_encode", mutates_args=())
+def _topk_encode_op(c: torch.Tensor, k: int,
+                    with_residual: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The wire encode of rows ``c`` (R, …): each row's exact k-th
+    magnitude, then one launch of the encode (or select) kernel over all R
+    rows.  Without a residual the second output is empty."""
+    rows = c.reshape(c.shape[0], -1).contiguous()
+    t = torch.topk(rows.abs(), k, dim=1).values[:, -1].contiguous()
+    o, res, count = encode_threshold(rows, t, with_residual=with_residual)
+    res = res.view(c.shape) if with_residual else c.new_empty((0,))
+    return o.view(c.shape), res, count
+
+
+@_topk_encode_op.register_fake
+def _(c, k, with_residual):
+    res = torch.empty_like(c) if with_residual else c.new_empty((0,))
+    return torch.empty_like(c), res, c.new_empty((c.shape[0],), dtype=torch.int32)
+
+
+def _topk_encode_vmap(info, in_dims, c, k, with_residual):
+    # (S, R, …) scenarios fold into S·R rows: each row keeps its own
+    # threshold, so no bit of a row changes, and the kernel launches once
+    c = c.movedim(in_dims[0], 0)
+    S, R = c.shape[0], c.shape[1]
+    o, res, count = _topk_encode_op(c.reshape((S * R,) + tuple(c.shape[2:])), k,
+                                    with_residual)
+    res = res.view(c.shape) if with_residual else res.new_empty((S, 0))
+    return (o.view(c.shape), res, count.view(S, R)), (0, 0, 0)
+
+
+torch.library.register_vmap("repro_torch::topk_encode", _topk_encode_vmap)
+
+
 def topk_encode(u: torch.Tensor, r: torch.Tensor | None = None, *, k: int):
     """Fused wire encode of the stacked messages ``u`` (K, …) of one leaf,
     plus EF residuals ``r`` (same shape) when given.
@@ -47,13 +80,13 @@ def topk_encode(u: torch.Tensor, r: torch.Tensor | None = None, *, k: int):
     ``res = c - o`` shaped like ``u`` and ``count`` the (K,) int32
     survivors.  ``r=None`` runs the residual-free select kernel.  For one
     unstacked leaf ``x`` call ``topk_encode(x[None], k=k)``.
-    """
+
+    A custom op (``repro_torch::topk_encode``): under ``torch.func.vmap``
+    the S scenarios' (K, …) stacks run as one launch on S·K rows."""
     c = u if r is None else u + r
-    rows = c.reshape(c.shape[0], -1).contiguous()
-    k = max(1, min(int(k), rows.shape[1]))
-    t = torch.topk(rows.abs(), k, dim=1).values[:, -1].contiguous()
-    o, res, count = encode_threshold(rows, t, with_residual=r is not None)
-    return o.view(c.shape), (None if res is None else res.view(c.shape)), count
+    k = max(1, min(int(k), c[0].numel()))
+    o, res, count = _topk_encode_op(c, k, r is not None)
+    return o, (res if r is not None else None), count
 
 
 def count_ge(x: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:

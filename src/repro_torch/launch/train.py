@@ -22,8 +22,15 @@ Example (CPU smoke; on the card drop ``--device cpu``):
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --steps 12 \\
       --batch 2 --seq 32 --device cpu
 
-Not ported yet: ``--sweep-staleness`` (the sweep executor, ``ROADMAP.md``
-queue 1, item 8) and ``--multipod`` (mesh placement, item 13); both raise.
+``--sweep-staleness 0,1,2,4`` trains one model per staleness level in
+one sweep (``api.SweepExecutor({"staleness": ...})``): the levels share one
+delay line of depth max D and each reads it at its own index; the
+optimizer strategy is not vmappable, so the levels run in turn inside each
+step, and every level holds its own copy of the training state.  The
+history then carries one ``loss_D<d>`` per level.
+
+Not ported yet: ``--multipod`` (activation sharding over a mesh,
+``ROADMAP.md`` queue 1, item 13); it raises.
 """
 
 from __future__ import annotations
@@ -82,7 +89,7 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--staleness", type=int, default=0)
     ap.add_argument("--sweep-staleness", default="",
-                    help="staleness levels batched into one sweep (not ported yet)")
+                    help="comma-separated staleness levels trained in one sweep")
     ap.add_argument("--compress-topk", type=float, default=0.0)
     ap.add_argument("--multipod", action="store_true",
                     help="multipod mesh placement (not ported yet)")
@@ -101,10 +108,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.sweep_staleness:
-        raise NotImplementedError(
-            "--sweep-staleness needs the sweep executor, not ported yet: "
-            "ROADMAP.md queue 1, item 8")
     if args.multipod:
         raise NotImplementedError(
             "--multipod needs the mesh placement, not ported yet: ROADMAP.md "
@@ -124,11 +127,20 @@ def main(argv=None):
         faults = api.FaultPlan(seed=args.fault_seed, dropout_p=args.dropout_p,
                                straggler=args.straggler, quorum=args.quorum or None)
 
+    sweep_levels = None
+    executor = "local"
+    if args.sweep_staleness:
+        if args.ckpt_dir:
+            raise SystemExit("--sweep-staleness is incompatible with --ckpt-dir")
+        sweep_levels = [int(s) for s in args.sweep_staleness.split(",")]
+        executor = api.SweepExecutor({"staleness": sweep_levels})
+
     data = synthetic_lm_batches(args.seed, args.batch, args.seq, cfg.vocab_size,
                                 device=device)
     fault_note = f", faults={faults!r}" if faults is not None else ""
     print(f"training {cfg.name} ({n_params / 1e6:.1f}M params, "
-          f"staleness={args.staleness}, wire={wire}, device={device}{fault_note})")
+          f"staleness={sweep_levels or args.staleness}, wire={wire}, "
+          f"device={device}{fault_note})")
     t0 = time.time()
     history = []
     carry, done = None, 0
@@ -138,24 +150,35 @@ def main(argv=None):
         stream = stack_batches([next(data) for _ in range(end - done)])
         res = api.fit(
             strategy, None, transport="delay_line", staleness=args.staleness,
-            wire=wire, stream=stream, theta0=theta, carry=carry, faults=faults,
-            tag="train", device=device,
+            wire=wire, executor=executor, stream=stream, theta0=theta, carry=carry,
+            faults=faults, tag="train", device=device,
         )
-        theta, carry = res.theta, res.metrics["carry"]
-        wire_bytes += res.ledger.uplink_bytes
+        carry = res.metrics["carry"]
+        if sweep_levels is None:
+            theta = res.theta
+            wire_bytes += res.ledger.uplink_bytes
+            losses = {"loss": float(res.trajectory[-1])}
+            first = {"loss": float(res.trajectory[0])}
+        else:
+            # θ0 stays the shared start; the sweep resumes from its carry
+            wire_bytes += res.ledger[0].uplink_bytes  # the same in every level
+            losses = {f"loss_D{d}": float(res.trajectory[i, -1])
+                      for i, d in enumerate(sweep_levels)}
+            first = {f"loss_D{d}": float(res.trajectory[i, 0])
+                     for i, d in enumerate(sweep_levels)}
         if done == 0:
-            history.append({"step": 1, "loss": float(res.trajectory[0])})
+            history.append({"step": 1, **first})
         done = end
         if done % args.log_every == 0 or done == args.steps:
-            loss = float(res.trajectory[-1])
             if history[-1]["step"] != done:
-                history.append({"step": done, "loss": loss})
-            print(f"step {done:5d}  loss {loss:.4f}  "
-                  f"({(time.time() - t0) / done:.2f}s/step)")
+                history.append({"step": done, **losses})
+            shown = "  ".join(f"{k} {v:.4f}" for k, v in losses.items())
+            print(f"step {done:5d}  {shown}  ({(time.time() - t0) / done:.2f}s/step)")
         if args.ckpt_dir and args.ckpt_every and done % args.ckpt_every == 0:
             save(args.ckpt_dir, done, theta)
-    print(json.dumps({"final_loss": history[-1]["loss"], "uplink_bytes": wire_bytes,
-                      "history": history}))
+    final = {k: v for k, v in history[-1].items() if k != "step"}
+    print(json.dumps({"final_loss": final["loss"] if sweep_levels is None else final,
+                      "uplink_bytes": wire_bytes, "history": history}))
     return history
 
 

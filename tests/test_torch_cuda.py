@@ -1331,3 +1331,88 @@ def test_ml_families_run_on_the_card(cuda):
     Th, _ = graphical.mple_consensus(Xm.reshape(4, 500, 6), iters=30, inner_iters=30,
                                      device="cuda")
     assert float(graphical.support_f1(Th, Theta)) > 0.95
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["topk-ef", "topk-select", "int8"])
+def test_custom_ops_under_vmap_launch_once(cuda, op):
+    """An (S, K, n) call through ``torch.func.vmap`` folds into S·K rows:
+    ONE launch, bitwise S launches on (K, n)."""
+    from repro_torch.kernels.int8_quant import ops as q8_ops
+    from repro_torch.kernels.topk_compress import ops as tk_ops
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    u = torch.randn((8, 16, 2000), generator=g, device=cuda)
+    r = torch.randn((8, 16, 2000), generator=g, device=cuda)
+    if op == "topk-ef":
+        fn, args, names = (lambda a, b: tk_ops.topk_encode(a, b, k=20)), (u, r), ("topk_encode",)
+    elif op == "topk-select":
+        fn, args, names = (lambda a: tk_ops.topk_encode(a, k=20)[::2]), (u,), ("topk_select",)
+    else:
+        fn, args, names = q8_ops.int8_roundtrip, (u,), ("int8_absmax", "int8_quant")
+    kernels.reset_launches()
+    got = torch.func.vmap(fn)(*args)
+    torch.cuda.synchronize()
+    for name in names:
+        assert kernels.LAUNCHES[name] == 1, kernels.LAUNCHES
+    for s in range(8):
+        want = fn(*(a[s] for a in args))
+        for x, w in zip(got, want):
+            assert x[s].dtype == w.dtype and torch.equal(
+                x[s].reshape(-1).view(torch.uint8), w.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_sweep_fit_launches_the_encode_once_a_round(cuda):
+    from repro_torch import api
+    from repro_torch.ml.linear import lsq_loss
+
+    g = torch.Generator(device=cuda).manual_seed(2)
+    X = torch.randn((16, 64, 2000), generator=g, device=cuda) / 45
+    y = X @ torch.randn((2000,), generator=g, device=cuda)
+    lrs = [0.05, 0.1, 0.2, 0.4]
+    kernels.reset_launches()
+    res = api.fit(api.GradientDescent(lsq_loss), (X, y), transport="allreduce",
+                  wire="topk:0.01+ef", steps=5, executor="sweep", sweep={"lr": lrs})
+    assert kernels.LAUNCHES["topk_encode"] == 5
+    for i, lr in enumerate(lrs):
+        solo = api.fit(api.GradientDescent(lsq_loss, lr=lr), (X, y), transport="allreduce",
+                       wire="topk:0.01+ef", steps=5)
+        torch.testing.assert_close(res.theta[i], solo.theta, rtol=1e-6, atol=1e-7)
+        assert res.ledger[i].summary() == solo.ledger.summary()
+
+
+@pytest.mark.cuda
+def test_mesh_on_a_world_of_one_over_nccl(cuda, tmp_path):
+    """One card takes a world of one over NCCL (NCCL refuses two ranks on one
+    GPU): real communicators and collectives, θ bitwise the local fit."""
+    import torch.distributed as dist
+
+    from repro_torch import api
+    from repro_torch.launch.mesh import make_multipod_mesh, make_node_mesh
+    from repro_torch.ml.linear import lsq_loss
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    X = torch.randn((8, 32, 300), generator=g, device=cuda) / 17
+    y = X @ torch.randn((300,), generator=g, device=cuda)
+    loc = api.fit(api.GradientDescent(lsq_loss), (X, y), transport="delay_line",
+                  staleness=1, wire="topk:0.1+ef", steps=6)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rendezvous",
+                            world_size=1, rank=0)
+    try:
+        mesh, pods = make_node_mesh(), make_multipod_mesh()
+        assert mesh.device_type == "cuda" and tuple(pods.shape) == (1, 1)
+        kw = dict(transport="delay_line", staleness=1, wire="topk:0.1+ef", steps=6)
+        m = api.fit(api.GradientDescent(lsq_loss), (X, y), executor=api.MeshExecutor(mesh), **kw)
+        p = api.fit(api.GradientDescent(lsq_loss), (X, y),
+                    executor=api.MultiPodExecutor(pods), **kw)
+        s = api.fit(api.GradientDescent(lsq_loss), (X, y), executor="mesh+sweep",
+                    sweep={"lr": [0.1, 0.2]}, **kw)
+    finally:
+        dist.destroy_process_group()
+    assert same_bits(m.theta, loc.theta) and same_bits(m.trajectory, loc.trajectory)
+    assert same_bits(p.theta, m.theta)
+    assert m.ledger.summary() == loc.ledger.summary()
+    assert sum(v["total_bytes"] for v in p.ledger.summary()["by_hop"].values()) == \
+        loc.ledger.total_bytes
+    torch.testing.assert_close(s.theta[0], loc.theta, rtol=1e-6, atol=1e-7)

@@ -28,8 +28,6 @@ from repro.ml.linear import logistic_loss as j_logistic  # noqa: E402
 from repro.ml.linear import lsq_loss as j_lsq  # noqa: E402
 from repro_torch import api as tapi  # noqa: E402
 from repro_torch.convert import carry_from_reference, theta_from_reference  # noqa: E402
-from repro_torch.launch.train import main as train_main  # noqa: E402
-from repro_torch.ml.svm import CascadeStrategy  # noqa: E402
 from repro_torch.ml.linear import logistic_loss as t_logistic  # noqa: E402
 from repro_torch.ml.linear import lsq_loss as t_lsq  # noqa: E402
 
@@ -242,34 +240,19 @@ def test_default_device_needs_a_gpu():
         make_feature_shards(0, 2, 4, 3)
 
 
-# "admm" and "prox": the admm_consensus transport and ProxStrategy are
-# ported; what of their path is not yet is a tracer and a sweep over ρ.
-# OptimizerStrategy is ported; the train CLI's staleness sweep is not.
-# The dp / secagg / chain wires, LBFGS and the cascade SVM are ported; a
-# sweep over dp_sigma and the mesh executor wait for item 8, a tracer on
-# a secagg fit for item 12
+# What of the fit path is still to port: a tracer (item 12) on any fit,
+# the admm_consensus transport's and a secagg wire's among them, and the
+# serve executor (item 10).  The mesh, multipod and sweep executors and
+# the train CLI's staleness sweep are ported (tests/test_torch_executors.py)
 @pytest.mark.parametrize("call, item", [
-    (lambda: tapi.fit(tapi.GradientDescent(t_lsq), None, executor="mesh", device="cpu"), 8),
-    (lambda: tapi.fit(tapi.GradientDescent(t_lsq), None, sweep={"lr": [0.1]}, device="cpu"), 8),
     (lambda: tapi.fit(tapi.GradientDescent(t_lsq), None, tracer=object(), device="cpu"), 12),
     (lambda: tapi.fit(tapi.ProxStrategy(lambda d: None, dim=3), None,
                       transport="admm_consensus", steps=2, tracer=object(), device="cpu"), 12),
     (lambda: tapi.fit(tapi.GradientDescent(t_lsq), problem(), transport="allreduce",
-                      steps=2, wire="dp:1.0,0.1", sweep={"dp_sigma": [0.0, 0.1]},
-                      device="cpu"), 8),
-    (lambda: tapi.fit(tapi.LBFGS(t_lsq), problem(), transport="allreduce", steps=2,
-                      executor="mesh", device="cpu"), 8),
-    (lambda: tapi.fit(CascadeStrategy(), problem(task="classification"),
-                      transport="allreduce", steps=1, executor="mesh", device="cpu"), 8),
-    (lambda: tapi.fit(tapi.GradientDescent(t_lsq), problem(), transport="allreduce",
                       steps=2, wire="secagg", tracer=object(), device="cpu"), 12),
-    (lambda: tapi.fit(tapi.ProxStrategy(lambda d: None, dim=3), None,
-                      transport="admm_consensus", steps=2, sweep={"rho": [0.5, 1.0]},
-                      device="cpu"), 8),
-    (lambda: train_main(["--reduced", "--steps", "1", "--sweep-staleness", "0,1",
-                         "--device", "cpu"]), 8),
-], ids=["mesh", "sweep", "tracer", "admm", "dp-sweep", "lbfgs-mesh", "cascade-mesh",
-        "secagg-tracer", "prox", "train-sweep-staleness"])
+    (lambda: tapi.fit(tapi.GradientDescent(t_lsq), problem(), transport="allreduce",
+                      steps=2, executor="serve", device="cpu"), 10),
+], ids=["tracer", "admm", "secagg-tracer", "serve"])
 def test_out_of_slice_raises_naming_roadmap(call, item):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md queue 1, item {item}\b"):
         call()

@@ -393,8 +393,9 @@ def test_train_cli_loss_decreases(capsys):
     assert [h["step"] for h in final["history"]] == [1, 10, 20, 30]
 
 
-@pytest.mark.parametrize("flag,item", [("--sweep-staleness=0,1", "item 8"),
-                                       ("--multipod", "item 13")])
+# --sweep-staleness is ported (tests/test_torch_executors.py holds each
+# level to a solo run); --multipod waits for item 13
+@pytest.mark.parametrize("flag,item", [("--multipod", "item 13")])
 def test_train_cli_unported_flags_raise(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         t_train.main(["--reduced", "--steps", "2", flag, "--device", "cpu"])
