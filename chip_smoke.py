@@ -95,7 +95,38 @@
    tokens/s, step ms, time to first token, peak memory and set-up time, and
    where that step's time goes (host wall and enqueue, device time as a
    CUDA graph, aten operations dispatched, and the parts on the device).
-   Then the CLI itself, briefly.
+   Then the CLI itself, briefly.  Then serving and tracing (each part's
+   kernel counts set to 0 before it and read after): (A) run (a) again
+   on ``api.ServingExecutor(registry=ModelRegistry(tmp),
+   publish_as="epsilon")`` — bitwise run (a), 20 encode launches,
+   ``registry.load`` bitwise θ — then 4,096 single-row requests of 2,000
+   f32 through ``MicroBatcher(ServeEngine.from_registry(...),
+   max_batch=64)``, drained as ``launch.serve._drain`` drains: each answer
+   bitwise its bucket's predict, all within 1e-5 × max |answer| of one
+   predict of the 4,096 rows (the largest gap printed), the ledger 4,096 ×
+   8,000 bytes up and 4,096 × 4 down, a ``swap`` to a perturbed θ changes
+   the answers; requests/s, p50 and p95 latency, flushes, padded slots.
+   (B) run (a) with ``tracer=Tracer(), trace="phases"`` and again on the
+   mesh of a world of one — both bitwise run (a), the spans ``fit/loop``,
+   ``fit/ledger``, ``fit/metrics``, ``phase/local_step``,
+   ``phase/encode`` (and ``hop/flat``, ``phase/stats_completion`` on the
+   mesh) present with their ms; traced against untraced rounds/s in
+   turns; ``export_chrome`` read back by ``json.load`` with one complete
+   event a span; ``RunReport.from_fit(...).to_markdown()``; one
+   ``device_trace`` around 3 rounds in which the profiler sees the
+   ``topk_encode`` kernel by name, 3 times.  (C) tinyllama-1.1b at full
+   width through ``launch.serve.main`` without ``--continuous`` (B 8,
+   22 requests of 128 tokens, 32 generated: buckets 8, 8 and 8, two
+   padded; batched prefill into a contiguous f32 cache, the plain
+   ``_sdpa``, no kernel): the padded bucket's 6 real rows get the ids the
+   same prompts get in a full bucket, the ledger 22 × 128 × 4 bytes up and
+   22 × 32 × 4 down; tokens/s, p50 and p95 request latency, the stats
+   JSON, and how often batched-prefill ids agree with loop-prefill ids for
+   2 prompts (reported: bf16 may part them).  (D) the serving workload's
+   first 6 requests on ``ContinuousLMEngine`` untraced and inside
+   ``activated(Tracer())``: the same greedy ids, one ``serve/decode_step``
+   span a step, 6 ``serve/requests``, the decode kernels' launches (steps
+   × 22 each), ``RunReport.from_serve``.
 6. Nearest-centroid kernel phase: the two kernels, routed by metric (l2
    to the tensor-core kernel, l1 and l∞ to the CUDA-core one), against
    their plain version (``pdist_argmin_ref``), f32 and bf16, at the JAX
@@ -203,11 +234,14 @@
    its device time by kind of kernel.
 12. Prints the redesigned kernels' times in turns, one JSON line of
    per-kernel numbers (thirteen kernels; the wire kernels' launches count
-   the executors phase's and ``topk_encode``'s the training path's too),
+   the executors phase's, ``topk_encode``'s the serving-and-tracing and
+   training paths' too, and the decode kernels' that of the continuous
+   engine under the tracer),
    the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
-No earlier phase is cut to make room for 8–11.
+No earlier phase is cut to make room for 8–11 or the serving-and-tracing
+phase (≈ 30 s on the card).
 
 Imports nothing of JAX.  Exits non-zero, with no result line, when there
 is no CUDA device or ``src/repro_torch`` is not beside it.  Any failed
@@ -1564,6 +1598,355 @@ def serve_phase(torch):
     print(f"CLI run: {time.perf_counter() - t0:.4f} s", flush=True)
     torch.cuda.empty_cache()
     return launches
+
+
+# ----------------------------------------------------------------------------
+# Serving and tracing: fit → publish → serve, a traced fit, the microbatched
+# LM path and the continuous engine under an ambient tracer
+# ----------------------------------------------------------------------------
+
+SERVE_Q = 4_096  # single-row requests of phase (A)
+SERVE_BUCKET = 64
+LM_ARGS = ["--arch", SERVE_ARCH, "--batch", "8", "--requests", "22", "--prompt-len", "128",
+           "--gen", "32", "--device", "cuda"]
+#: phase (D): the first requests of the serving phase's workload
+D_REQUESTS = 6
+
+
+def _launch_delta(kernels, before: dict) -> dict:
+    return {n: kernels.LAUNCHES[n] - before[n] for n in kernels.KERNEL_NAMES
+            if kernels.LAUNCHES[n] - before[n]}
+
+
+def fit_publish_serve(torch, api, kernels, data, ref_a, tmp):
+    """(A): run (a) on the serving executor, published, then 4,096 requests
+    through the registry's engine behind a microbatcher."""
+    import numpy as np
+
+    from repro_torch.launch.serve import _drain
+    from repro_torch.ml.linear import logistic_loss
+    from repro_torch.serve import MicroBatcher, ModelRegistry, ServeEngine, ServeMetrics
+
+    strategy = api.GradientDescent(logistic_loss, lr=1.0)
+    reg = ModelRegistry(os.path.join(tmp, "registry"))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = api.fit(strategy, data, transport="allreduce", wire="topk:0.01+ef", steps=STEPS,
+                  executor=api.ServingExecutor(registry=reg, publish_as="epsilon"),
+                  device="cuda")
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    want = {n: (STEPS if n == "topk_encode" else 0) for n in kernels.KERNEL_NAMES}
+    check(launches == want, f"(A) launches {launches}, expected {want}")
+    check(same_fit(torch, res, ref_a), "(A) the serving executor's fit is not bitwise run (a)")
+    check(isinstance(res.metrics["serve_engine"], ServeEngine), "(A) no serve_engine")
+    loaded = reg.load("epsilon")
+    check(reg.latest("epsilon") == 1 and loaded.is_cuda
+          and torch.equal(loaded.view(torch.int32), res.theta.view(torch.int32)),
+          "(A) registry.load is not bitwise θ")
+
+    engine = ServeEngine.from_registry(reg, "epsilon", strategy)
+    check(engine.device.type == "cuda", f"(A) engine on {engine.device}")
+    Xq = np.random.default_rng(7).standard_normal((SERVE_Q, D), dtype=np.float32)
+    engine.predict(Xq[:SERVE_BUCKET])  # first-call costs (cuBLAS handle)
+    engine.metrics = ServeMetrics()
+    batcher = MicroBatcher(engine, max_batch=SERVE_BUCKET)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tickets = [batcher.submit(x) for x in Xq]
+    _drain(batcher)
+    answers = torch.stack([t.result() for t in tickets])
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    stats = engine.stats()
+    check(answers.is_cuda and answers.shape == (SERVE_Q,), f"(A) answers {answers.shape}")
+    check(engine.ledger.uplink_bytes == SERVE_Q * D * 4
+          and engine.ledger.downlink_bytes == SERVE_Q * 4,
+          f"(A) ledger {engine.ledger.uplink_bytes} / {engine.ledger.downlink_bytes} B")
+    check(batcher.flushes == SERVE_Q // SERVE_BUCKET and engine.metrics.padded_slots == 0,
+          f"(A) {batcher.flushes} flushes, {engine.metrics.padded_slots} padded slots")
+    # each bucket is 64 consecutive submits: its answers are that bucket's predict
+    ref = ServeEngine(strategy, loaded)
+    buckets = torch.cat([ref.predict(Xq[i: i + SERVE_BUCKET])
+                         for i in range(0, SERVE_Q, SERVE_BUCKET)])
+    check(torch.equal(answers.view(torch.int32), buckets.view(torch.int32)),
+          "(A) an answer differs from its bucket's predict")
+    whole = ref.predict(Xq)
+    gap = float((answers - whole).abs().max())
+    scale = float(whole.abs().max())
+    check(gap <= 1e-5 * scale, f"(A) answers {gap} from one predict of all rows (scale {scale})")
+    before = engine.predict(Xq[:SERVE_BUCKET])
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    engine.swap(loaded + 0.01 * torch.randn(loaded.shape, generator=gen, device="cuda"))
+    after = engine.predict(Xq[:SERVE_BUCKET])
+    check(not torch.equal(before, after), "(A) swap did not change the answers")
+    out = {
+        "fit_s": fit_s, "fit_rounds_per_s": STEPS / fit_s, "launches": launches,
+        "requests": SERVE_Q, "serve_s": serve_s, "requests_per_s": SERVE_Q / serve_s,
+        "engine_requests_per_s": stats["requests_per_s"],
+        "p50_latency_ms": stats["p50_latency_ms"], "p95_latency_ms": stats["p95_latency_ms"],
+        "flushes": batcher.flushes, "padded_slots": engine.metrics.padded_slots,
+        "max_gap_to_one_predict": gap, "answer_scale": scale,
+        "request_bytes": engine.ledger.uplink_bytes, "response_bytes": engine.ledger.downlink_bytes,
+    }
+    print(f"(A) fit → publish → serve: {json.dumps(out)}", flush=True)
+    return launches, out
+
+
+def traced_fit(torch, api, kernels, data, ref_a, tmp):
+    """(B): run (a) traced with trace="phases"; the tracing overhead in
+    turns; the Chrome export; one device trace around 3 rounds."""
+    from torch.autograd import DeviceType
+
+    from repro_torch.ml.linear import logistic_loss
+    from repro_torch.telemetry import RunReport, Tracer
+
+    strategy = api.GradientDescent(logistic_loss, lr=1.0)
+    spec = dict(transport="allreduce", wire="topk:0.01+ef", steps=STEPS, device="cuda")
+    # the tracing overhead: untraced and traced (no phases) fits in turns
+    walls = {"untraced": [], "traced": []}
+    for _ in range(3):
+        for label in ("untraced", "traced"):
+            kw = {"tracer": Tracer()} if label == "traced" else {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = api.fit(strategy, data, **spec, **kw)
+            torch.cuda.synchronize()
+            walls[label].append(time.perf_counter() - t0)
+            check(same_fit(torch, r, ref_a), f"(B) {label} fit is not bitwise run (a)")
+    rps = {k: STEPS / statistics.median(v) for k, v in walls.items()}
+
+    tracer = Tracer()
+    kernels.reset_launches()
+    res = api.fit(strategy, data, **spec, tracer=tracer, trace="phases")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check(same_fit(torch, res, ref_a), "(B) the traced fit is not bitwise run (a)")
+    # 20 in the fit, 2 × 20 in the encode probe (warm-up + timed)
+    want = {n: (3 * STEPS if n == "topk_encode" else 0) for n in kernels.KERNEL_NAMES}
+    check(launches == want, f"(B) launches {launches}, expected {want}")
+    launches = {n: c for n, c in launches.items() if c}
+    summary = tracer.summary()
+    names = ("fit/loop", "fit/ledger", "fit/metrics", "dispatch/local-update",
+             "phase/local_step", "phase/encode")
+    # phase/stats_completion and hop/* are probes of mesh placements only
+    for name in names:
+        check(name in summary, f"(B) span {name} missing: {sorted(summary)}")
+    span_ms = {n: 1e3 * e["total_s"] for n, e in summary.items()}
+    check(tracer.counters == {"program_cache/uncached": 1}, f"(B) counters {tracer.counters}")
+    path = tracer.export_chrome(os.path.join(tmp, "run.trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    complete = [e for e in events if e["ph"] == "X"]
+    check(len(complete) == len(tracer.spans) and all(e["dur"] >= 0 for e in complete),
+          f"(B) {len(complete)} complete events for {len(tracer.spans)} spans")
+    report = RunReport.from_fit(res, tracer=tracer)
+    check(report.as_dict()["wire_kernel_hits"]["launches"] == {"topk_encode": STEPS},
+          f"(B) report launches {report.as_dict()['wire_kernel_hits']}")
+    # the same fit placed on a mesh (a world of one, no process group): the
+    # per-hop probe and the deferred statistics' completion join the spans
+    mesh_tracer = Tracer()
+    before = dict(kernels.LAUNCHES)
+    res_m = api.fit(strategy, data, **spec, executor="mesh", tracer=mesh_tracer,
+                    trace="phases")
+    torch.cuda.synchronize()
+    for n, c in _launch_delta(kernels, before).items():
+        launches[n] = launches.get(n, 0) + c
+    check(same_fit(torch, res_m, ref_a), "(B) the traced mesh fit is not bitwise run (a)")
+    mesh_summary = mesh_tracer.summary()
+    for name in names[:3] + ("dispatch/mesh-update", "phase/local_step", "phase/encode",
+                             "hop/flat", "phase/stats_completion"):
+        check(name in mesh_summary, f"(B) mesh span {name} missing: {sorted(mesh_summary)}")
+    span_ms.update({f"mesh {n}": 1e3 * e["total_s"] for n, e in mesh_summary.items()
+                    if n.startswith(("hop/", "phase/stats", "dispatch/"))})
+
+    before = dict(kernels.LAUNCHES)
+    with tracer.device_trace(os.path.join(tmp, "device_trace")) as prof:
+        api.fit(strategy, data, transport="allreduce", wire="topk:0.01+ef", steps=3,
+                device="cuda", tracer=tracer)
+    dt_launches = _launch_delta(kernels, before)
+    for n, c in dt_launches.items():
+        launches[n] = launches.get(n, 0) + c
+    on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    enc = [e for e in on_card if "topk_encode" in e.key]
+    check(enc and sum(e.count for e in enc) == 3,
+          f"(B) the profiler saw no topk_encode kernel: {[e.key[:60] for e in on_card][:12]}")
+    check(os.path.getsize(os.path.join(tmp, "device_trace", "device_trace.json")) > 0,
+          "(B) no device trace written")
+    out = {"rounds_per_s": rps, "walls_s": walls,
+           "overhead": rps["untraced"] / rps["traced"] - 1, "span_ms": span_ms,
+           "launches": launches, "chrome_events": len(events),
+           "device_trace_topk_encode": {"key": enc[0].key[:80], "count": sum(e.count for e in enc),
+                                        "device_ms": sum(e.self_device_time_total
+                                                         for e in enc) / 1e3}}
+    print(f"(B) traced fit: {json.dumps(out)}", flush=True)
+    print(report.to_markdown(), flush=True)
+    return launches, out
+
+
+def microbatched_lm(torch, kernels):
+    """(C): tinyllama-1.1b at full width through the microbatched CLI path:
+    buckets 8, 8 and 8 (2 padded), batched prefill."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer as tf
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        outs = launch_serve.main(LM_ARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    text = buf.getvalue()
+    print(text.rstrip(), flush=True)
+    check(all(n == 0 for n in launches.values()), f"(C) launched kernels {launches}")
+    stats = json.loads(next(line for line in text.splitlines() if line.startswith("{")))
+    cfg = get_config(SERVE_ARCH)
+    R, P, G = 22, 128, 32
+    check(outs.shape == (R, G) and outs.dtype == np.int32, f"(C) ids {outs.shape}")
+    check(bool(((outs >= 0) & (outs < cfg.vocab_size)).all()), "(C) id out of range")
+    check(stats["request_bytes"] == R * P * 4 and stats["response_bytes"] == R * G * 4,
+          f"(C) ledger {stats['request_bytes']} / {stats['response_bytes']} B")
+    # the CLI prints its floats to 4 decimals
+    check(stats["batches"] == 3 and abs(stats["pad_fraction"] - 2 / 24) < 1e-4,
+          f"(C) {stats['batches']} batches, pad fraction {stats['pad_fraction']}")
+    # the padding contract: the padded bucket's 6 real rows get the ids the
+    # same prompts get in a full bucket of 8
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, size=(R, P)).astype(np.int32)
+    full = np.concatenate([prompts[16:], prompts[:2]])
+    predict = launch_serve.lm_predict_fn(cfg, gen=G)
+    ids = predict(params, torch.from_numpy(full).cuda()).cpu().numpy()
+    check(np.array_equal(ids[:6], outs[16:]), "(C) padding changed a real request's ids")
+    two = torch.from_numpy(prompts[:2]).cuda()
+    b = launch_serve.prefill_and_decode(cfg, params, two, gen=G, cache_len=P + G + 1,
+                                        prefill="batched")
+    lp = launch_serve.prefill_and_decode(cfg, params, two, gen=G, cache_len=P + G + 1,
+                                         prefill="loop")
+    # where a bucket's time goes: one bucket of 8 under the profiler
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    eight = torch.from_numpy(prompts[:8]).cuda()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        predict(params, eight)
+        torch.cuda.synchronize()
+        p_wall = (time.perf_counter() - t1) * 1e3
+    on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in on_card) / 1e3
+    aten = sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CPU and e.key.startswith("aten::"))
+    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:4]
+    profiled = {"wall_ms": p_wall, "device_busy_ms": busy, "idle_share": 1 - busy / p_wall,
+                "aten_calls_nested_included": aten, "decode_calls": G + 1,
+                "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count] for e in top]}
+    agree = float((b == lp).float().mean())
+    first = [int((b[i] != lp[i]).nonzero()[0]) if bool((b[i] != lp[i]).any()) else G
+             for i in range(2)]
+    out = {"wall_s": wall, "tokens": R * G, "tokens_per_s_wall": R * G / wall,
+           "tokens_per_s_busy": R * G / stats["busy_s"],
+           "p50_latency_ms": stats["p50_latency_ms"], "p95_latency_ms": stats["p95_latency_ms"],
+           "batched_vs_loop_ids_agree": agree, "first_disagreement": first,
+           "padding_contract": True, "profiled_bucket": profiled}
+    print(f"(C) microbatched LM: {json.dumps(out)}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def continuous_traced(torch, kernels):
+    """(D): the first requests of the serving phase's workload, untraced and
+    then inside ``activated(Tracer())``."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import ContinuousLMEngine
+    from repro_torch.telemetry import RunReport, Tracer, trace
+
+    cfg = get_config(SERVE_ARCH)
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    # the serving phase's workload, drawn as it draws it; its first requests
+    rng = np.random.default_rng(0)
+    plens = rng.integers(32, 513, size=SERVE_REQUESTS)
+    gens = rng.integers(16, 129, size=SERVE_REQUESTS)[:D_REQUESTS]
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in plens][:D_REQUESTS]
+
+    def serve():
+        eng = ContinuousLMEngine(cfg, params, n_slots=SERVE_SLOTS, page_size=SERVE_PAGE,
+                                 max_seq=SERVE_MAX_SEQ, device="cuda")
+        tickets = [eng.submit(p, max_new=int(g)) for p, g in zip(prompts, gens)]
+        steps = eng.run_until_idle()
+        torch.cuda.synchronize()
+        return eng, steps, [t.result() for t in tickets]
+
+    _, _, plain = serve()
+    tracer = Tracer()
+    kernels.reset_launches()
+    with trace.activated(tracer):
+        eng, steps, ids = serve()
+    launches = dict(kernels.LAUNCHES)
+    check(eng.tracer is tracer, "(D) the engine did not pick up the ambient tracer")
+    check(all(np.array_equal(a, b) for a, b in zip(plain, ids)),
+          "(D) traced greedy ids differ from the untraced run's")
+    n_layers = cfg.num_layers
+    check(launches["decode_attention"] == steps * n_layers
+          and launches["decode_attention_merge"] == steps * n_layers,
+          f"(D) decode launches {launches}, {steps} steps × {n_layers}")
+    summary = tracer.summary()
+    check(summary["serve/decode_step"]["count"] == steps,
+          f"(D) {summary['serve/decode_step']['count']} decode-step spans for {steps} steps")
+    check(tracer.counters["serve/requests"] == D_REQUESTS,
+          f"(D) serve/requests {tracer.counters['serve/requests']}")
+    report = RunReport.from_serve(eng)
+    print(report.to_markdown(), flush=True)
+    out = {"requests": D_REQUESTS, "decode_steps": steps, "launches": {
+        k: v for k, v in launches.items() if v}, "spans": {
+        k: {"count": e["count"], "total_ms": 1e3 * e["total_s"]} for k, e in summary.items()},
+        "counters": tracer.counters}
+    print(f"(D) continuous engine under an ambient tracer: {json.dumps(out)}", flush=True)
+    del eng, params
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def serving_tracing_phase(torch, ref_a):
+    """Phases (A)–(D) of the serving-and-tracing phase; returns the launches
+    each drove (its counts set to 0 before it and read after) summed."""
+    import tempfile
+
+    from repro_torch import api, kernels
+
+    t0 = time.perf_counter()
+    launches = dict.fromkeys(kernels.KERNEL_NAMES, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = make_epsilon_shaped(torch, 0)
+        out = {}
+        for label, fn in (("A", fit_publish_serve), ("B", traced_fit)):
+            got, out[label] = fn(torch, api, kernels, data, ref_a, tmp)
+            for n, c in got.items():
+                launches[n] += c
+        del data
+        torch.cuda.empty_cache()
+        for label, fn in (("C", microbatched_lm), ("D", continuous_traced)):
+            got, out[label] = fn(torch, kernels)
+            for n, c in got.items():
+                launches[n] += c
+    print(f"serving and tracing phase: {time.perf_counter() - t0:.2f} s", flush=True)
+    return launches, out
 
 
 # ----------------------------------------------------------------------------
@@ -3089,6 +3472,7 @@ def main() -> int:
     exec_launches, executors = executors_phase(torch, data, run_a)
     for name, n in exec_launches.items():
         launches[name] += n
+    ref_a = run_a["res"]  # θ, trajectory and ledger for the serving phase's bitwise checks
     del data, run_a
     torch.cuda.empty_cache()
     secure = security_phase(torch)
@@ -3096,6 +3480,10 @@ def main() -> int:
     served = serve_phase(torch)
     for name in ("decode_attention", "decode_attention_merge"):
         launches[name] = served[name]
+    st_launches, serving_tracing = serving_tracing_phase(torch, ref_a)
+    for name, n in st_launches.items():
+        launches[name] += n
+    del ref_a
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     Xs, C0 = make_kdd_shaped(torch, 0)
@@ -3129,6 +3517,7 @@ def main() -> int:
     train_launches, train_stats = train_phase(torch)
     launches["topk_encode"] += train_launches
     print("executors:", json.dumps(executors), flush=True)
+    print("serving and tracing:", json.dumps(serving_tracing), flush=True)
     print("security wires and private regression:", json.dumps(secure), flush=True)
     print("ml families:", json.dumps(families), flush=True)
     print("attention path:", json.dumps({"errors": attn_err, **attn_stats,

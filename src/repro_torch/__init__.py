@@ -23,7 +23,12 @@ with its count and mask in CUDA (``csrc/topk_sparsify.cu``); and training
 — ``api.OptimizerStrategy`` under ``delay_line`` × ``topk:f+ef`` with
 ``optim``, the LM loss (``models.transformer.loss_fn``), ``checkpoint``
 in the JAX package's format, the LM token stream (``data``) and
-``launch.train``.  Kernels are built with ``nvcc``
+``launch.train``; the executors beyond local (``sweep``, ``mesh``,
+``multipod``); request/response serving (``serve.ServeEngine``,
+``MicroBatcher``, ``ModelRegistry``, the ``serve`` executor and
+``launch.serve``'s microbatched and fit → publish → serve paths) and the
+run timeline (``telemetry``: ``Tracer``, ``RunReport``, the
+``trace="phases"`` probes).  Kernels are built with ``nvcc``
 on first use.  What is not ported raises ``NotImplementedError`` naming
 its ``ROADMAP.md`` item.
 
@@ -32,9 +37,10 @@ pytrees (``torch.utils._pytree``); an explicit ``device`` (default
 ``"cuda"``; without a GPU, pass ``device="cpu"`` or the entry points
 raise); explicit ``torch.Generator``s; a batch dimension written out (or
 ``torch.func.vmap``) where the reference vmaps; Python loops where it
-scans.  The reference's ``jit``, its program cache (``cached_program`` /
-``dispatch``) and the reprolint-driven trace hygiene have no counterpart:
-PyTorch runs eagerly, so there is no trace to keep clean or to cache.
+scans.  The reference's ``jit``, its program cache (``cached_program``)
+and the reprolint-driven trace hygiene have no counterpart: PyTorch runs
+eagerly, so there is no trace to keep clean or to cache (``dispatch`` tags
+every executor loop ``uncached``).
 """
 
 from repro_torch.device import resolve_device

@@ -1,7 +1,7 @@
 """``repro_torch.api`` — the unified training API on PyTorch (port of
 ``repro.api``: Strategy × Transport × Wire × Executor; the executors are
-``local``, ``mesh``, ``multipod``, ``sweep`` and ``mesh+sweep`` /
-``multipod+sweep``).
+``local``, ``mesh``, ``multipod``, ``sweep``, ``serve`` and
+``mesh+sweep`` / ``multipod+sweep``).
 
     from repro_torch import api
     from repro_torch.ml.linear import lsq_loss
@@ -20,6 +20,7 @@ from repro_torch.api.executor import (
     LocalExecutor,
     MeshExecutor,
     MultiPodExecutor,
+    ServingExecutor,
     SweepExecutor,
     make_executor,
 )
@@ -63,6 +64,7 @@ __all__ = [
     "Wire", "DenseWire", "CompressedWire", "ThresholdWire", "TopKWire",
     "Int8Wire", "DPWire", "SecAggWire", "ChainWire", "make_wire",
     "Executor", "LocalExecutor", "MeshExecutor", "MultiPodExecutor", "SweepExecutor",
+    "ServingExecutor",
     "make_executor", "EXECUTORS", "COMPOSED_EXECUTORS",
     "FaultPlan", "FaultDraws", "FaultCarry",
 ]

@@ -16,8 +16,18 @@ runs a (strategy × transport × wire × executor) combination and returns a
   the carry gain a leading S axis;
 * ``metrics``     — the strategy's summary, plus ``uplink_bytes_per_round``
   / ``downlink_bytes_per_round`` (numpy), ``wire_kernel_hits`` for the
-  kernel wires, and ``carry`` — a resume token for ``fit(..., carry=...)``
-  (``repro_torch.convert.carry_from_reference`` makes one from a JAX fit).
+  kernel wires and ``wire_kernel_launches`` (the wire kernels' launches
+  during the fit, from ``repro_torch.kernels.LAUNCHES``), ``carry`` — a
+  resume token for ``fit(..., carry=...)``
+  (``repro_torch.convert.carry_from_reference`` makes one from a JAX fit)
+  — and, under ``executor="serve"``, the live ``serve_engine``.
+
+A ``tracer=`` (``repro_torch.telemetry.Tracer``) is installed as the
+ambient tracer for the whole run: the ``fit/loop``, ``fit/ledger`` and
+``fit/metrics`` spans, the executors' ``dispatch/<label>`` spans and the
+serving engine's spans land on one timeline.  Every span is on the host
+and changes nothing the card computes, so a traced fit returns the
+untraced fit's bits.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
+from repro_torch import kernels
 from repro_torch.api.executor import make_executor
 from repro_torch.api.faults import FaultPlan, make_fault_plan
 from repro_torch.api.strategy import Strategy
@@ -35,8 +46,12 @@ from repro_torch.api.transport import make_transport
 from repro_torch.api.wire import make_wire
 from repro_torch.core.allreduce import CommLedger
 from repro_torch.device import resolve_device, to_device
+from repro_torch.telemetry import trace as _trace
 
 PyTree = Any
+
+#: the kernels a wire's encode launches (``metrics["wire_kernel_launches"]``)
+_WIRE_KERNELS = ("topk_encode", "topk_select", "int8_absmax", "int8_quant")
 
 
 def _jsonable(v, _size_cap: int = 100_000):
@@ -79,12 +94,6 @@ def _total(a: np.ndarray) -> int:
     if np.issubdtype(a.dtype, np.integer):
         return int(a.sum(dtype=np.int64))
     return int(round(float(a.sum(dtype=np.float64))))
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet — ROADMAP.md {item}"
-    )
 
 
 def fit(
@@ -130,12 +139,34 @@ def fit(
       device: ``"cuda"`` (default; raises without a GPU) or ``"cpu"``.
       sweep: the scenario values of a sweep executor spec, e.g.
         ``executor="sweep", sweep={"lr": [0.05, 0.1]}``.
-      tracer, trace: not ported yet; anything but None raises.
+      tracer: optional ``repro_torch.telemetry.Tracer``, installed as the
+        ambient tracer for the whole run.  ``fit/loop`` is fenced with
+        ``torch.cuda.synchronize()`` when a tracer is given, so it covers
+        device completion.
+      trace: ``"phases"`` (needs ``tracer``) also records per-phase device
+        times — local step, wire encode, per-hop collective, statistics
+        completion — by replaying standalone fenced probes at the run's
+        shapes AFTER the fit (``repro_torch.telemetry.phases``); the fit
+        itself is untouched.
       transport_options: ``staleness=...`` for delay_line; ``rho=``,
         ``g=``, ``g_lam=`` for admm_consensus.
     """
-    if tracer is not None or trace is not None:
-        raise _not_ported("fit(tracer=/trace=)", "queue 1, item 12 (telemetry/)")
+    if trace not in (None, "phases"):
+        raise ValueError(f"trace must be None or 'phases', got {trace!r}")
+    if trace == "phases" and tracer is None:
+        raise ValueError("trace='phases' requires a tracer=Tracer()")
+    with _trace.activated(tracer):
+        return _fit_traced(
+            strategy, data, wire=wire, transport=transport, executor=executor,
+            sweep=sweep, schedule=schedule, steps=steps, stream=stream, theta0=theta0,
+            carry=carry, faults=faults, tag=tag, device=device, tracer=tracer,
+            trace=trace, transport_options=transport_options,
+        )
+
+
+def _fit_traced(strategy, data, *, wire, transport, executor, sweep, schedule, steps,
+                stream, theta0, carry, faults, tag, device, tracer, trace,
+                transport_options) -> FitResult:
     dev = resolve_device(device)
     w = make_wire(wire)
     tr = make_transport(transport, **transport_options)
@@ -144,11 +175,26 @@ def fit(
     data, stream, theta0, carry = to_device((data, stream, theta0, carry), dev)
     if ex.num_scenarios is not None:
         ex.params = to_device(ex.params, dev)
-    raw = tr.run(
-        strategy, data,
-        wire=w, schedule=schedule, steps=steps, stream=stream,
-        theta0=theta0, carry=carry, executor=ex, faults=plan,
-    )
+    launched = {n: kernels.LAUNCHES[n] for n in _WIRE_KERNELS}
+    with _trace.span("fit/loop", transport=tr.name, wire=w.name, executor=ex.name, tag=tag):
+        raw = tr.run(
+            strategy, data,
+            wire=w, schedule=schedule, steps=steps, stream=stream,
+            theta0=theta0, carry=carry, executor=ex, faults=plan,
+        )
+        if tracer is not None and dev.type == "cuda":
+            # fence so the loop span covers device completion, not just the
+            # queueing — a pure wait, results unchanged
+            torch.cuda.synchronize(dev)
+    launched = {n: kernels.LAUNCHES[n] - launched[n] for n in _WIRE_KERNELS}
+
+    if trace == "phases":
+        from repro_torch.telemetry import phases as _phases
+
+        _phases.profile_phases(
+            tracer, strategy, data, wire=w, transport=tr, executor=ex,
+            schedule=schedule, steps=steps, stream=stream, theta0=theta0,
+        )
 
     ups = np.asarray(raw.uplink)
     downs = np.asarray(raw.downlink)
@@ -175,16 +221,20 @@ def fit(
         return led
 
     S = ex.num_scenarios
-    if S is None:
-        ledger = materialize(ups, downs)
-        metrics = dict(strategy.summary(raw.theta, data))
-    else:
-        ledger = [materialize(ups[s], downs[s], f"/s{s}") for s in range(S)]
-        try:
-            batched = vmap(lambda th: strategy.summary(th, data))(raw.theta)
-            metrics = {k: v.cpu().numpy() for k, v in batched.items()}
-        except Exception:  # summaries need not be vmappable — skip
-            metrics = {}
+    with _trace.span("fit/ledger", scenarios=S):
+        if S is None:
+            ledger = materialize(ups, downs)
+        else:
+            ledger = [materialize(ups[s], downs[s], f"/s{s}") for s in range(S)]
+    with _trace.span("fit/metrics"):
+        if S is None:
+            metrics = dict(strategy.summary(raw.theta, data))
+        else:
+            try:
+                batched = vmap(lambda th: strategy.summary(th, data))(raw.theta)
+                metrics = {k: v.cpu().numpy() for k, v in batched.items()}
+            except Exception:  # summaries need not be vmappable — skip
+                metrics = {}
     metrics.update(raw.extras)
     metrics["uplink_bytes_per_round"] = ups
     metrics["downlink_bytes_per_round"] = downs
@@ -196,6 +246,8 @@ def fit(
         # which leaves the wire's kernels covered vs the <256/non-f32
         # reference fallback
         metrics["wire_kernel_hits"] = w.kernel_report(ex.scenario_template(raw.theta))
+        metrics["wire_kernel_launches"] = {n: c for n, c in launched.items() if c}
+    metrics.update(ex.extra_metrics())  # e.g. the serving executor's live engine
     return FitResult(
         theta=raw.theta, trajectory=raw.trajectory, ledger=ledger, metrics=metrics
     )

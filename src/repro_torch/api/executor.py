@@ -21,7 +21,10 @@ per-round loop is placed:
   ``torch.func.vmap`` over each round's step: one pass over the data for
   all S, the wire kernels launched once on S·K rows (they are custom ops
   with a ``vmap`` rule), a ``FitResult`` with a leading S axis and one
-  ``CommLedger`` per scenario.
+  ``CommLedger`` per scenario;
+* ``serve``    — trains exactly like ``local``, then publishes the
+  finalized model (optionally) and stands it up behind a
+  ``repro_torch.serve.ServeEngine`` (``metrics["serve_engine"]``).
 
 Executors compose: ``SweepExecutor(params, inner=MeshExecutor(...))``
 (``"mesh+sweep"`` / ``"multipod+sweep"`` with ``fit(..., sweep={...})``)
@@ -44,9 +47,14 @@ inside ``launch.mesh.run_ranks``); without a process group the mesh is a
 world of one on this process's device.  On one H100 NCCL takes a world of
 one only; placement across ranks runs on the CPU with gloo.
 
-Not ported: the ``serve`` executor (``ROADMAP.md`` queue 1, item 10) and
-the program cache (``cached_program`` / ``dispatch``) — PyTorch runs
-eagerly, so there is no compiled program to cache.
+Every executor runs its loop through ``dispatch(label, run, *args)``:
+with an ambient tracer (``fit(..., tracer=...)``) the loop is one
+``dispatch/<label>`` span, fenced with ``torch.cuda.synchronize()`` so it
+covers device completion, and one ``program_cache/uncached`` count.  The
+reference caches its compiled programs (``cached_program``) and tags a
+dispatch ``hit`` or ``miss``; PyTorch runs eagerly, so there is no program
+to cache and every dispatch is ``uncached`` (``ROADMAP.md`` queue 3, item
+20), as the reference's are when no cache key is given.
 """
 
 from __future__ import annotations
@@ -78,11 +86,10 @@ from repro_torch.launch.mesh import (
     make_node_mesh,
     mesh_device,
 )
+from repro_torch.telemetry import trace as _trace
 from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 PyTree = Any
-
-_NOT_PORTED_SERVE = "ROADMAP.md queue 1, item 10 (the serve executor)"
 
 # ----------------------------------------------------------------------------
 # Ambient execution context + the primitive set
@@ -440,6 +447,59 @@ def _as_array(v) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------------------
+# Dispatch (the reference's program cache, without a cache)
+# ----------------------------------------------------------------------------
+
+#: dispatches since the last ``clear_program_cache``; ``hits`` / ``misses``
+#: / ``size`` stay 0 (nothing is compiled, so nothing is cached)
+_PROGRAM_CACHE_STATS = {"hits": 0, "misses": 0, "uncached": 0}
+_STATS_LOCK = threading.Lock()  # rank threads of one process dispatch at once
+
+
+def program_cache_stats() -> dict:
+    with _STATS_LOCK:
+        return {"size": 0, **_PROGRAM_CACHE_STATS}
+
+
+def clear_program_cache() -> None:
+    with _STATS_LOCK:
+        for k in _PROGRAM_CACHE_STATS:
+            _PROGRAM_CACHE_STATS[k] = 0
+
+
+def _fence(out) -> None:
+    if any(isinstance(x, torch.Tensor) and x.is_cuda for x in tree_leaves(out)):
+        torch.cuda.synchronize()
+
+
+def dispatch(label: str, run, *args):
+    """``run(*args)`` — one executor loop — with observability: when a
+    tracer is ambient the call is a ``dispatch/<label>`` span tagged
+    ``cache="uncached"`` and fenced with ``torch.cuda.synchronize()`` (a
+    pure wait: traced dispatch stays bitwise), beside a
+    ``program_cache/uncached`` count.  Without a tracer it is ``run(*args)``."""
+    with _STATS_LOCK:
+        _PROGRAM_CACHE_STATS["uncached"] += 1
+    t = _trace.current_tracer()
+    if t is None:
+        return run(*args)
+    t.count("program_cache/uncached")
+    with t.span(f"dispatch/{label}", cache="uncached"):
+        out = run(*args)
+        _fence(out)
+    return out
+
+
+def _walk_schedule(step, carry, schedule):
+    """The §5 contact walk: one ``step`` a contact, outputs stacked."""
+    ys = []
+    for xt in schedule:
+        carry, y = step(carry, xt)
+        ys.append(y)
+    return carry, _stack_rounds(ys)
+
+
+# ----------------------------------------------------------------------------
 # Executors
 # ----------------------------------------------------------------------------
 
@@ -483,6 +543,11 @@ class Executor:
     def finalize(self, strategy, theta, state, data):
         return strategy.finalize(theta, state, data)
 
+    def extra_metrics(self) -> dict:
+        """Executor-specific entries ``fit`` merges into ``metrics`` (the
+        serving executor's live engine)."""
+        return {}
+
     def ledger_hops(self, strategy, data):
         """Per-tier decomposition of the per-round node messages —
         ``[(tier, messages, price_per_byte), ...]`` summing to K — or None
@@ -515,15 +580,51 @@ class LocalExecutor(Executor):
                    wire=None, enter_loop=None, exit_loop=None, sweep_targets=()):
         if carry is None:
             carry = make_carry()
-        return _run_rounds(make_step(data, None), carry, xs, length, enter_loop, exit_loop)
+        return dispatch(f"{self.name}-update", _run_rounds, make_step(data, None), carry, xs,
+                        length, enter_loop, exit_loop)
 
     def run_server(self, *, strategy, data, carry, make_step, schedule, wire=None):
-        step = make_step(data)
-        ys = []
-        for xt in schedule:
-            carry, y = step(carry, xt)
-            ys.append(y)
-        return carry, _stack_rounds(ys)
+        return dispatch(f"{self.name}-server", _walk_schedule, make_step(data), carry,
+                        schedule)
+
+
+class ServingExecutor(LocalExecutor):
+    """Train exactly like ``local``, then stand the finalized model up
+    behind a ``repro_torch.serve.ServeEngine`` — the train → serve executor
+    swap.  ``fit(..., executor="serve")`` returns a ``FitResult`` whose
+    ``metrics["serve_engine"]`` already answers requests (and, with
+    ``registry=`` / ``publish_as=``, has been published first)::
+
+        res = api.fit(strategy, data, transport="allreduce", steps=400,
+                      executor=api.ServingExecutor(), device="cuda")
+        y = res.metrics["serve_engine"].predict(Xq)
+
+    ``mesh=`` anything but None raises in the engine (``ROADMAP.md`` queue
+    1, item 13); other keywords go to the engine."""
+
+    name = "serve"
+
+    def __init__(self, *, mesh=None, registry=None, publish_as: str | None = None,
+                 **engine_kw):
+        if (registry is None) != (publish_as is None):
+            raise ValueError("publishing needs both registry= and publish_as=")
+        self._mesh = mesh
+        self._registry = registry
+        self._publish_as = publish_as
+        self._engine_kw = engine_kw
+        self.engine = None
+
+    def finalize(self, strategy, theta, state, data):
+        from repro_torch.serve.engine import ServeEngine
+
+        final = super().finalize(strategy, theta, state, data)
+        if self._registry is not None:
+            self._registry.publish(self._publish_as, final)
+        self.engine = ServeEngine(strategy, final, mesh=self._mesh, **self._engine_kw)
+        return final
+
+    def extra_metrics(self) -> dict:
+        return {} if self.engine is None else {"serve_engine": self.engine}
 
 
 class ResolvedPlacement(NamedTuple):
@@ -670,8 +771,8 @@ class MeshExecutor(Executor):
         theta, sstate, wstate, delay = carry
         wstate = _rows_of(wstate, ctx.shard, kl, wdim)
         with executing(ctx):
-            (theta, sstate, wstate, delay), ys = body((theta, sstate, wstate, delay),
-                                                      shard_data)
+            (theta, sstate, wstate, delay), ys = dispatch(
+                f"{self.name}-update", body, (theta, sstate, wstate, delay), shard_data)
         wstate = _gather_rows(wstate, ctx, mesh_device(r.mesh), wdim)
         return (theta, sstate, wstate, delay), ys
 
@@ -712,9 +813,9 @@ class MeshExecutor(Executor):
         server, sstate, wstate = carry
         wstate = _rows_of(wstate, ctx.shard, kl)
         with executing(ctx):
-            (server, sstate, wstate), ys = LocalExecutor.run_server(
-                self, strategy=strategy, data=_rows_of(data, ctx.shard, kl),
-                carry=(server, sstate, wstate), make_step=make_step, schedule=schedule)
+            (server, sstate, wstate), ys = dispatch(
+                f"{self.name}-server", _walk_schedule,
+                make_step(_rows_of(data, ctx.shard, kl)), (server, sstate, wstate), schedule)
         wstate = _gather_rows(wstate, ctx, mesh_device(r.mesh))
         return (server, sstate, wstate), ys
 
@@ -975,7 +1076,7 @@ class SweepExecutor(Executor):
                 return c, ys
 
         if self.inner is None:
-            return body(carry, data)
+            return dispatch(f"{self.name}-update", body, carry, data)
         return self.inner.place_update(strategy=strategy, data=data, carry=carry,
                                        body=body, scenario_axis=True)
 
@@ -1002,7 +1103,8 @@ def make_executor(spec, sweep_params: dict | None = None) -> Executor:
         make_executor("mesh+sweep", {"lr": [0.02, 0.1]})
         # ≡ SweepExecutor({"lr": ...}, inner=MeshExecutor())
 
-    ``"serve"`` is not ported yet and raises."""
+    ``"serve"`` is a ``ServingExecutor`` (local fit, the finalized model
+    handed to a ``ServeEngine``)."""
     if isinstance(spec, Executor):
         if sweep_params is not None:
             raise ValueError(
@@ -1038,7 +1140,5 @@ def make_executor(spec, sweep_params: dict | None = None) -> Executor:
     if spec == "multipod":
         return MultiPodExecutor()
     if spec == "serve":
-        raise NotImplementedError(
-            f"executor 'serve' is not ported yet ({_NOT_PORTED_SERVE}); "
-            "fit on 'local' and serve the result with repro_torch.serve")
+        return ServingExecutor()
     raise ValueError(f"unknown executor {spec!r} — one of {EXECUTORS}")

@@ -79,6 +79,10 @@ class Strategy:
     #: False when the update step cannot run under ``torch.func.vmap``: a
     #: sweep then runs the scenarios in turn inside each round
     vmappable: bool = True
+    #: whether ``predict`` is a pure function of (θ, X) (the reference jits
+    #: those); False for predicts that drive their own loop (LM decode).
+    #: The port's ``ServeEngine`` runs both eagerly
+    predict_jit: bool = True
 
     def init_theta(self, data) -> PyTree:
         raise NotImplementedError(
@@ -146,7 +150,8 @@ class Strategy:
 
     def predict(self, theta: PyTree, X: PyTree) -> PyTree:
         raise NotImplementedError(
-            f"{type(self).__name__} does not implement predict()"
+            f"{type(self).__name__} does not implement predict() and "
+            "cannot be served"
         )
 
     # -- wire-cost hooks -----------------------------------------------------
@@ -423,11 +428,13 @@ class OptimizerStrategy(Strategy):
     fault_maskable = True
 
     def __init__(self, loss_fn: Callable, optimizer, *, has_aux: bool = False,
-                 predict_fn: Callable | None = None):
+                 predict_fn: Callable | None = None, predict_jit: bool = False):
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.has_aux = has_aux
         self.predict_fn = predict_fn
+        # False fits loop-driving decodes (LM prefill + decode)
+        self.predict_jit = predict_jit
 
     def num_nodes(self, data) -> int:
         return 1
@@ -457,10 +464,10 @@ class OptimizerStrategy(Strategy):
 
     def predict(self, theta, X):
         """Serving an optimizer-trained model is workload-specific (for an
-        LM, ``repro_torch.serve.ContinuousLMEngine``): inject it as
+        LM, ``repro_torch.launch.serve.lm_predict_fn``): inject it as
         ``predict_fn(θ, X)``."""
         if self.predict_fn is None:
             raise NotImplementedError(
                 "OptimizerStrategy needs predict_fn= to be served (e.g. a "
-                "closure over repro_torch.serve.ContinuousLMEngine)")
+                "prefill_and_decode closure from repro_torch.launch.serve)")
         return self.predict_fn(theta, X)

@@ -10,7 +10,8 @@ fit started in ``repro`` resumes in ``repro_torch``::
 
 The reference's NamedTuples are recognised by class name and fields (this
 module imports nothing of ``repro``): ``DelayLine``, ``ServerState``,
-``FaultCarry`` and ``EFState`` map to the port's classes of the same name.
+``FaultCarry``, ``EFState`` and ``KWindows`` map to the port's classes of
+the same name.
 Dicts, lists and tuples keep their structure (dicts keep their keys).
 
 Model weights cross the same way: ``params_from_reference`` takes the tree
@@ -28,8 +29,9 @@ from repro_torch.core.compression import EFState
 from repro_torch.core.server import ServerState
 from repro_torch.core.staleness import DelayLine
 from repro_torch.device import resolve_device
+from repro_torch.ml.kwindows import KWindows
 
-_NAMED = {cls.__name__: cls for cls in (DelayLine, ServerState, FaultCarry, EFState)}
+_NAMED = {cls.__name__: cls for cls in (DelayLine, ServerState, FaultCarry, EFState, KWindows)}
 
 
 def _convert(x, dev):

@@ -52,6 +52,12 @@ from repro_torch.models.layers import (
 )
 from repro_torch.utils.tree import tree_flatten, tree_stack, tree_unflatten
 
+#: mixers whose caches accept T ≥ 1 appended tokens in ONE decode_step call
+#: (keys causal-masked against idx + arange(T)); the recurrent mixers carry
+#: single-step state and must be fed token by token.  Serving uses this to
+#: pick batched or loop prefill.
+MULTI_TOKEN_MIXERS = ("attn", "mla")
+
 
 @dataclass(frozen=True)
 class LayerSpec:

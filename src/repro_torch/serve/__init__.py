@@ -1,26 +1,45 @@
-"""``repro_torch.serve`` — the continuous-batching LM server of the port
-(counterpart of ``repro.serve``).
+"""``repro_torch.serve`` — serving on the card (port of ``repro.serve``).
 
-* ``ContinuousLMEngine`` / ``DecodeScheduler`` — slot-scheduled decode over
-  a paged KV cache: requests join and retire independently, one step
-  advances every slot, decode attention runs through the CUDA kernel of
-  ``kernels/decode_attention`` (``repro_torch.serve.continuous``);
-* ``ServeMetrics`` — latency, decode throughput, time to first token and
-  inference bytes on a ``CommLedger`` (``repro_torch.serve.metrics``);
-* ``Ticket`` — the request handle (``repro_torch.serve.batcher``).
+Train → serve is an executor swap (``api.fit(..., executor="serve")``), and
+the pieces compose à la carte:
 
-``ServeEngine``, ``MicroBatcher`` and ``ModelRegistry`` wait for the
-request/response slice (``ROADMAP.md`` queue 1, item 10).
+* ``ServeEngine``   — ``Strategy.predict`` on the θ device with
+  hot-swappable parameters (``repro_torch.serve.engine``);
+* ``MicroBatcher``  — bucketed-padding request batching with timeout
+  flush (``repro_torch.serve.batcher``);
+* ``ModelRegistry`` — name/version store over ``checkpoint/io`` with an
+  atomic LATEST pointer, in the reference's layout
+  (``repro_torch.serve.registry``);
+* ``ServeMetrics``  — latency / throughput / time to first token and
+  ``CommLedger`` inference-byte metering (``repro_torch.serve.metrics``);
+* ``ContinuousLMEngine`` / ``DecodeScheduler`` — continuous-batching LM
+  decode over a paged KV cache, decode attention in CUDA
+  (``repro_torch.serve.continuous``).
+
+Quickstart::
+
+    res = api.fit(strategy, data, transport="allreduce", steps=400)
+    registry = ModelRegistry("registry/")
+    registry.publish("linreg", res.theta)
+    engine = ServeEngine.from_registry(registry, "linreg", strategy)
+    batcher = MicroBatcher(engine, max_batch=8, timeout_s=0.005)
+    ticket = batcher.submit(x)          # one client request
+    y = ticket.result()                 # bucketed, padded, metered
 """
 
-from repro_torch.serve.batcher import Ticket
+from repro_torch.serve.batcher import MicroBatcher, Ticket
 from repro_torch.serve.continuous import ContinuousLMEngine, DecodeScheduler, EvictedError
+from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.metrics import ServeMetrics
+from repro_torch.serve.registry import ModelRegistry
 
 __all__ = [
     "ContinuousLMEngine",
     "DecodeScheduler",
     "EvictedError",
+    "MicroBatcher",
+    "ModelRegistry",
+    "ServeEngine",
     "ServeMetrics",
     "Ticket",
 ]

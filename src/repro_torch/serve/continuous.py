@@ -16,8 +16,8 @@ slot-scheduled serving over a paged KV cache.
 
 The reference's step is one compiled XLA program (``compiled_step_cache_size
 == 1``); PyTorch runs the step eagerly, so that property has no counterpart
-here — capturing the step in a CUDA graph is its successor (``ROADMAP.md``
-queue 1, item 10).  Decode attention runs through the CUDA kernel of
+here — capturing the step in a CUDA graph is its successor, speed work
+that waits for a benchmark (``ROADMAP.md`` queue 2).  Decode attention runs through the CUDA kernel of
 ``kernels/decode_attention`` (``use_kernel="auto"`` on a CUDA device) or its
 plain PyTorch version, reported in ``kernel_plan``, with per-token hit
 counts in ``kernel_hits``.
@@ -44,6 +44,7 @@ from repro_torch.models.cache import NULL_PAGE, PageAllocator
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.batcher import Ticket
 from repro_torch.serve.metrics import ServeMetrics
+from repro_torch.telemetry import trace as _trace
 from repro_torch.utils.tree import tree_map
 
 
@@ -217,8 +218,10 @@ class ContinuousLMEngine:
         (raises off CUDA), False the plain PyTorch version, "auto" the
         kernel on a CUDA device; reported in ``kernel_plan``.
       temperature / seed: sampling knobs (0 → greedy argmax).
-      metrics / tracer / tag: observability.  ``tracer`` is duck-typed
-        (``span``, ``count``, ``gauge``) and off by default.
+      metrics / tracer / tag: observability.  ``tracer`` (a
+        ``repro_torch.telemetry.trace.Tracer``, or anything with ``span``,
+        ``count`` and ``gauge``) defaults to the ambient tracer at
+        construction; None with none installed: no tracing.
       device: where the engine runs (default ``"cuda"``; raises without a
         GPU unless ``"cpu"`` is asked for).  Parameters are moved there.
     """
@@ -247,7 +250,7 @@ class ContinuousLMEngine:
         self.temperature = float(temperature)
         self.seed = seed
         self.metrics = metrics if metrics is not None else ServeMetrics()
-        self.tracer = tracer
+        self.tracer = tracer if tracer is not None else _trace.current_tracer()
         self.kernel_plan = decode_kernel_plan(cfg, use_kernel=use_kernel, device=self.device)
         self._impl = resolve_decode_attn(
             use_kernel, sliding_window=cfg.sliding_window, device=self.device)

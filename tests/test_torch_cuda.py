@@ -1416,3 +1416,86 @@ def test_mesh_on_a_world_of_one_over_nccl(cuda, tmp_path):
     assert sum(v["total_bytes"] for v in p.ledger.summary()["by_hop"].values()) == \
         loc.ledger.total_bytes
     torch.testing.assert_close(s.theta[0], loc.theta, rtol=1e-6, atol=1e-7)
+
+
+# ----------------------------------------------------------------------------
+# Serving and tracing on the card (chip_smoke.py's serving-and-tracing phase)
+# ----------------------------------------------------------------------------
+
+
+def _gd_problem(device, K=4, N=64, D=300, seed=3):
+    g = torch.Generator(device=device).manual_seed(seed)
+    Xs = torch.randn((K, N, D), generator=g, device=device) / D ** 0.5
+    ys = Xs @ torch.randn((D,), generator=g, device=device)
+    return Xs, ys
+
+
+@pytest.mark.cuda
+def test_serve_engine_on_the_card_matches_the_cpu(cuda):
+    """A CUDA θ is served on the card: CUDA answers, within rtol 1e-5 /
+    atol 1e-6 of the same engine's answers on the CPU, the same ledger."""
+    from repro_torch import api
+    from repro_torch.ml.linear import lsq_loss
+    from repro_torch.serve import MicroBatcher, ServeEngine
+
+    theta = torch.randn((300,), generator=torch.Generator(device=cuda).manual_seed(1),
+                        device=cuda)
+    X = torch.randn((37, 300), generator=torch.Generator().manual_seed(2)).numpy()
+    gpu = ServeEngine(api.GradientDescent(lsq_loss), theta)
+    cpu = ServeEngine(api.GradientDescent(lsq_loss), theta.cpu())
+    assert gpu.device.type == "cuda"
+    y = gpu.predict(X)
+    assert y.is_cuda
+    torch.testing.assert_close(y.cpu(), cpu.predict(X), rtol=1e-5, atol=1e-6)
+    b = MicroBatcher(gpu, max_batch=8)
+    tickets = [b.submit(x) for x in X]
+    b.flush()
+    got = torch.stack([t.result() for t in tickets])
+    assert got.is_cuda
+    torch.testing.assert_close(got.cpu(), cpu.predict(X), rtol=1e-5, atol=1e-6)
+    assert gpu.ledger.uplink_bytes == 2 * 37 * 300 * 4
+
+
+@pytest.mark.cuda
+def test_serving_executor_launches_the_encode_once_a_round(cuda, tmp_path):
+    from repro_torch import api
+    from repro_torch.ml.linear import lsq_loss
+    from repro_torch.serve import ModelRegistry
+
+    Xs, ys = _gd_problem(cuda)
+    reg = ModelRegistry(str(tmp_path))
+    before = kernels.LAUNCHES["topk_encode"]
+    res = api.fit(api.GradientDescent(lsq_loss, lr=0.5), (Xs, ys), transport="allreduce",
+                  wire="topk:0.01+ef", steps=6, device="cuda",
+                  executor=api.ServingExecutor(registry=reg, publish_as="m"))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["topk_encode"] == before + 6
+    assert res.metrics["wire_kernel_launches"] == {"topk_encode": 6}
+    eng = res.metrics["serve_engine"]
+    assert eng.device.type == "cuda" and eng.theta.is_cuda
+    loaded = reg.load("m")
+    assert loaded.is_cuda and torch.equal(loaded.view(torch.int32), res.theta.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_traced_fit_on_the_card_is_bitwise_untraced(cuda):
+    from repro_torch import api
+    from repro_torch.ml.linear import lsq_loss
+    from repro_torch.telemetry import Tracer
+
+    Xs, ys = _gd_problem(cuda)
+
+    def fit(**kw):
+        return api.fit(api.GradientDescent(lsq_loss, lr=0.5), (Xs, ys), transport="allreduce",
+                       wire="topk:0.01+ef", steps=6, device="cuda", **kw)
+
+    base = fit()
+    t = Tracer()
+    res = fit(tracer=t, trace="phases")
+    assert torch.equal(res.theta.view(torch.int32), base.theta.view(torch.int32))
+    assert torch.equal(res.trajectory.view(torch.int32), base.trajectory.view(torch.int32))
+    assert res.ledger.summary() == base.ledger.summary()
+    names = {s["name"] for s in t.spans}
+    assert {"fit/loop", "fit/ledger", "fit/metrics", "dispatch/local-update",
+            "phase/local_step", "phase/encode"} <= names
+    assert t.counters == {"program_cache/uncached": 1}

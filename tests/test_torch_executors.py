@@ -480,8 +480,16 @@ def test_make_executor_spec_strings():
 
 
 def test_serve_executor_names_item_10():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1, item 10\b"):
-        tapi.make_executor("serve")
+    """``"serve"`` (ROADMAP queue 1, item 10) is ported: the spec resolves
+    to a ``ServingExecutor``.  Its mesh placement moved to item 13, and a
+    mesh still raises naming that item (``tests/test_torch_serve_engine.py``
+    holds the executor to the JAX package's)."""
+    ex = tapi.make_executor("serve")
+    assert isinstance(ex, tapi.ServingExecutor) and isinstance(ex, tapi.LocalExecutor)
+    X, y = ranks.problem(K=4)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1, item 13\b"):
+        tfit(t_gd(), (X, y), transport="allreduce", steps=2,
+             executor=tapi.ServingExecutor(mesh=object()))
 
 
 def test_sweep_unknown_attribute_rejected():

@@ -30,6 +30,8 @@ from repro_torch import api as tapi  # noqa: E402
 from repro_torch.convert import carry_from_reference, theta_from_reference  # noqa: E402
 from repro_torch.ml.linear import logistic_loss as t_logistic  # noqa: E402
 from repro_torch.ml.linear import lsq_loss as t_lsq  # noqa: E402
+from repro_torch.serve import ServeEngine  # noqa: E402
+from repro_torch.telemetry import Tracer  # noqa: E402
 
 RTOL, ATOL = 1e-5, 1e-6
 K, N, D = 4, 24, 300  # the (300,) θ leaf is kernel-eligible
@@ -240,19 +242,48 @@ def test_default_device_needs_a_gpu():
         make_feature_shards(0, 2, 4, 3)
 
 
-# What of the fit path is still to port: a tracer (item 12) on any fit,
-# the admm_consensus transport's and a secagg wire's among them, and the
-# serve executor (item 10).  The mesh, multipod and sweep executors and
-# the train CLI's staleness sweep are ported (tests/test_torch_executors.py)
+# What of the fit path is still to port: serving on a mesh and restoring
+# onto shardings (item 13).  The tracer (item 12) on any fit — the
+# admm_consensus transport's and a secagg wire's among them — and the serve
+# executor (item 10) are ported (tests/test_torch_trace.py,
+# tests/test_torch_serve_engine.py); so are the mesh, multipod and sweep
+# executors and the train CLI's staleness sweep (tests/test_torch_executors.py)
 @pytest.mark.parametrize("call, item", [
-    (lambda: tapi.fit(tapi.GradientDescent(t_lsq), None, tracer=object(), device="cpu"), 12),
-    (lambda: tapi.fit(tapi.ProxStrategy(lambda d: None, dim=3), None,
-                      transport="admm_consensus", steps=2, tracer=object(), device="cpu"), 12),
     (lambda: tapi.fit(tapi.GradientDescent(t_lsq), problem(), transport="allreduce",
-                      steps=2, wire="secagg", tracer=object(), device="cpu"), 12),
-    (lambda: tapi.fit(tapi.GradientDescent(t_lsq), problem(), transport="allreduce",
-                      steps=2, executor="serve", device="cpu"), 10),
-], ids=["tracer", "admm", "secagg-tracer", "serve"])
+                      steps=2, executor=tapi.ServingExecutor(mesh=object()),
+                      device="cpu"), 13),
+    (lambda: ServeEngine(tapi.GradientDescent(t_lsq), torch.zeros(3), mesh=object()), 13),
+], ids=["serve-mesh", "engine-mesh"])
 def test_out_of_slice_raises_naming_roadmap(call, item):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md queue 1, item {item}\b"):
         call()
+
+
+@pytest.mark.parametrize("spec", ["tracer", "admm", "secagg-tracer", "serve"])
+def test_once_out_of_slice_paths_run(spec):
+    """The calls ``test_out_of_slice_raises_naming_roadmap`` refused until
+    items 10 and 12 were ported now run: a traced fit (a closure strategy,
+    consensus ADMM, a secagg wire) records its loop span, the serve
+    executor stands its engine up."""
+    tr = Tracer()
+    X, y = problem()
+    if spec == "tracer":
+        res = tapi.fit(tapi.FunctionStrategy(lambda k, th: th + 1.0, num_nodes=3), None,
+                       schedule=[0, 1, 2], theta0=torch.zeros(2), tracer=tr, device="cpu")
+        assert torch.equal(res.theta, torch.full((2,), 3.0))
+    elif spec == "admm":
+        from repro_torch.ml.linear import lasso_prox_builder
+
+        tapi.fit(tapi.ProxStrategy(lasso_prox_builder), (X, y), transport="admm_consensus",
+                 steps=2, g="l1", g_lam=0.1, tracer=tr, device="cpu")
+    elif spec == "secagg-tracer":
+        base = tapi.fit(tapi.GradientDescent(t_lsq), (X, y), transport="allreduce", steps=2,
+                        wire="secagg", device="cpu")
+        res = tapi.fit(tapi.GradientDescent(t_lsq), (X, y), transport="allreduce", steps=2,
+                       wire="secagg", tracer=tr, device="cpu")
+        assert torch.equal(res.theta, base.theta)
+    else:
+        res = tapi.fit(tapi.GradientDescent(t_lsq), (X, y), transport="allreduce", steps=2,
+                       executor="serve", tracer=tr, device="cpu")
+        assert res.metrics["serve_engine"].tracer is tr
+    assert "fit/loop" in {s["name"] for s in tr.spans}

@@ -363,9 +363,15 @@ def test_launch_serve_continuous_cpu(capsys):
                         "--batch", "2", "--requests", "3", "--prompt-len", "5",
                         "--gen", "4", "--device", "cpu"])
     assert outs.shape == (3, 4) and outs.dtype == np.int32
-    assert '"tokens": 9' in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        launch.main(["--reduced", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert '"tokens": 9' in out and "RunReport (serve)" in out and "serve/decode_step" in out
+    # without --continuous: the microbatched path (ROADMAP queue 1, item 10,
+    # ported; tests/test_torch_serve_engine.py holds it to the JAX package)
+    ids = launch.main(["--reduced", "--device", "cpu", "--batch", "2", "--requests", "3",
+                       "--prompt-len", "5", "--gen", "2"])
+    assert ids.shape == (3, 2) and ids.dtype == np.int32
+    with pytest.raises(NotImplementedError, match="queue 1, item 13"):
+        launch.main(["--reduced", "--device", "cpu", "--mesh"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             launch.main(["--reduced", "--continuous"])
