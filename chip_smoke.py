@@ -232,16 +232,40 @@
    the model-FLOP share (6·N·tokens against 989 TFLOP/s dense bf16); the
    state's size; and one more forward + backward under the profiler,
    its device time by kind of kernel.
-12. Prints the redesigned kernels' times in turns, one JSON line of
+12. MLA, MoE and multi-token prediction (each part's kernel counts set to
+   0 before it and read after): olmoe-1b-7b at full width and depth (6.92
+   B f32 parameters from a seeded generator on the card, bf16 compute, 64
+   experts top-8) on ``ContinuousLMEngine`` as ``launch.serve
+   --continuous`` builds it, 16 slots, 32 greedy requests (prompts
+   16–256, 16–64 new tokens): both decode kernels launched steps × 16,
+   no other kernel, every ticket, the ledger; decode tokens/s, step ms,
+   peak memory, and one step of 16 live slots (wall, enqueue, aten
+   operations, device ms as a CUDA graph, the 16 MoE FFNs alone) beside
+   its byte bound (every weight the step reads, once); then the CLI
+   itself, briefly.  olmoe at full width with 2 of its 16 layers in f32:
+   a prefill of (4, 64) and 8 decode steps on the card against the port
+   on the CPU with the same weights (logits within atol = rtol = 1e-4;
+   expert choices equal wherever the k-th and (k+1)-th router
+   probabilities are more than 1e-6 apart), two card runs bitwise equal in
+   f32 and in bf16.  minicpm3-4b at full width and depth (62 MLA layers)
+   through ``launch.serve.main`` (B 8, P 128, 32 generated, the contiguous
+   ``MLACache``; no kernel): generated tokens/s and peak memory; one f32
+   decode step absorbed against unabsorbed within 2e-3.  deepseek-v3-671b
+   ``reduced()`` (MLA, a dense first layer, MoE with a shared expert,
+   MTP) through ``launch.train.main --compress-topk 0.01`` for 8 steps of
+   B 8 × T 128: the loss falls, the encode kernel once a step on each of
+   the 51 leaves of ≥ 256 elements, the trained θ's ``ce`` / ``aux`` /
+   ``mtp`` finite, and 8 greedy decode steps through ``prefill_and_decode``.
+13. Prints the redesigned kernels' times in turns, one JSON line of
    per-kernel numbers (thirteen kernels; the wire kernels' launches count
-   the executors phase's, ``topk_encode``'s the serving-and-tracing and
-   training paths' too, and the decode kernels' that of the continuous
-   engine under the tracer),
+   the executors phase's, ``topk_encode``'s the serving-and-tracing,
+   training and deepseek-v3 paths' too, and the decode kernels' those of
+   the continuous engine under the tracer and of olmoe-1b-7b's serving),
    the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
-No earlier phase is cut to make room for 8–11 or the serving-and-tracing
-phase (≈ 30 s on the card).
+No earlier phase is cut to make room for 8–12 or the serving-and-tracing
+phase (≈ 30 s on the card each).
 
 Imports nothing of JAX.  Exits non-zero, with no result line, when there
 is no CUDA device or ``src/repro_torch`` is not beside it.  Any failed
@@ -1232,10 +1256,11 @@ def ml_families_phase(torch):
 
 
 # the decode kernel's shapes: (B, S, Hq, Hkv, D) of tests/test_kernels_decode.py,
-# the serving shape of tinyllama-1.1b and qwen2-1.5b's heads (G 6, D 128)
+# the serving shape of tinyllama-1.1b, qwen2-1.5b's heads (G 6, D 128) and
+# olmoe-1b-7b's 16-slot serving shape (MHA: G 1, D 128)
 DECODE_SHAPES = [
     (2, 256, 8, 2, 32), (1, 512, 4, 4, 64), (3, 128, 4, 1, 16), (2, 300, 8, 4, 32),
-    (16, 1024, 32, 4, 64), (3, 200, 12, 2, 128),
+    (16, 1024, 32, 4, 64), (3, 200, 12, 2, 128), (16, 512, 16, 16, 128),
 ]
 DECODE_MAIN = (16, 1024, 32, 4, 64)
 DECODE_TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # tests/test_kernels_decode.py:27,80
@@ -1403,17 +1428,15 @@ SERVE_REQUESTS = 48
 LOGIT_TOL = 0.25
 
 
-def step_breakdown(torch, engine, cfg, args):
+def step_breakdown(torch, step, parts: dict, weight_bytes: int) -> dict:
     """Where one decode step of the 16 live slots goes: host wall, host
     enqueue, device time (the step replayed as a CUDA graph), aten
-    operations dispatched, and its parts on the device, each beside its
-    byte bound."""
+    operations dispatched, decode-kernel launches, and each of ``parts``
+    (name → (fn, times a step, bytes a call)) on the device beside its byte
+    bound; the whole step beside ``weight_bytes`` read once."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from repro_torch import kernels
-    from repro_torch.kernels.decode_attention import ops as da_ops
-    from repro_torch.models import cache as cache_lib, layers, transformer as tf
-    from repro_torch.utils.tree import tree_leaves, tree_map
 
     class CountOps(TorchDispatchMode):
         def __init__(self):
@@ -1424,58 +1447,64 @@ def step_breakdown(torch, engine, cfg, args):
             self.n += 1
             return func(*args, **(kwargs or {}))
 
-    W, L = engine._weights, cfg.num_layers
-    tokens, cache, block, length = args
-
-    def step():
-        return tf.paged_decode_step(W, cfg, tokens, cache, block, length, decode_attn="cuda")
-
     step()
     torch.cuda.synchronize()
     launched = kernels.LAUNCHES["decode_attention"]
     with CountOps() as ops:
         step()
-    check(kernels.LAUNCHES["decode_attention"] - launched == L, "breakdown step launches")
+    launched = kernels.LAUNCHES["decode_attention"] - launched
     wall, enq = [], []
     for _ in range(10):
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         step()
         t1 = time.perf_counter()
         torch.cuda.synchronize()
         enq.append((t1 - t0) * 1e3)
         wall.append((time.perf_counter() - t0) * 1e3)
-    device = graph_ms(torch, step, inner=1, reps=10)
-    # every matmul weight is read once a step; of the embedding only 16 rows
+    summary = {"wall_ms": statistics.median(wall), "enqueue_ms": statistics.median(enq),
+               "device_ms": graph_ms(torch, step, inner=1, reps=10), "aten_ops": ops.n,
+               "kernel_launches": launched, "weight_bytes": weight_bytes,
+               "weight_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3}
+    for name, (fn, times, nbytes) in parts.items():
+        ms = graph_ms(torch, fn, inner=times, reps=10) * times
+        summary[name] = {"ms_a_step": ms, "bound_ms_a_step": nbytes * times / HBM_BYTES_PER_S * 1e3}
+    check(summary["device_ms"] < summary["wall_ms"], "device time above wall time")
+    return summary
+
+
+def decode_step_parts(torch, W, cfg, args):
+    """The step, its weight bytes (every weight read once; of the embedding
+    only the 16 rows looked up) and the parts every attention stack shares:
+    the decode kernel and the paged gather on layer 0's real cache, and the
+    LM head."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.models import cache as cache_lib, layers, transformer as tf
+    from repro_torch.utils.tree import tree_leaves
+
+    tokens, cache, block, length = args
+
+    def step():
+        return tf.paged_decode_step(W, cfg, tokens, cache, block, length, decode_attn="cuda")
+
     emb = W["embed"]["embedding"]
     w_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(W)) - emb.numel() * 4
-    lw = tree_map(lambda x: x[0], W["seg0"])["l0"]
     lc = cache_lib.PagedKVCache(k=cache["seg0"]["l0"].k[0], v=cache["seg0"]["l0"].v[0])
-    x = torch.randn((16, 1, cfg.d_model), device="cuda").to(lc.k.dtype)
-    q = torch.randn((16, cfg.num_heads, cfg.head_dim), device="cuda").to(lc.k.dtype)
+    n = tokens.shape[0]
+    x = torch.randn((n, 1, cfg.d_model), device="cuda").to(lc.k.dtype)
+    q = torch.randn((n, cfg.num_heads, cfg.head_dim), device="cuda").to(lc.k.dtype)
     k_all, v_all = cache_lib.paged_view(lc, block)
     vl = (length + 1).to(torch.int32)
-    a = lw["mixer"]
+    L = cfg.num_layers
     parts = {
         "decode kernel": (lambda: da_ops.decode_attention(q, k_all, v_all, vl), L,
                           2 * int(vl.sum()) * cfg.num_kv_heads * cfg.head_dim * 2),
         "paged_view gather": (lambda: cache_lib.paged_view(lc, block), L,
                               2 * 2 * k_all.numel() * k_all.element_size()),
-        "layer matmuls": (lambda: (layers.dense(a["wo"], layers.dense(a["wq"], x)),
-                                   layers.dense(a["wk"], x), layers.dense(a["wv"], x),
-                                   layers.swiglu(lw["ffn"], x)), L,
-                          sum(t.numel() * t.element_size() for t in tree_leaves(
-                              {"m": a, "f": lw["ffn"]}) if t.dim() == 2)),
         "LM head": (lambda: layers.dense(W["lm_head"], x), 1,
                     W["lm_head"]["kernel"].numel() * 2),
     }
-    summary = {"wall_ms": statistics.median(wall), "enqueue_ms": statistics.median(enq),
-               "device_ms": device, "aten_ops": ops.n, "kernel_launches": L,
-               "weight_bytes": w_bytes, "weight_bound_ms": w_bytes / HBM_BYTES_PER_S * 1e3}
-    for name, (fn, times, nbytes) in parts.items():
-        ms = graph_ms(torch, fn, inner=times, reps=10) * times
-        summary[name] = {"ms_a_step": ms, "bound_ms_a_step": nbytes * times / HBM_BYTES_PER_S * 1e3}
-    print("decode step breakdown (16 live slots):", json.dumps(summary), flush=True)
-    check(summary["device_ms"] < summary["wall_ms"], "device time above wall time")
+    return step, w_bytes, parts, x
 
 
 def serve_phase(torch):
@@ -1484,8 +1513,9 @@ def serve_phase(torch):
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as launch_serve
-    from repro_torch.models import transformer as tf
+    from repro_torch.models import layers, transformer as tf
     from repro_torch.serve import ContinuousLMEngine, ServeMetrics
+    from repro_torch.utils.tree import tree_leaves, tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 stays f32 (prefill's _sdpa)
     cfg = get_config(SERVE_ARCH)
@@ -1584,7 +1614,17 @@ def serve_phase(torch):
           f"max |logits kernel − plain| {diff:.4g} (limit {LOGIT_TOL}); argmax equal on "
           f"{int(same.sum())}/16 rows, {int(clear.sum())} rows with top-2 margin > the "
           f"difference; logit scale {float(lg['cuda'].abs().max()):.3g}", flush=True)
-    step_breakdown(torch, engine, cfg, args)
+    step, w_bytes, parts, x = decode_step_parts(torch, engine._weights, cfg, args)
+    lw = tree_map(lambda t: t[0], engine._weights["seg0"])["l0"]
+    a = lw["mixer"]
+    parts["layer matmuls"] = (
+        lambda: (layers.dense(a["wo"], layers.dense(a["wq"], x)), layers.dense(a["wk"], x),
+                 layers.dense(a["wv"], x), layers.swiglu(lw["ffn"], x)), n_layers,
+        sum(t.numel() * t.element_size() for t in tree_leaves({"m": a, "f": lw["ffn"]})
+            if t.dim() == 2))
+    summary = step_breakdown(torch, step, parts, w_bytes)
+    check(summary["kernel_launches"] == n_layers, "breakdown step launches")
+    print("decode step breakdown (16 live slots):", json.dumps(summary), flush=True)
     engine.run_until_idle()
     check(all(len(t.result()) == 8 for t in caught), "captured-step requests did not finish")
     del engine, params
@@ -3396,6 +3436,454 @@ def train_phase(torch):
     return launched["topk_encode"], summary
 
 
+# ----------------------------------------------------------------------------
+# MLA, MoE and multi-token prediction: olmoe-1b-7b and minicpm3-4b served at
+# full width, deepseek-v3-671b (reduced) trained with its MTP loss
+# ----------------------------------------------------------------------------
+
+MOE_ARCH, MLA_ARCH, MTP_ARCH = "olmoe-1b-7b", "minicpm3-4b", "deepseek-v3-671b"
+MOE_SLOTS, MOE_PAGE, MOE_MAX_SEQ, MOE_REQUESTS = 16, 16, 512, 32
+#: logits of the card against the CPU, f32 compute on both: the repo's
+#: logits tolerance (tests/test_torch_models.py), atol = rtol
+MOE_LOGIT_TOL = 1e-4
+#: a router row whose k-th and (k+1)-th probabilities are closer than this
+#: may pick another expert on the card than on the CPU (sums in another order)
+TIE_GAP = 1e-6
+#: |absorbed − unabsorbed| logits in f32 compute, the reference's
+#: tests/test_decode_consistency.py::test_mla_absorb_matches_unabsorbed
+ABSORB_TOL = 2e-3
+MLA_B, MLA_P, MLA_G = 8, 128, 32
+MTP_STEPS, MTP_B, MTP_T = 8, 8, 128
+
+
+def olmoe_serving(torch, kernels):
+    """olmoe-1b-7b at full width and depth on ``ContinuousLMEngine`` as
+    ``python -m repro_torch.launch.serve --continuous`` builds it: 16
+    slots, mixed prompt lengths; then the CLI itself, briefly."""
+    import contextlib
+    import gc
+    import io
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import layers, moe, transformer as tf
+    from repro_torch.serve import ContinuousLMEngine, ServeMetrics
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(MOE_ARCH)
+    L = cfg.num_layers
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    engine = ContinuousLMEngine(cfg, params, n_slots=MOE_SLOTS, page_size=MOE_PAGE,
+                                max_seq=MOE_MAX_SEQ, tag=f"serve/{cfg.name}", device="cuda")
+    engine.submit(np.arange(40, dtype=np.int32), max_new=4).result()  # first-call costs
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(engine.kernel_plan["path"] == "cuda", f"olmoe plan {engine.kernel_plan}")
+    n_params = sum(x.numel() for x in tree_leaves(params))
+
+    rng = np.random.default_rng(0)
+    plens = rng.integers(16, 257, size=MOE_REQUESTS)
+    gens = rng.integers(16, 65, size=MOE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32) for n in plens]
+    engine.metrics = ServeMetrics()
+    engine.kernel_hits = {"cuda": 0, "plain": 0}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    tickets = [engine.submit(p, max_new=int(g)) for p, g in zip(prompts, gens)]
+    steps = engine.run_until_idle()
+    outs = [t.result() for t in tickets]
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    stats = engine.stats()
+    peak = torch.cuda.max_memory_allocated()
+    for o, g in zip(outs, gens):
+        check(o.shape == (int(g),) and bool(((o >= 0) & (o < cfg.vocab_size)).all()),
+              f"olmoe ticket {o.shape} != ({g},) or an id out of range")
+    for name in ("decode_attention", "decode_attention_merge"):
+        check(launches[name] == steps * L,
+              f"olmoe: {name} launched {launches[name]} times, expected {steps} steps × {L}")
+    check(all(n == 0 for name, n in launches.items()
+              if name not in ("decode_attention", "decode_attention_merge")),
+          f"olmoe serving launched other kernels: {launches}")
+    check(engine.kernel_hits == {"cuda": stats["tokens"], "plain": 0}, "olmoe kernel_hits")
+    check(stats["tokens"] == int(gens.sum()) - MOE_REQUESTS, "olmoe decode tokens")
+    check(engine.ledger.uplink_bytes == 4 * int(plens.sum()), "olmoe ledger uplink")
+
+    # one captured step of 16 live slots: the decode kernel against its plain
+    # version on each layer's own inputs, the step's logits against the plain
+    # step's, then where the step's time goes
+    caught = [engine.submit(rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32),
+                            max_new=8) for n in rng.integers(16, 257, size=MOE_SLOTS)]
+    engine.step()
+    engine.step()
+    check(engine.sched.n_active == MOE_SLOTS, "olmoe: slots for the capture")
+    W = engine._weights
+    args = (torch.from_numpy(engine._last_tok[:, None].copy()).long().cuda(), engine._cache,
+            torch.from_numpy(engine.sched.block.copy()).long().cuda(),
+            torch.from_numpy(engine.sched.length.copy()).cuda())
+    captured = olmoe_captured_step(torch, W, cfg, args)
+    step, w_bytes, parts, x = decode_step_parts(torch, W, cfg, args)
+    lw = tree_map(lambda t: t[0], W["seg0"])["l0"]
+    a = lw["mixer"]
+    parts["attention matmuls"] = (
+        lambda: (layers.dense(a["wo"], layers.dense(a["wq"], x)), layers.dense(a["wk"], x),
+                 layers.dense(a["wv"], x)), L,
+        sum(t.numel() * t.element_size() for t in tree_leaves(a) if t.dim() == 2))
+    parts["MoE FFN"] = (lambda: moe.moe_apply(lw["ffn"], cfg, x), L,
+                        sum(t.numel() * t.element_size() for t in tree_leaves(lw["ffn"])))
+    breakdown = step_breakdown(torch, step, parts, w_bytes)
+    check(breakdown["kernel_launches"] == L, "olmoe breakdown step launches")
+    engine.run_until_idle()
+    check(all(len(t.result()) == 8 for t in caught), "olmoe: captured-step requests")
+    out = {
+        "params": n_params, "setup_s": setup_s, "requests": MOE_REQUESTS,
+        "prompt_tokens": int(plens.sum()), "generated": int(gens.sum()), "serve_s": serve_s,
+        "decode_steps": steps, "decode_tokens_per_s": stats["tokens_per_s"],
+        "p50_step_ms": stats["p50_token_ms"], "p95_step_ms": stats["p95_token_ms"],
+        "p50_ttft_ms": stats["p50_ttft_ms"], "slot_utilization": stats["slot_utilization"],
+        "peak_gib": peak / 2**30, "launches": {k: launches[k] for k in
+                                               ("decode_attention", "decode_attention_merge")},
+        "captured_step": captured, "step_16_slots": breakdown,
+    }
+    print(f"olmoe-1b-7b serving ({smi_line()}): {json.dumps(out)}", flush=True)
+    # tickets hold their engine: let go of every one before the CLI's model
+    del engine, params, W, lw, a, args, step, parts, x, tickets, caught
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30
+    check(held < 4.0, f"olmoe: {held:.3f} GiB still held after the engine went")
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli = launch_serve.main(["--arch", MOE_ARCH, "--continuous", "--batch", "4",
+                                 "--requests", "6", "--prompt-len", "40", "--gen", "8"])
+    check(cli.shape == (6, 8), f"olmoe CLI output {cli.shape}")
+    check("plan={'path': 'cuda'" in buf.getvalue(), "olmoe CLI not on the decode kernel")
+    out["cli_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def olmoe_captured_step(torch, W, cfg, args) -> dict:
+    """One 16-slot ``paged_decode_step`` with the decode kernel: on every
+    layer the kernel's output against its plain version on the same inputs
+    (``DECODE_TOL``); then the step's logits against the plain step's, the
+    plain step following the kernel step's expert choices so that a router
+    near-tie moved by rounding cannot change a row's experts."""
+    from repro_torch.kernels.decode_attention import ref as dar
+    from repro_torch.models import attention, moe, transformer as tf
+
+    tol = DECODE_TOL["bfloat16"]
+    attend, route = attention._decode_attend, moe.route
+    errs, chosen = [], []
+
+    def checked(q1, k_all, v_all, valid_len, *, impl):
+        out = attend(q1, k_all, v_all, valid_len, impl=impl)
+        if impl == "cuda":
+            plain = dar.decode_attention_plain(q1, k_all, v_all, valid_len)
+            check(q1.dtype == torch.bfloat16 and tuple(q1.shape[1:]) == (
+                cfg.num_heads, cfg.head_dim), f"olmoe decode input {q1.dtype} {q1.shape}")
+            errs.append(float((out.float() - plain.float()).abs().max()))
+        return out
+
+    def recording(p, c, x):
+        probs, gates, ids = route(p, c, x)
+        chosen.append(ids)
+        return probs, gates, ids
+
+    flips = []
+
+    def following(p, c, x):
+        probs, _, own = route(p, c, x)
+        ids = chosen[len(flips)]
+        flips.append(int((own != ids).any(dim=-1).sum()))
+        gates = probs.gather(-1, ids)
+        return probs, gates / torch.clamp_min(gates.sum(dim=-1, keepdim=True), 1e-9), ids
+
+    lg = {}
+    try:
+        attention._decode_attend = checked
+        for impl, hook in (("cuda", recording), ("plain", following)):
+            moe.route = hook
+            logits, _ = tf.paged_decode_step(W, cfg, *args, decode_attn=impl)
+            lg[impl] = logits[:, 0, : cfg.vocab_size].float()
+    finally:
+        attention._decode_attend, moe.route = attend, route
+    torch.cuda.synchronize()
+    check(len(errs) == cfg.num_layers and max(errs) <= tol,
+          f"olmoe decode kernel vs plain on the step's inputs: {errs} (limit {tol})")
+    check(len(flips) == cfg.num_layers, f"olmoe captured step: {len(flips)} router calls")
+    diff = float((lg["cuda"] - lg["plain"]).abs().max())
+    top2 = lg["cuda"].topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > diff
+    same = lg["cuda"].argmax(-1) == lg["plain"].argmax(-1)
+    check(diff <= LOGIT_TOL, f"olmoe captured step: |logits kernel − plain| {diff} > {LOGIT_TOL}")
+    check(bool(same[clear].all()), "olmoe captured step: argmax differs where the margin is clear")
+    return {"lengths": args[3].tolist(), "kernel_vs_plain_max_abs_err": max(errs),
+            "kernel_tolerance": tol, "max_abs_logit_diff": diff, "logit_tolerance": LOGIT_TOL,
+            "argmax_equal_rows": int(same.sum()), "rows_clear_margin": int(clear.sum()),
+            "logit_scale": float(lg["cuda"].abs().max()),
+            "rows_whose_own_routing_differed_by_layer": flips}
+
+
+def _olmoe_run(torch, tf, cfg, tree, prompts, G, device, feed=None):
+    """Prefill + ``G`` greedy decode steps on a dense f32 cache; the fed
+    tokens are ``feed`` where given (so the CPU follows the card's path).
+    Returns (logits (B, 1 + G, V) f32 on the CPU, fed tokens)."""
+    B, P = prompts.shape
+    cache = tf.init_cache(cfg, B, P + G, torch.float32, device=device)
+    toks = torch.from_numpy(prompts).long().to(device)
+    logits, cache = tf.decode_step(tree, cfg, toks, cache,
+                                   positions=torch.arange(P, device=device).expand(B, P))
+    out, fed = [logits[:, -1]], []
+    for g in range(G):
+        tok = feed[g].to(device) if feed is not None else out[-1][:, : cfg.vocab_size].argmax(-1)
+        fed.append(tok.cpu())
+        logits, cache = tf.decode_step(tree, cfg, tok[:, None], cache)
+        out.append(logits[:, 0])
+    return torch.stack(out, 1)[..., : cfg.vocab_size].float().cpu(), fed
+
+
+def olmoe_parity(torch):
+    """olmoe-1b-7b at full width, 2 of its 16 layers, f32 compute: the
+    card's logits for a prefill and 8 decode steps against the port on the
+    CPU with the same weights; expert choices equal wherever the k-th and
+    (k+1)-th router probabilities are more than ``TIE_GAP`` apart; two card
+    runs bitwise equal, in f32 and in bf16 compute (the combine's fixed
+    slot order)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe, transformer as tf
+    from repro_torch.utils.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(MOE_ARCH).replace(num_layers=2, compute_dtype="float32")
+    k = cfg.moe.top_k
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(1), cfg)
+    on_cpu = tree_map(lambda x: x.cpu(), params)
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, size=(4, 64))
+    G = 8
+    route = moe.route
+    calls = []
+
+    def recording(p, c, x):
+        out = route(p, c, x)
+        calls.append((out[0].detach().float().cpu(), out[2].cpu()))
+        return out
+
+    t0 = time.perf_counter()
+    moe.route = recording
+    try:
+        card, fed = _olmoe_run(torch, tf, cfg, params, prompts, G, "cuda")
+        card_calls, calls[:] = list(calls), []
+        host, _ = _olmoe_run(torch, tf, cfg, on_cpu, prompts, G, "cpu", feed=fed)
+        host_calls = list(calls)
+    finally:
+        moe.route = route
+    check(len(card_calls) == len(host_calls) == 2 * (1 + G), "olmoe parity: router calls")
+    clear_rows = mismatched_clear = mismatched_ties = 0
+    bad = torch.zeros(prompts.shape[0], dtype=torch.bool)
+    for (pc, ic), (ph, ih) in zip(card_calls, host_calls):
+        top = pc.sort(dim=-1, descending=True).values
+        clear = (top[..., k - 1] - top[..., k]) > TIE_GAP  # (B, T)
+        same = (ic == ih).all(dim=-1)
+        clear_rows += int(clear.sum())
+        mismatched_clear += int((clear & ~same).sum())
+        mismatched_ties += int((~clear & ~same).sum())
+        bad |= ~same.all(dim=1)
+    check(mismatched_clear == 0, f"olmoe parity: {mismatched_clear} clear rows chose other experts")
+    rows = ~bad
+    diff = (card - host).abs()
+    lim = MOE_LOGIT_TOL + MOE_LOGIT_TOL * host.abs()
+    check(int(rows.sum()) >= prompts.shape[0] - 1, f"olmoe parity: rows {rows.tolist()}")
+    check(bool((diff[rows] <= lim[rows]).all()),
+          f"olmoe parity: card vs CPU logits {float(diff[rows].max())}")
+    # bitwise on the card: the same run again, f32 and bf16 compute
+    again, _ = _olmoe_run(torch, tf, cfg, params, prompts, G, "cuda", feed=fed)
+    check(torch.equal(again, card), "olmoe parity: two f32 card runs differ")
+    bf = cfg.replace(compute_dtype="bfloat16")
+    W = tf.compute_params(params, bf)
+    b1, _ = _olmoe_run(torch, tf, bf, W, prompts, G, "cuda", feed=fed)
+    b2, _ = _olmoe_run(torch, tf, bf, W, prompts, G, "cuda", feed=fed)
+    check(torch.equal(b1, b2), "olmoe parity: two bf16 card runs differ")
+    out = {"layers": 2, "d_model": cfg.d_model, "experts": cfg.moe.num_experts,
+           "prompt": list(prompts.shape), "decode_steps": G,
+           "max_abs_logit_diff": float(diff[rows].max()), "logit_scale": float(host.abs().max()),
+           "tolerance": f"atol = rtol = {MOE_LOGIT_TOL}", "rows_held": int(rows.sum()),
+           "router_rows": sum(int(pc.shape[0] * pc.shape[1]) for pc, _ in card_calls),
+           "router_rows_clear": clear_rows, "tie_rows_choosing_otherwise": mismatched_ties,
+           "bf16_vs_f32_max_logit_diff": float((b1 - card).abs().max()),
+           "bitwise_runs": {"f32": True, "bf16": True}, "seconds": time.perf_counter() - t0}
+    print(f"olmoe-1b-7b card vs CPU (2 layers, f32; {smi_line()}): {json.dumps(out)}",
+          flush=True)
+    del params, on_cpu, W
+    torch.cuda.empty_cache()
+    return out
+
+
+def minicpm3_phase(torch, kernels):
+    """minicpm3-4b at full width and depth through ``launch.serve``'s
+    microbatched path (``prefill_and_decode`` over the contiguous
+    ``MLACache``), then one decode step absorbed against unabsorbed in f32."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer as tf
+    from repro_torch.utils.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        outs = launch_serve.main(["--arch", MLA_ARCH, "--batch", str(MLA_B), "--requests",
+                                  str(MLA_B), "--prompt-len", str(MLA_P), "--gen", str(MLA_G)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(kernels.LAUNCHES)
+    text = buf.getvalue()
+    print(text.rstrip(), flush=True)
+    stats = json.loads(next(line for line in text.splitlines() if line.startswith("{")))
+    cfg = get_config(MLA_ARCH)
+    check(outs.shape == (MLA_B, MLA_G) and bool(((outs >= 0) & (outs < cfg.vocab_size)).all()),
+          f"minicpm3 ids {outs.shape}")
+    check(all(n == 0 for n in launches.values()),
+          f"minicpm3: MLA runs no kernel (plain products, as the reference), got {launches}")
+    check(stats["batches"] == 1, f"minicpm3: {stats['batches']} batches")
+
+    # absorbed against unabsorbed, one decode step after a prefill, f32
+    f32 = cfg.replace(compute_dtype="float32")
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), f32)
+    B, P = 2, 16
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, size=(B, P + 1)))
+    toks = toks.cuda()
+    cache = tf.init_cache(f32, B, P + 1, torch.float32, device="cuda")
+    _, cache = tf.decode_step(params, f32, toks[:, :P], cache,
+                              positions=torch.arange(P, device="cuda").expand(B, P))
+    lg = {}
+    for absorb in (False, True):
+        c = tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, cache)
+        out, _ = tf.decode_step(params, f32, toks[:, P:], c, mla_absorb=absorb)
+        lg[absorb] = out[:, 0, : cfg.vocab_size]
+    torch.cuda.synchronize()
+    absorb_diff = float((lg[True] - lg[False]).abs().max())
+    check(absorb_diff < ABSORB_TOL, f"minicpm3: absorbed vs unabsorbed {absorb_diff}")
+    out = {"layers": cfg.num_layers, "kv_lora_rank": cfg.mla.kv_lora_rank,
+           "batch": MLA_B, "prompt": MLA_P, "gen": MLA_G, "wall_s": wall,
+           "generated_tokens_per_s_busy": MLA_B * MLA_G / stats["busy_s"],
+           "generated_tokens_per_s_wall": MLA_B * MLA_G / wall, "peak_gib": peak / 2**30,
+           "absorbed_vs_unabsorbed_f32": absorb_diff, "absorb_tolerance": ABSORB_TOL,
+           "logit_scale": float(lg[False].abs().max())}
+    print(f"minicpm3-4b serving ({smi_line()}): {json.dumps(out)}", flush=True)
+    del params, cache, lg
+    torch.cuda.empty_cache()
+    return out
+
+
+def deepseek_training(torch, kernels):
+    """deepseek-v3-671b ``reduced()`` (MLA, a first-k dense layer, MoE with
+    a shared expert, MTP) trains through ``launch.train`` with the top-k
+    wire: the encode kernel on every leaf each step; then its loss terms on
+    the trained θ and a few greedy decode steps."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint import restore_dict
+    from repro_torch.configs import get_config
+    from repro_torch.core.compression import kernel_plan
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as tf
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = get_config(MTP_ARCH).reduced()
+    tmp = tempfile.mkdtemp(prefix="mtp-")
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            hist = launch_train.main([
+                "--arch", MTP_ARCH, "--reduced", "--compress-topk", "0.01",
+                "--steps", str(MTP_STEPS), "--batch", str(MTP_B), "--seq", str(MTP_T),
+                "--lr", "1e-2", "--log-every", "1", "--ckpt-dir", tmp,
+                "--ckpt-every", str(MTP_STEPS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        print(buf.getvalue().rstrip(), flush=True)
+        losses = [h["loss"] for h in hist]
+        # every leaf of at least 256 f32 elements takes the kernel
+        plan = kernel_plan(tf.init_params(torch.Generator(), cfg, device="meta"))
+        n_leaves = plan["kernel_leaves"]
+        check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+              f"deepseek reduced: losses {losses}")
+        check(launches["topk_encode"] == MTP_STEPS * n_leaves,
+              f"deepseek reduced: {launches['topk_encode']} encode launches, expected "
+              f"{MTP_STEPS} steps × {n_leaves} eligible leaves ({plan})")
+        check(all(n == 0 for name, n in launches.items() if name != "topk_encode"),
+              f"deepseek reduced launched other kernels: {launches}")
+        theta = restore_dict(tmp, MTP_STEPS, device="cuda")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    batch = synthetic_lm_batch(gen, MTP_B, MTP_T, cfg.vocab_size, device="cuda")
+    with torch.no_grad():
+        total, metrics = tf.loss_fn(theta, cfg, batch)
+    terms = {k: float(v) for k, v in metrics.items()}
+    check(sorted(terms) == ["aux", "ce", "mtp"] and all(math.isfinite(v) for v in terms.values())
+          and terms["aux"] > 0, f"deepseek reduced: loss terms {terms}")
+    prompts = torch.from_numpy(
+        np.random.default_rng(4).integers(0, cfg.vocab_size, size=(4, 16))).cuda()
+    ids = launch_serve.prefill_and_decode(cfg, theta, prompts, gen=8, cache_len=25)
+    check(ids.shape == (4, 8) and bool(((ids >= 0) & (ids < cfg.vocab_size)).all()),
+          "deepseek reduced: greedy ids")
+    out = {"params": sum(x.numel() for x in tree_leaves(theta)), "kernel_leaves": plan,
+           "steps": MTP_STEPS, "batch": MTP_B, "seq": MTP_T, "wall_s": wall,
+           "losses": losses, "loss_terms_after": {"total": float(total), **terms},
+           "encode_launches": launches["topk_encode"], "greedy_ids": ids[0].tolist()}
+    print(f"deepseek-v3-671b reduced training ({smi_line()}): {json.dumps(out)}", flush=True)
+    return launches["topk_encode"], out
+
+
+def mla_moe_mtp_phase(torch):
+    """The three archs of the MLA / MoE / MTP slice, each part's kernel
+    counts set to 0 before it and read after."""
+    from repro_torch import kernels
+
+    t0 = time.perf_counter()
+    decode_launches, olmoe = olmoe_serving(torch, kernels)
+    parity = olmoe_parity(torch)
+    minicpm3 = minicpm3_phase(torch, kernels)
+    encode_launches, deepseek = deepseek_training(torch, kernels)
+    out = {"olmoe": olmoe, "olmoe_parity": parity, "minicpm3": minicpm3, "deepseek": deepseek,
+           "seconds": time.perf_counter() - t0}
+    return decode_launches, encode_launches, out
+
+
 REPLACES = {
     "topk_encode": "src/repro/kernels/topk_compress/kernel.py:73",
     "topk_select": "src/repro/kernels/topk_compress/kernel.py:106",
@@ -3516,6 +4004,10 @@ def main() -> int:
         timings[(name, "leaf")] = t
     train_launches, train_stats = train_phase(torch)
     launches["topk_encode"] += train_launches
+    moe_decode, moe_encode, mla_moe_mtp = mla_moe_mtp_phase(torch)
+    for name in ("decode_attention", "decode_attention_merge"):
+        launches[name] += moe_decode[name]
+    launches["topk_encode"] += moe_encode
     print("executors:", json.dumps(executors), flush=True)
     print("serving and tracing:", json.dumps(serving_tracing), flush=True)
     print("security wires and private regression:", json.dumps(secure), flush=True)
@@ -3523,6 +4015,7 @@ def main() -> int:
     print("attention path:", json.dumps({"errors": attn_err, **attn_stats,
                                          "planted_control": attn_control}), flush=True)
     print("topk_sparsify:", json.dumps(tk_whole), flush=True)
+    print("MLA, MoE and MTP:", json.dumps(mla_moe_mtp), flush=True)
     print("redesigned kernels, times in turns with the library call:", json.dumps({
         "decode_attention": decode_t, "decode_attention_merge": merge_t,
         **{f"{n} {label}": t for (n, label), t in flash_t.items()},

@@ -26,9 +26,11 @@ in the JAX package's format, the LM token stream (``data``) and
 ``launch.train``; the executors beyond local (``sweep``, ``mesh``,
 ``multipod``); request/response serving (``serve.ServeEngine``,
 ``MicroBatcher``, ``ModelRegistry``, the ``serve`` executor and
-``launch.serve``'s microbatched and fit → publish → serve paths) and the
+``launch.serve``'s microbatched and fit → publish → serve paths), the
 run timeline (``telemetry``: ``Tracer``, ``RunReport``, the
-``trace="phases"`` probes).  Kernels are built with ``nvcc``
+``trace="phases"`` probes), and the MLA, MoE and multi-token-prediction
+models (``models.mla``, ``models.moe``, ``transformer.mtp_hidden``:
+minicpm3-4b, olmoe-1b-7b, deepseek-v3-671b).  Kernels are built with ``nvcc``
 on first use.  What is not ported raises ``NotImplementedError`` naming
 its ``ROADMAP.md`` item.
 

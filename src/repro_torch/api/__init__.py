@@ -24,7 +24,7 @@ from repro_torch.api.executor import (
     SweepExecutor,
     make_executor,
 )
-from repro_torch.api.faults import FaultCarry, FaultDraws, FaultPlan
+from repro_torch.api.faults import FaultCarry, FaultDraws, FaultPlan, make_fault_plan
 from repro_torch.api.strategy import (
     LBFGS,
     FunctionStrategy,
@@ -66,5 +66,5 @@ __all__ = [
     "Executor", "LocalExecutor", "MeshExecutor", "MultiPodExecutor", "SweepExecutor",
     "ServingExecutor",
     "make_executor", "EXECUTORS", "COMPOSED_EXECUTORS",
-    "FaultPlan", "FaultDraws", "FaultCarry",
+    "FaultPlan", "FaultDraws", "FaultCarry", "make_fault_plan",
 ]

@@ -461,7 +461,7 @@ class DPWire(Wire):
     def encode_push(self, wstate, k, theta_start, theta_new):
         delta = tree_sub(theta_new, theta_start)
         leaves, spec = tree_flatten(delta)
-        kg = int(_node_global_index(k))
+        kg = int(node_global_index_fn(k))
         priv = self._privatize([x[None] for x in leaves], [int(wstate[k])], [kg])
         theta_push = tree_add(theta_start, tree_unflatten([p[0] for p in priv], spec))
         wstate = wstate.clone()
@@ -477,10 +477,10 @@ class DPWire(Wire):
                 cnt, level = cnt[0], None
             cnts = [[c] for c in cnt.tolist()] if level is not None else [int(cnt)]
             priv = self._privatize([x[None] for x in leaves], cnts,
-                                   [int(_node_global_index(0))], level)
+                                   [int(node_global_index_fn(0))], level)
             return wstate + 1, tree_unflatten([p[0] for p in priv], spec), nb
         K = leaves[0].shape[0]
-        gidx = [int(_node_global_index(k)) for k in range(K)]
+        gidx = [int(node_global_index_fn(k)) for k in range(K)]
         # under a sweep the counters are batched: read them outside the
         # batch; alike in every scenario, one draw serves all of them
         cnts, level = _scenario_split(wstate)
@@ -549,8 +549,8 @@ class SecAggWire(Wire):
             pay = self._masked([x[None] for x in leaves], [int(wstate)], [0], 1)
             return tree_unflatten([p[0] for p in pay], spec)
         K = leaves[0].shape[0]
-        num_global = K * _num_node_shards()
-        gidx = [int(_node_global_index(k)) for k in range(K)]
+        num_global = K * num_node_shards_fn()
+        gidx = [int(node_global_index_fn(k)) for k in range(K)]
         return tree_unflatten(self._masked(leaves, wstate.tolist(), gidx, num_global), spec)
 
     def encode_push(self, wstate, k, theta_start, theta_new):
@@ -620,7 +620,7 @@ class ChainWire(Wire):
         return tuple(new_states), msgs, nb
 
 
-def _node_global_index(k_local):
+def node_global_index_fn(k_local):
     # late-bound: the executor module imports nothing from here, but the
     # edge stays one-way at import time
     from repro_torch.api.executor import node_global_index
@@ -628,7 +628,7 @@ def _node_global_index(k_local):
     return node_global_index(k_local)
 
 
-def _num_node_shards() -> int:
+def num_node_shards_fn() -> int:
     from repro_torch.api.executor import num_node_shards
 
     return num_node_shards()

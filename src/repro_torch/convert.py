@@ -16,7 +16,9 @@ Dicts, lists and tuples keep their structure (dicts keep their keys).
 
 Model weights cross the same way: ``params_from_reference`` takes the tree
 of ``repro.models.transformer.init_params`` (as numpy) to the port's tree,
-which has the same names and shapes, bit for bit.
+which has the same names and shapes, bit for bit — the MoE expert stacks
+``(E, d, f)``, the f32 ``router`` and the ``shared`` SwiGLU, MLA's
+projections and norms, and the ``mtp`` subtree as a whole among them.
 """
 
 from __future__ import annotations

@@ -4,11 +4,13 @@ The §5 protocol without a literal server: the aggregated update pushed at
 round t is applied ``D`` rounds later (``D = 0`` → synchronous mini-batch
 GD, ``D = 1`` → the paper's literal one-step-stale protocol).  The line is
 a FIFO of the last ``D`` pushes, leaves stacked on axis 0.
+``make_stale_update`` wraps an optimizer update with such a line: the §5
+bounded-staleness trainer.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -68,3 +70,45 @@ def delay_push_read(
         read = tree_map(lambda e: e[depth - int(delay)], ext)
     new_buf = tree_map(lambda e: e[1:], ext)
     return DelayLine(buffer=new_buf, step=state.step + 1), read
+
+
+class AsyncSGDState(NamedTuple):
+    params: PyTree
+    delay: DelayLine | None
+    opt_state: Any
+
+
+def make_stale_update(
+    optimizer_update: Callable[[PyTree, Any, PyTree], tuple[PyTree, Any]],
+    *,
+    staleness: int = 0,
+):
+    """Wrap an optimizer-update fn with a staleness-D delay line.
+
+    ``optimizer_update(grads, opt_state, params) -> (new_params, new_opt_state)``.
+
+    Returns ``(init_fn, update_fn)`` where ``update_fn(state, grads)`` applies
+    the (possibly stale) gradient.  With ``staleness == 0`` this is exactly
+    the synchronous optimizer (paper's round-robin ≡ mini-batch GD limit).
+    """
+
+    def init_fn(params: PyTree, opt_state: Any) -> AsyncSGDState:
+        delay = delay_init(params, staleness) if staleness > 0 else None
+        return AsyncSGDState(params=params, delay=delay, opt_state=opt_state)
+
+    def update_fn(state: AsyncSGDState, grads: PyTree) -> AsyncSGDState:
+        if staleness > 0:
+            delay, grads_applied = delay_push_pop(state.delay, grads)
+        else:
+            delay, grads_applied = None, grads
+        new_params, new_opt = optimizer_update(grads_applied, state.opt_state, state.params)
+        return AsyncSGDState(params=new_params, delay=delay, opt_state=new_opt)
+
+    return init_fn, update_fn
+
+
+def staleness_bound_lr(base_lr: float, staleness: int) -> float:
+    """Heuristic staleness-compensated learning rate: ``lr / (1 + D)``, the
+    conservative choice of the classic async-SGD analysis (the step size
+    shrinks with the maximum delay)."""
+    return base_lr / (1.0 + float(staleness))

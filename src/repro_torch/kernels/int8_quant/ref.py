@@ -18,3 +18,13 @@ def quant_dequant_ref(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     s = scale[:, None]
     q = torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
     return q.to(x.dtype) * s
+
+
+def int8_roundtrip_ref(x: torch.Tensor):
+    """The whole tensor as one row: ``(dequantised x, scale)`` with
+    ``scale = max(max |x|, 1e-12) / 127`` (a true divide, as the JAX
+    package's un-jitted ``int8_roundtrip_ref``), composed from the two
+    halves above."""
+    row = x.reshape(1, -1)
+    scale = torch.clamp_min(absmax_ref(row), 1e-12) / 127.0
+    return quant_dequant_ref(row, scale).reshape(x.shape), scale[0]

@@ -11,7 +11,10 @@ Three paths:
   over that cache (``decode_attn="off"``), as in the reference.
 * ``--arch ... --continuous``: continuous batching over a paged KV cache
   (``ContinuousLMEngine``, decode attention in CUDA); prints the stats and
-  ``RunReport.from_serve``.
+  ``RunReport.from_serve``.  Attention stacks only (dense or MoE FFNs,
+  e.g. olmoe-1b-7b): an MLA arch (minicpm3-4b, deepseek-v3-671b) raises
+  the reference's ``ValueError`` and serves through the contiguous
+  ``MLACache`` of the path above.
 * ``--strategy gd|kwindows`` (classical fits): train a small ``api.fit``,
   publish it to a ``ModelRegistry``, load it back and serve a query stream
   through a ``MicroBatcher`` — the fit → publish → serve round trip.

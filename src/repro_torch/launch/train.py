@@ -22,6 +22,11 @@ Example (CPU smoke; on the card drop ``--device cpu``):
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --steps 12 \\
       --batch 2 --seq 32 --device cpu
 
+``--arch`` takes the MLA and MoE archs too: ``--arch deepseek-v3-671b
+--reduced`` trains MLA, a first-k dense layer, MoE with a shared expert
+and the multi-token-prediction loss (the full model does not fit one
+card), ``--arch olmoe-1b-7b`` / ``minicpm3-4b`` the MoE and MLA families.
+
 ``--sweep-staleness 0,1,2,4`` trains one model per staleness level in
 one sweep (``api.SweepExecutor({"staleness": ...})``): the levels share one
 delay line of depth max D and each reads it at its own index; the

@@ -1,9 +1,10 @@
 """LM substrate of the port (counterpart of ``repro.models``): the config,
-layers, KV caches, GQA attention and the decoder of the attention ×
-dense-FFN family.  MLA, MoE, Mamba, xLSTM and whisper wait for their slice
-(``ROADMAP.md`` queue 1, item 11)."""
+layers, KV and MLA caches, GQA attention, MLA, the MoE FFN and the decoder
+of the attention / MLA × dense / MoE families with multi-token prediction.
+Mamba, xLSTM and whisper wait for their slice (``ROADMAP.md`` queue 1,
+item 11, second half)."""
 
-from repro_torch.models import attention, cache, config, layers, transformer
+from repro_torch.models import attention, cache, config, layers, mla, moe, transformer
 from repro_torch.models.config import (
     MLAConfig,
     MoEConfig,
@@ -17,6 +18,8 @@ __all__ = [
     "cache",
     "config",
     "layers",
+    "mla",
+    "moe",
     "transformer",
     "MLAConfig",
     "MoEConfig",

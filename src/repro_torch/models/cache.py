@@ -11,8 +11,10 @@ writes land in memory no live sequence reads.
 Where the JAX package returns new arrays (and donates the old arena to the
 compiled step, ``serve/continuous.py:260``), the port updates the caches in
 place (``index_put_``, slice assignment) and returns the same tensors: a
-decode step moves one token per slot, not the whole arena.  The caches of
-the other mixer families wait for them (``ROADMAP.md`` queue 1, item 11).
+decode step moves one token per slot, not the whole arena.
+
+``MLACache`` is MLA's dense latent cache.  The recurrent mixers' caches
+wait for their families (``ROADMAP.md`` queue 1, item 11, second half).
 """
 
 from __future__ import annotations
@@ -35,6 +37,24 @@ def kv_cache_init(batch: int, seq: int, n_kv: int, head_dim: int, dtype,
     return KVCache(
         k=torch.zeros((batch, seq, n_kv, head_dim), dtype=dtype, device=device),
         v=torch.zeros((batch, seq, n_kv, head_dim), dtype=dtype, device=device),
+        index=0,
+    )
+
+
+class MLACache(NamedTuple):
+    """DeepSeek MLA latent cache: the compressed KV and one shared roped
+    key per position."""
+
+    c_kv: torch.Tensor  # (B, S, kv_lora_rank), or (L, B, S, r) stacked
+    k_rope: torch.Tensor  # (B, S, qk_rope_head_dim)
+    index: int  # a host int, as ``KVCache.index``
+
+
+def mla_cache_init(batch: int, seq: int, kv_lora: int, rope_dim: int, dtype,
+                   device=None) -> MLACache:
+    return MLACache(
+        c_kv=torch.zeros((batch, seq, kv_lora), dtype=dtype, device=device),
+        k_rope=torch.zeros((batch, seq, rope_dim), dtype=dtype, device=device),
         index=0,
     )
 

@@ -1,5 +1,5 @@
-"""Decoder-only LM of the attention × dense-FFN family (port of
-``repro.models.transformer``).
+"""Decoder-only LM of the attention / MLA × dense / MoE families, with
+DeepSeek-V3's multi-token prediction (port of ``repro.models.transformer``).
 
 The reference factors the layer stack into **segments** (a repeating unit
 of layer specs scanned over its repeats) and keeps every per-layer leaf
@@ -9,12 +9,14 @@ each ``lax.scan`` into a Python loop over the stacked dimension, taking
 views of the layer's leaves and cache slices (cache writes land in the
 stacked arrays in place).
 
-Ported: ``layer_specs``, ``segments``, ``init_layer``, ``apply_layer``,
-``init_params``, ``init_cache``, ``forward``, ``_head_logits``,
-``decode_step``, ``init_paged_cache``, ``paged_decode_step``,
-``paged_insert_prompt``, and for training ``_remat_wrap``, ``chunked_ce``
-and ``loss_fn``.  Other mixers, MoE FFNs and multi-token prediction raise
-``NotImplementedError`` (``ROADMAP.md`` queue 1, item 11).
+Ported: ``layer_specs``, ``segments``, ``segs_of``, ``init_layer``,
+``apply_layer``, ``init_layer_cache``, ``init_params``, ``init_cache``,
+``forward``, ``mtp_hidden``, ``_head_logits``, ``decode_step``,
+``init_paged_cache``, ``paged_decode_step``, ``paged_insert_prompt``, and
+for training ``_remat_wrap``, ``chunked_ce`` and ``loss_fn`` (with the
+MTP loss).  The recurrent mixers (mamba, mLSTM, sLSTM), xLSTM's FFN-less
+blocks and the VLM front end raise ``NotImplementedError`` (``ROADMAP.md``
+queue 1, item 11, second half).
 
 Training differentiates through the Python loop with autograd.  Each
 stacked leaf is split once per forward with ``unbind(0)``, so its
@@ -37,6 +39,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.models import cache as cache_lib
+from repro_torch.models import mla, moe
 from repro_torch.models.attention import attn_apply, attn_init
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -120,13 +123,23 @@ def segments(cfg: ModelConfig) -> list[Segment]:
     return segs
 
 
+def segs_of(cfg: ModelConfig) -> list[Segment]:
+    """The reference's name for ``segments`` where caches are built."""
+    return segments(cfg)
+
+
+_MIXER_INIT = {"attn": attn_init, "mla": mla.mla_init}
+
+
 def _check_ported(spec: LayerSpec) -> None:
-    if spec.mixer != "attn":
+    if spec.mixer not in _MIXER_INIT:
         raise NotImplementedError(
-            f"mixer {spec.mixer!r} is not ported yet: ROADMAP.md queue 1, item 11")
-    if spec.ffn != "dense":
+            f"mixer {spec.mixer!r} is not ported yet: ROADMAP.md queue 1, item 11 "
+            "(second half)")
+    if spec.ffn not in ("dense", "moe"):
         raise NotImplementedError(
-            f"ffn {spec.ffn!r} is not ported yet: ROADMAP.md queue 1, item 11")
+            f"ffn {spec.ffn!r} is not ported yet: ROADMAP.md queue 1, item 11 "
+            "(second half)")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -139,27 +152,51 @@ def _dtype(name: str) -> torch.dtype:
 
 def init_layer(gen, cfg: ModelConfig, spec: LayerSpec, dtype, device=None):
     _check_ported(spec)
-    return {
+    p = {
         "mixer_norm": rmsnorm_init(cfg.d_model, dtype, device),
-        "mixer": attn_init(gen, cfg, dtype=dtype, device=device),
+        "mixer": _MIXER_INIT[spec.mixer](gen, cfg, dtype=dtype, device=device),
         "ffn_norm": rmsnorm_init(cfg.d_model, dtype, device),
-        "ffn": swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype=dtype, device=device),
     }
+    if spec.ffn == "dense":
+        p["ffn"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype=dtype, device=device)
+    else:
+        p["ffn"] = moe.moe_init(gen, cfg, dtype=dtype, device=device)
+    return p
 
 
 def apply_layer(p, cfg: ModelConfig, spec: LayerSpec, h, *, cache=None,
-                positions=None, pages=None, decode_attn="off"):
-    """Pre-norm residual block: ``(h, new_cache, aux)``; aux is 0.0 (no
-    auxiliary loss in the dense family)."""
+                positions=None, mla_absorb=False, pages=None, decode_attn="off"):
+    """Pre-norm residual block: ``(h, new_cache, aux)``; aux is the MoE
+    load-balance loss, 0.0 for a dense FFN."""
     _check_ported(spec)
     hn = rmsnorm(p["mixer_norm"], h, eps=cfg.rms_eps)
-    mix, new_cache = attn_apply(
-        p["mixer"], cfg, hn, positions=positions, cache=cache, pages=pages,
-        decode_attn=decode_attn,
-    )
+    if spec.mixer == "attn":
+        mix, new_cache = attn_apply(
+            p["mixer"], cfg, hn, positions=positions, cache=cache, pages=pages,
+            decode_attn=decode_attn,
+        )
+    else:
+        mix, new_cache = mla.mla_apply(
+            p["mixer"], cfg, hn, positions=positions, cache=cache, absorb=mla_absorb)
     h = h + mix
-    h = h + swiglu(p["ffn"], rmsnorm(p["ffn_norm"], h, eps=cfg.rms_eps))
-    return h, new_cache, 0.0
+    hn = rmsnorm(p["ffn_norm"], h, eps=cfg.rms_eps)
+    if spec.ffn == "dense":
+        return h + swiglu(p["ffn"], hn), new_cache, 0.0
+    y, aux = moe.moe_apply(p["ffn"], cfg, hn)
+    return h + y, new_cache, aux
+
+
+def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, seq: int, dtype,
+                     device=None):
+    """One layer's dense decode cache, empty."""
+    if spec.mixer == "attn":
+        return cache_lib.kv_cache_init(batch, seq, cfg.num_kv_heads, cfg.head_dim, dtype,
+                                       device)
+    if spec.mixer == "mla":
+        return cache_lib.mla_cache_init(
+            batch, seq, cfg.mla.kv_lora_rank, cfg.mla.qk_rope_head_dim, dtype, device)
+    _check_ported(spec)
+    raise ValueError(spec.mixer)
 
 
 # ----------------------------------------------------------------------------
@@ -172,10 +209,6 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None):
     ``"meta"`` gives the shapes without memory)."""
     dtype = _dtype(cfg.param_dtype)
     device = torch.device(device) if device is not None else gen.device
-    if cfg.num_mtp_layers > 0:
-        raise NotImplementedError(
-            "multi-token prediction (deepseek-v3's MTP) is not ported yet: "
-            "ROADMAP.md queue 1, item 11")
     params = {"embed": embedding_init(gen, cfg.padded_vocab, cfg.d_model, dtype, device)}
     for si, seg in enumerate(segments(cfg)):
         params[f"seg{si}"] = tree_stack([
@@ -187,48 +220,70 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None):
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(
             gen, cfg.d_model, cfg.padded_vocab, dtype=dtype, device=device)
+    if cfg.num_mtp_layers > 0:
+        params["mtp"] = {
+            "proj": dense_init(gen, 2 * cfg.d_model, cfg.d_model, dtype=dtype, device=device),
+            "norm_h": rmsnorm_init(cfg.d_model, dtype, device),
+            "norm_e": rmsnorm_init(cfg.d_model, dtype, device),
+            "layer": init_layer(gen, cfg, _mtp_spec(cfg), dtype, device),
+            "final_norm": rmsnorm_init(cfg.d_model, dtype, device),
+        }
     return params
+
+
+def _mtp_spec(cfg: ModelConfig) -> LayerSpec:
+    return LayerSpec(mixer=cfg.mixer, ffn="dense" if cfg.moe is None else "moe")
 
 
 def compute_params(params, cfg: ModelConfig):
     """The weights as the forward pass reads them: every dense ``kernel``
-    and ``bias`` cast once to the compute type, the rest as they are.
+    and ``bias`` and the MoE expert stacks cast once to the compute type,
+    the rest as they are.
 
     ``dense`` casts its weight to the activation's type at every call
-    (``layers.py:36`` of the reference), so a copy made once gives the same
+    (``layers.py:36`` of the reference), and ``moe_apply`` its expert
+    stacks (``moe.py:121-123``), so a copy made once gives the same
     numbers — and in bf16 saves a step re-reading the f32 weights and
     writing the cast (about 6.6 GB of traffic per decode step of
-    tinyllama-1.1b).  Norm scales and the embedding table stay in the
-    parameter type: ``rmsnorm`` and the tied head read them in f32, and the
-    embedding is cast after the gather.  Where both types agree nothing is
-    copied.
+    tinyllama-1.1b, 38.7 GB of olmoe-1b-7b's experts).  Left in the
+    parameter type: norm scales and the embedding table (``rmsnorm`` and
+    the tied head read them in f32, the embedding is cast after the
+    gather), and the subtrees each model file names in its
+    ``KEEP_LEAVES``: the MoE ``router``, which the reference reads in f32,
+    and MLA's ``w_uk`` / ``w_uv``, which the absorbed path reads in f32
+    (its unabsorbed path casts them at each call, as ``dense`` does).  The
+    subtrees in ``moe.CAST_WHOLE`` are cast leaf by leaf.  Where both types
+    agree nothing is copied.
     """
     cd = _dtype(cfg.compute_dtype)
+    keep = moe.KEEP_LEAVES + mla.KEEP_LEAVES
 
-    def walk(tree):
-        return {
-            k: (v.to(cd) if k in ("kernel", "bias") else v)
-            if isinstance(v, torch.Tensor) else walk(v)
-            for k, v in tree.items()
-        }
+    def walk(tree, cast_all=False):
+        out = {}
+        for k, v in tree.items():
+            if not isinstance(v, torch.Tensor):
+                out[k] = v if k in keep else walk(v, cast_all=k in moe.CAST_WHOLE)
+            elif cast_all or k in ("kernel", "bias"):
+                out[k] = v.to(cd)
+            else:
+                out[k] = v
+        return out
 
     return walk(params)
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype, *, index: int = 0,
                device=None):
-    """Stacked per-segment dense caches, filled up to ``index``."""
+    """Stacked per-segment dense caches (``KVCache`` / ``MLACache``, a
+    leading layer dimension on every tensor), filled up to ``index``."""
     caches = {}
     for si, seg in enumerate(segments(cfg)):
         unit = {}
         for li, spec in enumerate(seg.unit):
-            _check_ported(spec)
-            shape = (seg.repeats, batch, seq, cfg.num_kv_heads, cfg.head_dim)
-            unit[f"l{li}"] = cache_lib.KVCache(
-                k=torch.zeros(shape, dtype=dtype, device=device),
-                v=torch.zeros(shape, dtype=dtype, device=device),
-                index=index,
-            )
+            one = init_layer_cache(cfg, spec, batch, seq, dtype, device="meta")
+            unit[f"l{li}"] = one._replace(index=index, **{
+                f: torch.zeros((seg.repeats, *t.shape), dtype=t.dtype, device=device)
+                for f, t in one._asdict().items() if isinstance(t, torch.Tensor)})
         caches[f"seg{si}"] = unit
     return caches
 
@@ -236,9 +291,12 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype, *, index: int = 0,
 def _layer_cache(c, r: int):
     """The ``r``-th layer's slice of a stacked cache (views: writes land in
     the stack)."""
-    if isinstance(c, cache_lib.PagedKVCache):
-        return cache_lib.PagedKVCache(k=c.k[r], v=c.v[r])
-    return cache_lib.KVCache(k=c.k[r], v=c.v[r], index=c.index)
+    return c._replace(**{f: t[r] for f, t in c._asdict().items()
+                         if isinstance(t, torch.Tensor)})
+
+
+def _dense_cache(c) -> bool:
+    return isinstance(c, (cache_lib.KVCache, cache_lib.MLACache))
 
 
 def _save_matmuls(ctx, op, *args, **kwargs):
@@ -266,12 +324,15 @@ def _remat_wrap(fn, cfg: ModelConfig):
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, positions=None,
-            cache=None, pages: tuple | None = None, decode_attn: str = "off",
-            return_hidden: bool = False, skip_logits: bool = False):
+            cache=None, mla_absorb: bool = False, pages: tuple | None = None,
+            decode_attn: str = "off", return_hidden: bool = False,
+            skip_logits: bool = False):
     """Returns (logits, aux_loss, new_cache[, hidden]).  Caches are updated
     in place; ``new_cache`` holds the same tensors with the dense fill
-    index advanced.  ``skip_logits`` returns None for the logits (the loss
-    takes them chunk by chunk from ``hidden``, the final-normed states)."""
+    index advanced.  ``aux_loss`` sums the layers' MoE losses in layer
+    order (0.0 without MoE).  ``skip_logits`` returns None for the logits
+    (the loss takes them chunk by chunk from ``hidden``, the final-normed
+    states)."""
     cd = _dtype(cfg.compute_dtype)
     B, T = tokens.shape
     if positions is None:
@@ -283,13 +344,13 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, positions=None,
     for si, seg in enumerate(segments(cfg)):
         seg_cache = cache[f"seg{si}"] if cache is not None else None
 
-        def body(h, p_r, r, seg=seg, seg_cache=seg_cache):
-            aux = 0.0
+        def body(h, aux, p_r, r, seg=seg, seg_cache=seg_cache):
+            # aux is carried through the layers, as the reference's scan carry
             for li, spec in enumerate(seg.unit):
                 c_in = _layer_cache(seg_cache[f"l{li}"], r) if cache is not None else None
                 h, _, a = apply_layer(
                     p_r[f"l{li}"], cfg, spec, h, cache=c_in, positions=positions,
-                    pages=pages, decode_attn=decode_attn,
+                    mla_absorb=mla_absorb, pages=pages, decode_attn=decode_attn,
                 )
                 aux = aux + a
             return h, aux
@@ -298,11 +359,10 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, positions=None,
         leaves, spec = tree_flatten(params[f"seg{si}"])
         layers = [x.unbind(0) for x in leaves]
         for r in range(seg.repeats):
-            h, a = body(h, tree_unflatten([x[r] for x in layers], spec), r)
-            aux = aux + a
+            h, aux = body(h, aux, tree_unflatten([x[r] for x in layers], spec), r)
         if cache is not None:
             new_caches[f"seg{si}"] = {
-                key: c._replace(index=c.index + T) if isinstance(c, cache_lib.KVCache) else c
+                key: c._replace(index=c.index + T) if _dense_cache(c) else c
                 for key, c in seg_cache.items()
             }
 
@@ -310,6 +370,19 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, positions=None,
     logits = None if skip_logits else _head_logits(params, cfg, h)
     out = (logits, aux, new_caches)
     return out + (h,) if return_hidden else out
+
+
+def mtp_hidden(params, cfg: ModelConfig, hidden, tokens, positions):
+    """Depth-1 MTP trunk: h'_t = Layer(W [norm(h_t); norm(E(tok_{t+1}))]),
+    final-normed, and its MoE aux; the caller applies the shared head
+    (chunked) to predict token t+2.  ``tokens`` come pre-shifted."""
+    p = params["mtp"]
+    e_next = embed(params["embed"], tokens, compute_dtype=_dtype(cfg.compute_dtype))
+    x = torch.cat([rmsnorm(p["norm_h"], hidden, eps=cfg.rms_eps),
+                   rmsnorm(p["norm_e"], e_next, eps=cfg.rms_eps)], dim=-1)
+    x = dense(p["proj"], x)
+    x, _, aux = apply_layer(p["layer"], cfg, _mtp_spec(cfg), x, positions=positions)
+    return rmsnorm(p["final_norm"], x, eps=cfg.rms_eps), aux
 
 
 def _head_logits(params, cfg: ModelConfig, h):
@@ -358,37 +431,48 @@ def chunked_ce(params, cfg: ModelConfig, hidden, labels, *, mask=None, chunk=512
 
 
 def loss_fn(params, cfg: ModelConfig, batch):
-    """``(total, {"ce", "aux"})`` for ``batch`` = tokens (B, T), labels
-    (B, T) and an optional ``loss_mask``."""
-    if cfg.num_mtp_layers > 0:
-        raise NotImplementedError(
-            "the multi-token-prediction loss (deepseek-v3's MTP) is not ported "
-            "yet: ROADMAP.md queue 1, item 11")
+    """``(total, {"ce", "aux"[, "mtp"]})`` for ``batch`` = tokens (B, T),
+    labels (B, T) and an optional ``loss_mask``.  With MTP the trunk reads
+    the tokens shifted by one and predicts the labels shifted by one (token
+    t+2), its last two positions masked out (they wrap around), and adds
+    ``mtp_loss_coef`` × its loss and its own MoE aux."""
     if "mrope_positions" in batch or "vision_embeds" in batch:
         raise NotImplementedError(
             "the VLM front end (M-RoPE, vision embeddings) is not ported yet: "
-            "ROADMAP.md queue 1, item 11")
+            "ROADMAP.md queue 1, item 11 (second half)")
     _, aux, _, hidden = forward(
         params, cfg, batch["tokens"], return_hidden=True, skip_logits=True)
     loss = chunked_ce(params, cfg, hidden, batch["labels"], mask=batch.get("loss_mask"))
     aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
-    return loss + aux, {"ce": loss, "aux": aux}
+    total = loss + aux
+    metrics = {"ce": loss, "aux": aux}
+    if cfg.num_mtp_layers > 0:
+        tokens = batch["tokens"]
+        B, T = tokens.shape
+        positions = torch.arange(T, device=tokens.device).expand(B, T)
+        h_mtp, aux_mtp = mtp_hidden(params, cfg, hidden, torch.roll(tokens, -1, 1), positions)
+        mask = torch.ones((B, T), dtype=torch.float32, device=tokens.device)
+        mask[:, -2:] = 0.0
+        mtp_loss = chunked_ce(params, cfg, h_mtp, torch.roll(batch["labels"], -1, 1),
+                              mask=mask)
+        total = total + cfg.mtp_loss_coef * mtp_loss + aux_mtp
+        metrics["mtp"] = mtp_loss
+    return total, metrics
 
 
 def decode_step(params, cfg: ModelConfig, tokens, cache, *, positions=None,
-                decode_attn: str = "off"):
+                mla_absorb: bool = False, decode_attn: str = "off"):
     """One serve step: tokens (B, T) + cache → (logits (B, T, V), new_cache).
     Without ``positions`` every token sits at the cache's fill index, as in
     the reference."""
     if positions is None:
-        index = next(
-            c.index for seg in cache.values() for c in seg.values()
-            if isinstance(c, cache_lib.KVCache)
-        )
+        index = next(c.index for seg in cache.values() for c in seg.values()
+                     if _dense_cache(c))
         positions = torch.full(tokens.shape, index, dtype=torch.int64,
                                device=tokens.device)
     logits, _, new_cache = forward(
-        params, cfg, tokens, positions=positions, cache=cache, decode_attn=decode_attn,
+        params, cfg, tokens, positions=positions, cache=cache, mla_absorb=mla_absorb,
+        decode_attn=decode_attn,
     )
     return logits, new_cache
 

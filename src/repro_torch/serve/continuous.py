@@ -204,8 +204,8 @@ class ContinuousLMEngine:
     """Slot-scheduled LM serving over a paged KV cache.
 
     Args:
-      cfg / params: an attention-only LM (``init_paged_cache`` rejects
-        other mixers) and its parameter tree (``transformer.init_params``
+      cfg / params: an LM whose mixers are all attention (dense or MoE
+        FFNs; ``init_paged_cache`` rejects MLA and the recurrent mixers) and its parameter tree (``transformer.init_params``
         or ``convert.params_from_reference``).
       n_slots: in-flight sequences one step advances together.
       page_size: tokens per physical KV page.
@@ -263,10 +263,11 @@ class ContinuousLMEngine:
         self.sched = DecodeScheduler(
             n_slots=n_slots, n_pages=n_pages, page_size=page_size, max_seq=max_seq)
         self._cd = getattr(torch, cfg.compute_dtype)
+        # first, as it refuses stacks with other mixers than attention
+        self._cache = tf.init_paged_cache(cfg, n_pages, page_size, self._cd, self.device)
         # one compute-type copy of the weights, made once (see compute_params)
         self._weights = tf.compute_params(
             tree_map(lambda x: x.to(self.device), params), cfg)
-        self._cache = tf.init_paged_cache(cfg, n_pages, page_size, self._cd, self.device)
         self._last_tok = np.zeros((n_slots,), np.int32)
         self._seeds = np.zeros((n_slots,), np.int32)
         self._rid = 0

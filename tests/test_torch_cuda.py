@@ -76,12 +76,12 @@ def test_wrappers_refuse_bad_operands(cuda):
 
 
 # (B, S, Hq, Hkv, D): the JAX package's decode test shapes, the serving
-# shape of tinyllama-1.1b (G 8, D 64) and qwen2-1.5b's heads (G 6, D 128),
-# and S within one tile (a single split)
+# shape of tinyllama-1.1b (G 8, D 64), qwen2-1.5b's heads (G 6, D 128),
+# olmoe-1b-7b's heads (MHA: G 1, D 128), and S within one tile (a single split)
 DECODE_SHAPES = [
     (2, 256, 8, 2, 32), (1, 512, 4, 4, 64), (3, 128, 4, 1, 16),
     (2, 300, 8, 4, 32), (4, 1024, 32, 4, 64), (3, 200, 12, 2, 128),
-    (2, 70, 2, 2, 8), (3, 40, 4, 2, 16),
+    (2, 70, 2, 2, 8), (3, 40, 4, 2, 16), (4, 512, 16, 16, 128),
 ]
 #: |kernel - plain| limits: the JAX package's own decode-test tolerances
 DECODE_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}

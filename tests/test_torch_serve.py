@@ -114,7 +114,7 @@ def _record_margins(engine):
     return seen
 
 
-@pytest.mark.parametrize("name", ["tiny", "tinyllama-1.1b", "qwen2-1.5b"])
+@pytest.mark.parametrize("name", ["tiny", "tinyllama-1.1b", "qwen2-1.5b", "olmoe-1b-7b"])
 def test_greedy_ids_identical_to_jax_engine(name):
     jc, tc, jp, tp = _models(name)
     reqs = _requests(jc.vocab_size)

@@ -182,9 +182,26 @@ def test_remat_policies_agree_bitwise(model):
 
 
 def test_mtp_loss_raises_naming_roadmap(model):
-    _, tc, _ = model
-    with pytest.raises(NotImplementedError, match="item 11"):
-        t_tf.loss_fn({}, tc.replace(num_mtp_layers=1), {})
+    """Once a refusal (MTP was ROADMAP item 11), now the MTP loss of the
+    dense model with one MTP module (attention × dense FFN trunk) against
+    the JAX package: the loss and its ``ce`` / ``aux`` / ``mtp`` metrics to
+    rtol 1e-5, each gradient leaf to 1e-5 × its max |g|."""
+    jc, tc, _ = model
+    jc, tc = jc.replace(num_mtp_layers=1), tc.replace(num_mtp_layers=1)
+    jp = j_tf.init_params(jax.random.key(1), jc)
+    batch = reference_batches(jc, 1)[0]
+    (jl, jm), jg = jax.jit(jax.value_and_grad(lambda p: j_tf.loss_fn(p, jc, batch),
+                                              has_aux=True))(jax.tree.map(jnp.asarray, jp))
+    leaves, spec = tree_flatten(t_params(jp))
+    xs = [x.requires_grad_() for x in leaves]
+    tl, tm = t_tf.loss_fn(torch.utils._pytree.tree_unflatten(xs, spec), tc, t_batch(batch))
+    tg = torch.autograd.grad(tl, xs)
+    assert sorted(tm) == sorted(jm) == ["aux", "ce", "mtp"]
+    np.testing.assert_allclose(tl.item(), float(jl), rtol=RTOL)
+    for k in ("ce", "mtp"):
+        np.testing.assert_allclose(tm[k].item(), float(jm[k]), rtol=RTOL, err_msg=k)
+    assert tm["aux"].item() == float(jm["aux"]) == 0.0
+    _grads_close(jg, torch.utils._pytree.tree_unflatten(list(tg), spec))
 
 
 # ----------------------------------------------------------------------------
