@@ -10,15 +10,19 @@ fit started in ``repro`` resumes in ``repro_torch``::
 
 The reference's NamedTuples are recognised by class name and fields (this
 module imports nothing of ``repro``): ``DelayLine``, ``ServerState``,
-``FaultCarry``, ``EFState`` and ``KWindows`` map to the port's classes of
-the same name.
+``FaultCarry``, ``EFState``, ``KWindows`` and the decode caches
+``KVCache``, ``MLACache``, ``MambaCache``, ``MLSTMCache`` and
+``SLSTMCache`` map to the port's classes of the same name (a cache's fill
+index becomes a host int), so a JAX decode state resumes in the port.
 Dicts, lists and tuples keep their structure (dicts keep their keys).
 
 Model weights cross the same way: ``params_from_reference`` takes the tree
 of ``repro.models.transformer.init_params`` (as numpy) to the port's tree,
 which has the same names and shapes, bit for bit — the MoE expert stacks
 ``(E, d, f)``, the f32 ``router`` and the ``shared`` SwiGLU, MLA's
-projections and norms, and the ``mtp`` subtree as a whole among them.
+projections and norms, the ``mtp`` subtree, mamba's f32 ``A_log`` / ``D``,
+xLSTM's stacked recurrent matrices and whisper's encoder-decoder tree
+among them.
 """
 
 from __future__ import annotations
@@ -32,8 +36,10 @@ from repro_torch.core.server import ServerState
 from repro_torch.core.staleness import DelayLine
 from repro_torch.device import resolve_device
 from repro_torch.ml.kwindows import KWindows
+from repro_torch.models.cache import KVCache, MambaCache, MLACache, MLSTMCache, SLSTMCache
 
-_NAMED = {cls.__name__: cls for cls in (DelayLine, ServerState, FaultCarry, EFState, KWindows)}
+_NAMED = {cls.__name__: cls for cls in (DelayLine, ServerState, FaultCarry, EFState, KWindows,
+                                        KVCache, MLACache, MambaCache, MLSTMCache, SLSTMCache)}
 
 
 def _convert(x, dev):
@@ -43,7 +49,15 @@ def _convert(x, dev):
             raise TypeError(
                 f"no repro_torch counterpart for {type(x).__name__}{x._fields}"
             )
-        return cls(*(_convert(v, dev) for v in x))
+        out = cls(*(_convert(v, dev) for v in x))
+        if cls in (KVCache, MLACache):
+            # the fill index (one a layer in a stacked cache): the port keeps
+            # one host int
+            idx = torch.as_tensor(out.index).reshape(-1)
+            if not bool((idx == idx[0]).all()):
+                raise ValueError(f"{type(x).__name__}: fill indices differ by layer: {idx}")
+            out = out._replace(index=int(idx[0]))
+        return out
     if isinstance(x, (tuple, list)):
         return type(x)(_convert(v, dev) for v in x)
     if isinstance(x, dict):

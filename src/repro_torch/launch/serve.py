@@ -8,7 +8,10 @@ Three paths:
   on the engine's ``CommLedger``.  Attention stacks prefill the whole
   prompt in ONE call into a contiguous f32 cache of ``P + gen + 1``
   (``prefill_and_decode``); decode attention there is the plain ``_sdpa``
-  over that cache (``decode_attn="off"``), as in the reference.
+  over that cache (``decode_attn="off"``), as in the reference.  Stacks
+  with a recurrent mixer (xlstm-125m, jamba-1.5-large-398b) prefill token
+  by token into their fixed-size states; whisper-base (encoder-decoder)
+  is refused, as in the reference.
 * ``--arch ... --continuous``: continuous batching over a paged KV cache
   (``ContinuousLMEngine``, decode attention in CUDA); prints the stats and
   ``RunReport.from_serve``.  Attention stacks only (dense or MoE FFNs,

@@ -22,10 +22,14 @@ Example (CPU smoke; on the card drop ``--device cpu``):
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --steps 12 \\
       --batch 2 --seq 32 --device cpu
 
-``--arch`` takes the MLA and MoE archs too: ``--arch deepseek-v3-671b
+``--arch`` takes every decoder-only arch: ``--arch deepseek-v3-671b
 --reduced`` trains MLA, a first-k dense layer, MoE with a shared expert
 and the multi-token-prediction loss (the full model does not fit one
-card), ``--arch olmoe-1b-7b`` / ``minicpm3-4b`` the MoE and MLA families.
+card), ``--arch olmoe-1b-7b`` / ``minicpm3-4b`` the MoE and MLA families,
+``--arch xlstm-125m`` the xLSTM stack, ``--arch jamba-1.5-large-398b
+--reduced`` mamba, attention and MoE interleaved, ``--arch qwen2-vl-2b``
+the VLM's text stack.  whisper-base (encoder-decoder) is refused, as in
+the reference, which trains it through the model functions only.
 
 ``--sweep-staleness 0,1,2,4`` trains one model per staleness level in
 one sweep (``api.SweepExecutor({"staleness": ...})``): the levels share one
@@ -121,6 +125,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.is_encoder_decoder:
+        raise SystemExit("use examples/whisper_train.py for enc-dec training")
 
     # θ under one name only: a second would keep θ_0 alive all run
     theta = tf.init_params(torch.Generator(device=device).manual_seed(args.seed), cfg)

@@ -1,10 +1,21 @@
-"""LM substrate of the port (counterpart of ``repro.models``): the config,
-layers, KV and MLA caches, GQA attention, MLA, the MoE FFN and the decoder
-of the attention / MLA × dense / MoE families with multi-token prediction.
-Mamba, xLSTM and whisper wait for their slice (``ROADMAP.md`` queue 1,
-item 11, second half)."""
+"""Model substrate of the port (counterpart of ``repro.models``): the
+config, layers, every mixer family's decode caches, GQA attention with
+RoPE / M-RoPE, MLA, the MoE FFN, mamba, xLSTM, the unified decoder with
+multi-token prediction and the VLM front end, and whisper's
+encoder-decoder."""
 
-from repro_torch.models import attention, cache, config, layers, mla, moe, transformer
+from repro_torch.models import (
+    attention,
+    cache,
+    config,
+    layers,
+    mamba,
+    mla,
+    moe,
+    transformer,
+    whisper,
+    xlstm,
+)
 from repro_torch.models.config import (
     MLAConfig,
     MoEConfig,
@@ -18,9 +29,12 @@ __all__ = [
     "cache",
     "config",
     "layers",
+    "mamba",
     "mla",
     "moe",
     "transformer",
+    "whisper",
+    "xlstm",
     "MLAConfig",
     "MoEConfig",
     "ModelConfig",

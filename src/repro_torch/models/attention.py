@@ -1,4 +1,4 @@
-"""Grouped-query attention with RoPE and KV caches (port of
+"""Grouped-query attention with RoPE / M-RoPE and KV caches (port of
 ``repro.models.attention``).
 
 Train and prefill attention (``cache is None``) is the plain ``_sdpa``
@@ -9,7 +9,10 @@ with f32 logits, as the reference leaves it to XLA; with
 version on the CPU).  The single-token decode path routes through the
 decode-attention CUDA kernel (``decode_attn="cuda"``) or its plain PyTorch
 version (``"plain"``); ``decode_attn="off"`` keeps the ``_sdpa`` math on
-the dense cache.  M-RoPE is not ported yet and raises.
+the dense cache.  With ``cfg.mrope_sections`` and ``mrope_positions``
+given, q and k are rotated by M-RoPE before any branch (the flash kernel
+reads them rotated), otherwise by RoPE of ``positions``, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from repro_torch.kernels.decode_attention import ref as da_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.cache import KVCache, PagedKVCache, paged_append, paged_view
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, dense, dense_init
+from repro_torch.models.layers import apply_mrope, apply_rope, dense, dense_init
 
 
 def attn_init(gen, cfg: ModelConfig, dtype=torch.float32, device=None):
@@ -143,6 +146,7 @@ def attn_apply(
     *,
     positions: torch.Tensor,
     cache: KVCache | PagedKVCache | None = None,
+    mrope_positions: torch.Tensor | None = None,
     use_kernel: bool = False,
     pages: tuple | None = None,
     decode_attn: str = "off",
@@ -160,14 +164,16 @@ def attn_apply(
     B, T, _ = x.shape
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     cd = x.dtype
-    if cfg.mrope_sections:
-        raise NotImplementedError("M-RoPE: ROADMAP.md queue 1, item 11 (qwen2-vl)")
 
     q = dense(p["wq"], x).reshape(B, T, H, D)
     k = dense(p["wk"], x).reshape(B, T, Hkv, D)
     v = dense(p["wv"], x).reshape(B, T, Hkv, D)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope_sections and mrope_positions is not None:
+        q = apply_mrope(q, mrope_positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, mrope_positions, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     scale = D ** -0.5
 
     if cache is None:

@@ -1,4 +1,4 @@
-"""KV caches of the attention family (port of ``repro.models.cache``).
+"""Decode caches of every mixer family (port of ``repro.models.cache``).
 
 ``KVCache`` is the dense per-sequence cache the prefill runs on.
 ``PagedKVCache`` is the continuous-batching arena: one physical page pool
@@ -13,8 +13,10 @@ compiled step, ``serve/continuous.py:260``), the port updates the caches in
 place (``index_put_``, slice assignment) and returns the same tensors: a
 decode step moves one token per slot, not the whole arena.
 
-``MLACache`` is MLA's dense latent cache.  The recurrent mixers' caches
-wait for their families (``ROADMAP.md`` queue 1, item 11, second half).
+``MLACache`` is MLA's dense latent cache.  ``MambaCache``, ``MLSTMCache``
+and ``SLSTMCache`` are the recurrent mixers' states: their size does not
+grow with the context, and they carry no fill index (the state is
+position-free).
 """
 
 from __future__ import annotations
@@ -56,6 +58,51 @@ def mla_cache_init(batch: int, seq: int, kv_lora: int, rope_dim: int, dtype,
         c_kv=torch.zeros((batch, seq, kv_lora), dtype=dtype, device=device),
         k_rope=torch.zeros((batch, seq, rope_dim), dtype=dtype, device=device),
         index=0,
+    )
+
+
+class MambaCache(NamedTuple):
+    conv: torch.Tensor  # (B, d_conv - 1, d_inner) — conv tail window
+    ssm: torch.Tensor  # (B, d_inner, d_state), f32
+
+
+class MLSTMCache(NamedTuple):
+    C: torch.Tensor  # (B, H, Dk, Dv) matrix memory, f32
+    n: torch.Tensor  # (B, H, Dk) normalizer
+    m: torch.Tensor  # (B, H) gate stabilizer
+
+
+class SLSTMCache(NamedTuple):
+    c: torch.Tensor  # (B, d), f32
+    n: torch.Tensor  # (B, d)
+    h: torch.Tensor  # (B, d)
+    m: torch.Tensor  # (B, d)
+
+
+def mamba_cache_init(batch: int, d_conv: int, d_inner: int, d_state: int, dtype,
+                     device=None) -> MambaCache:
+    return MambaCache(
+        conv=torch.zeros((batch, d_conv - 1, d_inner), dtype=dtype, device=device),
+        ssm=torch.zeros((batch, d_inner, d_state), dtype=torch.float32, device=device),
+    )
+
+
+def mlstm_cache_init(batch: int, heads: int, dk: int, dv: int, device=None) -> MLSTMCache:
+    f32 = dict(dtype=torch.float32, device=device)
+    return MLSTMCache(
+        C=torch.zeros((batch, heads, dk, dv), **f32),
+        n=torch.zeros((batch, heads, dk), **f32),
+        m=torch.full((batch, heads), -1e30, **f32),
+    )
+
+
+def slstm_cache_init(batch: int, d: int, device=None) -> SLSTMCache:
+    f32 = dict(dtype=torch.float32, device=device)
+    return SLSTMCache(
+        c=torch.zeros((batch, d), **f32),
+        n=torch.zeros((batch, d), **f32),
+        h=torch.zeros((batch, d), **f32),
+        m=torch.full((batch, d), -1e30, **f32),
     )
 
 

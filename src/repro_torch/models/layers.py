@@ -6,8 +6,8 @@ Each ``*_init`` draws from an explicit ``torch.Generator`` with the
 reference's shapes and distributions (a truncated normal on ±2σ); the
 numbers differ from ``jax.random``'s, so parity tests carry the reference's
 weights across with ``repro_torch.convert.params_from_reference``.
-``apply_mrope``, ``layernorm`` and the GELU MLP wait for their families
-(``ROADMAP.md`` queue 1, item 11).
+The GELU is the tanh approximation, ``jax.nn.gelu``'s default (torch's
+default is the erf form, about 1e-3 away).
 """
 
 from __future__ import annotations
@@ -63,6 +63,20 @@ def rmsnorm(p, x, *, eps: float = 1e-6):
     return (y * p["scale"].float()).to(x.dtype)
 
 
+def layernorm_init(d: int, dtype=torch.float32, device=None):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p, x, *, eps: float = 1e-5):
+    """LayerNorm with f32 statistics, scale and bias read in f32."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean((x32 - mu) ** 2, dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
 # ----------------------------------------------------------------------------
 # Embedding
 # ----------------------------------------------------------------------------
@@ -101,7 +115,27 @@ def swiglu(p, x):
 
 
 # ----------------------------------------------------------------------------
-# Rotary position embeddings
+# GELU MLP (whisper FFN)
+# ----------------------------------------------------------------------------
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def gelu_mlp_init(gen, d_model: int, d_ff: int, dtype=torch.float32, device=None):
+    return {
+        "w_in": dense_init(gen, d_model, d_ff, bias=True, dtype=dtype, device=device),
+        "w_out": dense_init(gen, d_ff, d_model, bias=True, dtype=dtype, device=device),
+    }
+
+
+def gelu_mlp(p, x):
+    return dense(p["w_out"], gelu(dense(p["w_in"], x)))
+
+
+# ----------------------------------------------------------------------------
+# Rotary position embeddings (standard and multimodal M-RoPE)
 # ----------------------------------------------------------------------------
 
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -116,6 +150,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     d = x.shape[-1]
     inv = rope_frequencies(d, theta, x.device)
     ang = positions[..., :, None, None].float() * inv  # (..., T, 1, D/2)
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: tuple) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): ``positions3`` (3, ..., T) holds the
+    temporal / height / width ids; ``sections`` splits the D/2 frequency
+    bands among them (e.g. (16, 24, 24)), each band rotated by its stream's
+    position."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"mrope sections {sections} must cover head_dim/2 = {d // 2}")
+    inv = rope_frequencies(d, theta, x.device)
+    band = torch.cat([torch.full((n,), i, device=x.device) for i, n in enumerate(sections)])
+    pos = torch.movedim(positions3[band], 0, -1)  # (..., T, D/2)
+    ang = pos[..., :, None, :].float() * inv  # (..., T, 1, D/2)
     sin, cos = torch.sin(ang), torch.cos(ang)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

@@ -1,27 +1,27 @@
-"""Decoder-only LM of the attention / MLA × dense / MoE families, with
-DeepSeek-V3's multi-token prediction (port of ``repro.models.transformer``).
+"""Decoder-only LM of every mixer family: attention, MLA, mamba, mLSTM and
+sLSTM × dense, MoE or no FFN, with DeepSeek-V3's multi-token prediction
+and the VLM front end (port of ``repro.models.transformer``).
 
 The reference factors the layer stack into **segments** (a repeating unit
 of layer specs scanned over its repeats) and keeps every per-layer leaf
 stacked on a leading dimension.  The port keeps that parameter tree, leaf
 for leaf (``seg0.l0.mixer.wq.kernel`` of shape (L, d, H·D), …), and turns
 each ``lax.scan`` into a Python loop over the stacked dimension, taking
-views of the layer's leaves and cache slices (cache writes land in the
-stacked arrays in place).
+views of the layer's leaves and cache slices.  Attention caches are
+written in place; the recurrent mixers return new states, which
+``forward`` copies into the stacked cache.
 
 Ported: ``layer_specs``, ``segments``, ``segs_of``, ``init_layer``,
 ``apply_layer``, ``init_layer_cache``, ``init_params``, ``init_cache``,
-``forward``, ``mtp_hidden``, ``_head_logits``, ``decode_step``,
-``init_paged_cache``, ``paged_decode_step``, ``paged_insert_prompt``, and
-for training ``_remat_wrap``, ``chunked_ce`` and ``loss_fn`` (with the
-MTP loss).  The recurrent mixers (mamba, mLSTM, sLSTM), xLSTM's FFN-less
-blocks and the VLM front end raise ``NotImplementedError`` (``ROADMAP.md``
-queue 1, item 11, second half).
+``forward`` (with ``mrope_positions`` and ``vision_embeds``: the VLM's
+patch embeddings replace the first Tv token embeddings), ``mtp_hidden``,
+``_head_logits``, ``decode_step``, ``init_paged_cache``,
+``paged_decode_step``, ``paged_insert_prompt``, and for training
+``_remat_wrap``, ``chunked_ce`` and ``loss_fn`` (with the MTP loss).
 
 Training differentiates through the Python loop with autograd.  Each
-stacked leaf is split once per forward with ``unbind(0)``, so its
-gradient is stacked in one pass; indexing ``x[r]`` per layer would have
-each layer's backward fill a zero tensor the size of the whole stack.
+stacked leaf is split once per forward (``utils.tree.tree_unstack``), so
+its gradient is stacked in one pass.
 ``cfg.remat_policy`` maps the reference's ``jax.checkpoint`` policies
 onto ``torch.utils.checkpoint`` (non-reentrant) around each layer body.
 """
@@ -38,9 +38,8 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from repro_torch.models import attention, mamba, mla, moe, xlstm
 from repro_torch.models import cache as cache_lib
-from repro_torch.models import mla, moe
-from repro_torch.models.attention import attn_apply, attn_init
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     dense,
@@ -53,7 +52,7 @@ from repro_torch.models.layers import (
     swiglu_init,
     unembed,
 )
-from repro_torch.utils.tree import tree_flatten, tree_stack, tree_unflatten
+from repro_torch.utils.tree import tree_stack, tree_unstack
 
 #: mixers whose caches accept T ≥ 1 appended tokens in ONE decode_step call
 #: (keys causal-masked against idx + arange(T)); the recurrent mixers carry
@@ -128,18 +127,15 @@ def segs_of(cfg: ModelConfig) -> list[Segment]:
     return segments(cfg)
 
 
-_MIXER_INIT = {"attn": attn_init, "mla": mla.mla_init}
-
-
-def _check_ported(spec: LayerSpec) -> None:
-    if spec.mixer not in _MIXER_INIT:
-        raise NotImplementedError(
-            f"mixer {spec.mixer!r} is not ported yet: ROADMAP.md queue 1, item 11 "
-            "(second half)")
-    if spec.ffn not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"ffn {spec.ffn!r} is not ported yet: ROADMAP.md queue 1, item 11 "
-            "(second half)")
+#: each mixer's module and the names of its init and apply, looked up at
+#: every call: a function patched on its module is the one that runs
+_MIXERS = {
+    "attn": (attention, "attn_init", "attn_apply"),
+    "mla": (mla, "mla_init", "mla_apply"),
+    "mamba": (mamba, "mamba_init", "mamba_apply"),
+    "mlstm": (xlstm, "mlstm_init", "mlstm_apply"),
+    "slstm": (xlstm, "slstm_init", "slstm_apply"),
+}
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -151,34 +147,39 @@ def _dtype(name: str) -> torch.dtype:
 # ----------------------------------------------------------------------------
 
 def init_layer(gen, cfg: ModelConfig, spec: LayerSpec, dtype, device=None):
-    _check_ported(spec)
+    module, init, _ = _MIXERS[spec.mixer]
     p = {
         "mixer_norm": rmsnorm_init(cfg.d_model, dtype, device),
-        "mixer": _MIXER_INIT[spec.mixer](gen, cfg, dtype=dtype, device=device),
-        "ffn_norm": rmsnorm_init(cfg.d_model, dtype, device),
+        "mixer": getattr(module, init)(gen, cfg, dtype=dtype, device=device),
     }
     if spec.ffn == "dense":
+        p["ffn_norm"] = rmsnorm_init(cfg.d_model, dtype, device)
         p["ffn"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype=dtype, device=device)
-    else:
+    elif spec.ffn == "moe":
+        p["ffn_norm"] = rmsnorm_init(cfg.d_model, dtype, device)
         p["ffn"] = moe.moe_init(gen, cfg, dtype=dtype, device=device)
     return p
 
 
 def apply_layer(p, cfg: ModelConfig, spec: LayerSpec, h, *, cache=None,
-                positions=None, mla_absorb=False, pages=None, decode_attn="off"):
+                positions=None, mrope_positions=None, mla_absorb=False, pages=None,
+                decode_attn="off"):
     """Pre-norm residual block: ``(h, new_cache, aux)``; aux is the MoE
-    load-balance loss, 0.0 for a dense FFN."""
-    _check_ported(spec)
+    load-balance loss, 0.0 for a dense FFN or none (xLSTM blocks carry their
+    own)."""
     hn = rmsnorm(p["mixer_norm"], h, eps=cfg.rms_eps)
+    kw = {}
+    if spec.mixer in ("attn", "mla"):
+        kw["positions"] = positions
     if spec.mixer == "attn":
-        mix, new_cache = attn_apply(
-            p["mixer"], cfg, hn, positions=positions, cache=cache, pages=pages,
-            decode_attn=decode_attn,
-        )
-    else:
-        mix, new_cache = mla.mla_apply(
-            p["mixer"], cfg, hn, positions=positions, cache=cache, absorb=mla_absorb)
+        kw.update(mrope_positions=mrope_positions, pages=pages, decode_attn=decode_attn)
+    if spec.mixer == "mla":
+        kw["absorb"] = mla_absorb
+    module, _, apply = _MIXERS[spec.mixer]
+    mix, new_cache = getattr(module, apply)(p["mixer"], cfg, hn, cache=cache, **kw)
     h = h + mix
+    if spec.ffn == "none":
+        return h, new_cache, 0.0
     hn = rmsnorm(p["ffn_norm"], h, eps=cfg.rms_eps)
     if spec.ffn == "dense":
         return h + swiglu(p["ffn"], hn), new_cache, 0.0
@@ -188,14 +189,22 @@ def apply_layer(p, cfg: ModelConfig, spec: LayerSpec, h, *, cache=None,
 
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, seq: int, dtype,
                      device=None):
-    """One layer's dense decode cache, empty."""
+    """One layer's dense decode cache, empty (a recurrent state for the
+    recurrent mixers: its size does not depend on ``seq``)."""
     if spec.mixer == "attn":
         return cache_lib.kv_cache_init(batch, seq, cfg.num_kv_heads, cfg.head_dim, dtype,
                                        device)
     if spec.mixer == "mla":
         return cache_lib.mla_cache_init(
             batch, seq, cfg.mla.kv_lora_rank, cfg.mla.qk_rope_head_dim, dtype, device)
-    _check_ported(spec)
+    if spec.mixer == "mamba":
+        d_inner, _, d_state, d_conv = mamba._dims(cfg)
+        return cache_lib.mamba_cache_init(batch, d_conv, d_inner, d_state, dtype, device)
+    if spec.mixer == "mlstm":
+        dh = xlstm._mlstm_inner(cfg) // cfg.num_heads
+        return cache_lib.mlstm_cache_init(batch, cfg.num_heads, dh, dh, device)
+    if spec.mixer == "slstm":
+        return cache_lib.slstm_cache_init(batch, cfg.d_model, device)
     raise ValueError(spec.mixer)
 
 
@@ -274,16 +283,18 @@ def compute_params(params, cfg: ModelConfig):
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype, *, index: int = 0,
                device=None):
-    """Stacked per-segment dense caches (``KVCache`` / ``MLACache``, a
-    leading layer dimension on every tensor), filled up to ``index``."""
+    """Stacked per-segment decode caches (a leading layer dimension on every
+    tensor): ``KVCache`` / ``MLACache`` filled up to ``index``, the
+    recurrent states at their initial values."""
     caches = {}
     for si, seg in enumerate(segments(cfg)):
         unit = {}
         for li, spec in enumerate(seg.unit):
-            one = init_layer_cache(cfg, spec, batch, seq, dtype, device="meta")
-            unit[f"l{li}"] = one._replace(index=index, **{
-                f: torch.zeros((seg.repeats, *t.shape), dtype=t.dtype, device=device)
+            one = init_layer_cache(cfg, spec, batch, seq, dtype, device=device)
+            stacked = one._replace(**{
+                f: t.expand(seg.repeats, *t.shape).contiguous()
                 for f, t in one._asdict().items() if isinstance(t, torch.Tensor)})
+            unit[f"l{li}"] = stacked._replace(index=index) if _dense_cache(one) else stacked
         caches[f"seg{si}"] = unit
     return caches
 
@@ -293,6 +304,15 @@ def _layer_cache(c, r: int):
     the stack)."""
     return c._replace(**{f: t[r] for f, t in c._asdict().items()
                          if isinstance(t, torch.Tensor)})
+
+
+def _write_back(dst, src) -> None:
+    """Copy a layer's returned cache into its slice of the stack, where the
+    mixer made new tensors (the recurrent states; attention writes in
+    place and returns its own)."""
+    for d, s in zip(dst, src):
+        if isinstance(d, torch.Tensor) and s is not d:
+            d.copy_(s)
 
 
 def _dense_cache(c) -> bool:
@@ -324,7 +344,8 @@ def _remat_wrap(fn, cfg: ModelConfig):
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, positions=None,
-            cache=None, mla_absorb: bool = False, pages: tuple | None = None,
+            mrope_positions=None, vision_embeds=None, cache=None,
+            mla_absorb: bool = False, pages: tuple | None = None,
             decode_attn: str = "off", return_hidden: bool = False,
             skip_logits: bool = False):
     """Returns (logits, aux_loss, new_cache[, hidden]).  Caches are updated
@@ -332,13 +353,17 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, positions=None,
     index advanced.  ``aux_loss`` sums the layers' MoE losses in layer
     order (0.0 without MoE).  ``skip_logits`` returns None for the logits
     (the loss takes them chunk by chunk from ``hidden``, the final-normed
-    states)."""
+    states).  ``vision_embeds`` (B, Tv, d), the VLM's precomputed patch
+    embeddings, replace the first Tv token embeddings; ``mrope_positions``
+    (3, B, T) drive M-RoPE in the attention layers."""
     cd = _dtype(cfg.compute_dtype)
     B, T = tokens.shape
     if positions is None:
         positions = torch.arange(T, device=tokens.device).expand(B, T)
 
     h = embed(params["embed"], tokens, compute_dtype=cd)
+    if vision_embeds is not None:
+        h = torch.cat([vision_embeds.to(cd), h[:, vision_embeds.shape[1]:]], dim=1)
     aux = 0.0
     new_caches = {} if cache is not None else None
     for si, seg in enumerate(segments(cfg)):
@@ -348,18 +373,19 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, positions=None,
             # aux is carried through the layers, as the reference's scan carry
             for li, spec in enumerate(seg.unit):
                 c_in = _layer_cache(seg_cache[f"l{li}"], r) if cache is not None else None
-                h, _, a = apply_layer(
+                h, c_out, a = apply_layer(
                     p_r[f"l{li}"], cfg, spec, h, cache=c_in, positions=positions,
-                    mla_absorb=mla_absorb, pages=pages, decode_attn=decode_attn,
+                    mrope_positions=mrope_positions, mla_absorb=mla_absorb, pages=pages,
+                    decode_attn=decode_attn,
                 )
+                if c_in is not None:
+                    _write_back(c_in, c_out)
                 aux = aux + a
             return h, aux
 
         body = _remat_wrap(body, cfg) if cache is None else body
-        leaves, spec = tree_flatten(params[f"seg{si}"])
-        layers = [x.unbind(0) for x in leaves]
-        for r in range(seg.repeats):
-            h, aux = body(h, aux, tree_unflatten([x[r] for x in layers], spec), r)
+        for r, p_r in enumerate(tree_unstack(params[f"seg{si}"])):
+            h, aux = body(h, aux, p_r, r)
         if cache is not None:
             new_caches[f"seg{si}"] = {
                 key: c._replace(index=c.index + T) if _dense_cache(c) else c
@@ -432,16 +458,14 @@ def chunked_ce(params, cfg: ModelConfig, hidden, labels, *, mask=None, chunk=512
 
 def loss_fn(params, cfg: ModelConfig, batch):
     """``(total, {"ce", "aux"[, "mtp"]})`` for ``batch`` = tokens (B, T),
-    labels (B, T) and an optional ``loss_mask``.  With MTP the trunk reads
-    the tokens shifted by one and predicts the labels shifted by one (token
+    labels (B, T) and optionally ``loss_mask``, ``mrope_positions`` and
+    ``vision_embeds`` (the VLM front end).  With MTP the trunk reads the
+    tokens shifted by one and predicts the labels shifted by one (token
     t+2), its last two positions masked out (they wrap around), and adds
     ``mtp_loss_coef`` × its loss and its own MoE aux."""
-    if "mrope_positions" in batch or "vision_embeds" in batch:
-        raise NotImplementedError(
-            "the VLM front end (M-RoPE, vision embeddings) is not ported yet: "
-            "ROADMAP.md queue 1, item 11 (second half)")
     _, aux, _, hidden = forward(
-        params, cfg, batch["tokens"], return_hidden=True, skip_logits=True)
+        params, cfg, batch["tokens"], mrope_positions=batch.get("mrope_positions"),
+        vision_embeds=batch.get("vision_embeds"), return_hidden=True, skip_logits=True)
     loss = chunked_ce(params, cfg, hidden, batch["labels"], mask=batch.get("loss_mask"))
     aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
     total = loss + aux
@@ -464,10 +488,11 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, *, positions=None,
                 mla_absorb: bool = False, decode_attn: str = "off"):
     """One serve step: tokens (B, T) + cache → (logits (B, T, V), new_cache).
     Without ``positions`` every token sits at the cache's fill index, as in
-    the reference."""
+    the reference; a purely recurrent cache has none (its state is
+    position-free) and the tokens sit at 0."""
     if positions is None:
-        index = next(c.index for seg in cache.values() for c in seg.values()
-                     if _dense_cache(c))
+        index = next((c.index for seg in cache.values() for c in seg.values()
+                      if _dense_cache(c)), 0)
         positions = torch.full(tokens.shape, index, dtype=torch.int64,
                                device=tokens.device)
     logits, _, new_cache = forward(

@@ -79,3 +79,14 @@ def tree_stack(trees: list):
     cols = [tree_leaves(t) for t in trees]
     spec = tree_flatten(trees[0])[1]
     return tree_unflatten([torch.stack(leaves) for leaves in zip(*cols)], spec)
+
+
+def tree_unstack(tree) -> list:
+    """The inverse of ``tree_stack``: one tree a leading index, views of
+    the stacked leaves.  Each leaf is split once with ``unbind(0)``, so
+    autograd stacks its gradient in one pass (indexing ``x[r]`` a layer
+    would have each layer's backward fill a zero tensor the size of the
+    whole stack)."""
+    leaves, spec = tree_flatten(tree)
+    parts = [x.unbind(0) for x in leaves]
+    return [tree_unflatten([x[r] for x in parts], spec) for r in range(len(parts[0]))]

@@ -1499,3 +1499,81 @@ def test_traced_fit_on_the_card_is_bitwise_untraced(cuda):
     assert {"fit/loop", "fit/ledger", "fit/metrics", "dispatch/local-update",
             "phase/local_step", "phase/encode"} <= names
     assert t.counters == {"program_cache/uncached": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_at_qwen2_vl_heads_after_mrope(cuda, dtype):
+    """qwen2-vl-2b's heads (12 query, 2 KV, D 128) with q and k rotated by
+    M-RoPE on a 16 × 16 patch grid, as ``attn_apply`` hands them to the
+    kernel: one launch, within the flash limits of the plain version."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.models.layers import apply_mrope
+
+    B, T, Tv = 2, 512, 256
+    q, k, v = _flash_inputs(cuda, (B, T, T, 12, 2, 128), dtype)
+    r = torch.arange(Tv, device=cuda)
+    pos = torch.empty((3, B, T), dtype=torch.int64, device=cuda)
+    pos[0, :, :Tv], pos[1, :, :Tv], pos[2, :, :Tv] = 0, r // 16, r % 16
+    pos[:, :, Tv:] = 16 + torch.arange(T - Tv, device=cuda)
+    q = apply_mrope(q, pos, 1e6, (16, 24, 24))
+    k = apply_mrope(k, pos, 1e6, (16, 24, 24))
+    name = fa_kernel.route(dtype)
+    before = kernels.LAUNCHES[name]
+    out = fa_kernel.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    tr = lambda x: x.transpose(1, 2)  # noqa: E731
+    plain = tr(fa_ref.attention_ref(tr(q), tr(k), tr(v), causal=True))
+    assert float((out.float() - plain.float()).abs().max()) <= FLASH_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_decode_attention_at_deepseek_67b_heads(cuda, dtype):
+    """deepseek-67b's heads (64 query over 8 KV, D 128: G 8), 16 slots at
+    the lengths of a continuous batch: the split and merge pair within the
+    decode limits of the plain version."""
+    q, k, v, _ = _decode_inputs(cuda, (16, 320, 64, 8, 128), dtype, 67)
+    vl = torch.tensor([0, 1, 320, 17, 64, 65, 100, 128, 129, 200, 255, 256, 257, 300, 319, 32],
+                      dtype=torch.int32, device=cuda)
+    before = dict(kernels.LAUNCHES)
+    out = da_kernel.decode_attention(q, k, v, vl)
+    torch.cuda.synchronize()
+    for name in ("decode_attention", "decode_attention_merge"):
+        assert kernels.LAUNCHES[name] == before[name] + 1
+    plain = da_ref.decode_attention_plain(q, k, v, vl)
+    assert float((out.float() - plain.float()).abs().max()) <= DECODE_TOL[dtype]
+    assert bool((out[0] == 0).all())
+
+
+@pytest.mark.cuda
+def test_full_width_mamba_mixer_matches_the_cpu(cuda):
+    """jamba-1.5-large-398b's mamba mixer at full width (d 8192, d_inner
+    16,384, d_state 16, dt_rank 512) in f32 at B 1 × T 300 (a chunk and a
+    padded one), then two decode steps from the returned cache: the card
+    within 1e-4 of max |y| of the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba
+    from repro_torch.models.cache import mamba_cache_init
+    from repro_torch.utils.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("jamba-1.5-large-398b").replace(compute_dtype="float32")
+    d_inner, _, d_state, d_conv = mamba._dims(cfg)
+    gen = torch.Generator().manual_seed(5)
+    p = mamba.mamba_init(gen, cfg, device="cpu")
+    x = torch.randn((1, 302, cfg.d_model), generator=gen)
+    pc = tree_map(lambda a: a.to(cuda), p)
+    outs = {}
+    for dev, params in (("cpu", p), ("cuda", pc)):
+        cache = mamba_cache_init(1, d_conv, d_inner, d_state, torch.float32, dev)
+        with torch.no_grad():
+            ys = []
+            for sl in (slice(0, 300), slice(300, 301), slice(301, 302)):
+                y, cache = mamba.mamba_apply(params, cfg, x[:, sl].to(dev), cache=cache)
+                ys.append(y.cpu())
+        outs[dev] = (torch.cat(ys, 1), cache.ssm.cpu())
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())

@@ -37,6 +37,7 @@ from repro_torch.models import cache as t_cache  # noqa: E402
 from repro_torch.models import layers as t_layers  # noqa: E402
 from repro_torch.models import transformer as t_tf  # noqa: E402
 from repro_torch.models.config import ModelConfig as TConfig  # noqa: E402
+from repro_torch.models.config import SSMConfig  # noqa: E402
 
 ATOL = RTOL = 1e-4
 
@@ -84,8 +85,9 @@ def test_configs_match_reference(name):
     assert t.replace(num_layers=3).num_layers == 3
 
 
-#: archs ported by the MLA / MoE / MTP slice (once refused, naming item 11)
-PORTED_SINCE = ("minicpm3-4b", "deepseek-v3-671b", "olmoe-1b-7b")
+#: archs ported after the attention family (each once refused, naming its item)
+PORTED_SINCE = ("minicpm3-4b", "deepseek-v3-671b", "olmoe-1b-7b", "qwen2-vl-2b",
+                "whisper-base", "deepseek-67b", "xlstm-125m", "jamba-1.5-large-398b")
 
 
 @pytest.mark.parametrize("name", [
@@ -93,13 +95,13 @@ PORTED_SINCE = ("minicpm3-4b", "deepseek-v3-671b", "olmoe-1b-7b")
     "deepseek-67b", "xlstm-125m", "jamba-1.5-large-398b", "olmoe-1b-7b",
 ])
 def test_unported_archs_name_their_roadmap_item(name):
-    """The five archs still refused name their item; the three the MLA /
-    MoE / MTP slice ported resolve to the reference's config, field by
-    field (the reduced variant too)."""
-    if name not in PORTED_SINCE:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 11"):
-            t_get_config(name)
-        return
+    """No arch is refused any more: the eight that once named their item
+    resolve to the reference's config, field by field (the reduced variant
+    too), and the registry lists the reference's ten archs in its order."""
+    from repro.configs import ARCHS as J_ARCHS
+    from repro_torch.configs import ARCHS as T_ARCHS
+
+    assert T_ARCHS == J_ARCHS and name in T_ARCHS
     j, t = j_get_config(name), t_get_config(name)
     jd, td = dataclasses.asdict(j), dataclasses.asdict(t)
     assert td.keys() == jd.keys()
@@ -114,6 +116,8 @@ def test_layer_specs_and_segments_match_reference():
 
     for name in ("tinyllama-1.1b", "qwen2-1.5b") + PORTED_SINCE:
         jc, tc = j_get_config(name), t_get_config(name)
+        if jc.is_encoder_decoder:
+            continue  # whisper is its own model (tests/test_torch_whisper.py)
         assert [(s.mixer, s.ffn) for s in t_tf.layer_specs(tc)] == \
                [(s.mixer, s.ffn) for s in jt.layer_specs(jc)]
         assert [(len(s.unit), s.repeats) for s in t_tf.segments(tc)] == \
@@ -384,16 +388,22 @@ def test_decode_routing_and_plan():
 
 
 def test_unported_attention_paths_raise():
-    """What the port still refuses: M-RoPE, and the decode kernel on a CPU
-    tensor.  The flash and query-chunked branches of the cache-free path
-    run (``test_attn_apply_cache_free_branches_match_jax``)."""
+    """What the port still refuses: the decode kernel on a CPU tensor.
+    M-RoPE runs (``tests/test_torch_vlm.py``): with ``mrope_sections`` but
+    no ``mrope_positions`` the layer rotates by RoPE, as the reference's.
+    The flash and query-chunked branches of the cache-free path run
+    (``test_attn_apply_cache_free_branches_match_jax``)."""
     tc = TConfig(**TINY)
     p = t_tf.init_params(torch.Generator().manual_seed(0), tc, device="cpu")
     lp = pytree.tree_map(lambda x: x[0], p["seg0"])["l0"]["mixer"]
-    x = torch.zeros((1, 128, tc.d_model))
+    x = torch.randn((1, 128, tc.d_model), generator=torch.Generator().manual_seed(1))
     pos = torch.arange(128)[None]
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        t_attn.attn_apply(lp, tc.replace(mrope_sections=(2, 1, 1)), x, positions=pos)
+    m = tc.replace(mrope_sections=(2, 1, 1))
+    rope, _ = t_attn.attn_apply(lp, tc, x, positions=pos)
+    assert torch.equal(t_attn.attn_apply(lp, m, x, positions=pos)[0], rope)
+    mrope, _ = t_attn.attn_apply(lp, m, x, positions=pos,
+                                 mrope_positions=torch.stack([pos, pos // 2, pos // 3]))
+    assert not torch.equal(mrope, rope)
     y, _ = t_attn.attn_apply(lp, tc, x[:, :8], positions=pos[:, :8], use_kernel=True)
     assert y.shape == (1, 8, tc.d_model)  # below 128 tokens the plain path, as there
     with pytest.raises(ValueError, match="decode_attn='cuda'"):
@@ -544,15 +554,19 @@ def test_paged_decode_step_logits(model):
 
 
 def test_unported_families_raise():
-    """The recurrent mixers and xLSTM's FFN-less blocks still raise, naming
-    item 11 (MLA, MoE and MTP are ported: ``tests/test_torch_mla.py``,
-    ``test_torch_moe.py``, ``test_torch_mtp.py``); the paged cache keeps
-    refusing every mixer but attention, as the reference's does."""
+    """Every mixer family builds now (the recurrent ones: ``tests/
+    test_torch_mamba.py``, ``test_torch_xlstm.py``); what still raises is
+    the paged cache for any mixer but attention, as the reference's does,
+    and an unknown mixer."""
     tc = TConfig(**TINY)
     gen = torch.Generator()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        t_tf.init_params(gen, tc.replace(mixer="mamba"), device="meta")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        t_tf.init_cache(tc.replace(hybrid_pattern=("mamba", "attn")), 1, 4, torch.float32)
-    with pytest.raises(ValueError, match="attn-only"):
-        t_tf.init_paged_cache(tc.replace(mixer="mla"), 4, 2, torch.float32)
+    hybrid = tc.replace(num_layers=4, hybrid_pattern=("mamba", "attn"), ssm=SSMConfig())
+    p = t_tf.init_params(gen, hybrid, device="meta")
+    assert set(p["seg0"]["l0"]["mixer"]) >= {"A_log", "D", "conv_w", "in_proj"}
+    c = t_tf.init_cache(hybrid, 1, 4, torch.float32)
+    assert isinstance(c["seg0"]["l0"], t_cache.MambaCache) and c["seg0"]["l1"].index == 0
+    for mixer in ("mla", "mamba"):
+        with pytest.raises(ValueError, match="attn-only"):
+            t_tf.init_paged_cache(tc.replace(mixer=mixer, ssm=SSMConfig()), 4, 2, torch.float32)
+    with pytest.raises(KeyError):
+        t_tf.init_params(gen, tc.replace(mixer="rwkv"), device="meta")

@@ -81,9 +81,6 @@ REF = REPO / "src" / "repro"
 #: reference modules with no counterpart file yet → the ROADMAP item that
 #: brings them (queue 1)
 NOT_YET = {
-    **{f"models/{m}.py": "item 11, second half" for m in ("mamba", "xlstm", "whisper")},
-    **{f"configs/{c}.py": "item 11, second half" for c in (
-        "deepseek_67b", "jamba_1_5_large_398b", "qwen2_vl_2b", "whisper_base", "xlstm_125m")},
     **{p: "item 13" for p in ("launch/specs.py", "launch/dryrun.py", "sharding/__init__.py",
                                "sharding/rules.py", "telemetry/hlo.py",
                                "telemetry/costprobe.py")},
@@ -99,13 +96,6 @@ ABSENT = {
     **{(f"kernels/{k}/kernel.py", f"{k}_fwd"):
         "the Pallas entry point; the port's kernel.py functions launch the CUDA kernels "
         "under their own names" for k in ("decode_attention", "flash_attention", "pdist_argmin")},
-    **{("models/cache.py", n): "recurrent caches: ROADMAP queue 1, item 11, second half"
-       for n in ("MambaCache", "MLSTMCache", "SLSTMCache", "mamba_cache_init",
-                 "mlstm_cache_init", "slstm_cache_init")},
-    **{("models/layers.py", n): "M-RoPE, whisper's layers: ROADMAP queue 1, item 11, second half"
-       for n in ("apply_mrope", "gelu_mlp", "gelu_mlp_init", "layernorm", "layernorm_init")},
-    **{("models/__init__.py", n): "ROADMAP queue 1, item 11, second half"
-       for n in ("mamba", "whisper", "xlstm")},
     ("configs/__init__.py", "InputShape"): "launch shapes: ROADMAP queue 1, item 13",
     ("configs/__init__.py", "applicable"): "launch shapes: ROADMAP queue 1, item 13",
     ("launch/mesh.py", "make_production_mesh"): "mesh placement: ROADMAP queue 1, item 13",

@@ -741,8 +741,8 @@ def test_prefill_and_decode_matches_jax(lm, mode):
 
 def test_batched_prefill_equals_loop(lm):
     """Mirrors ``TestVectorizedPrefill::test_batched_matches_loop`` on the
-    port alone (the recurrent families are not ported: ROADMAP queue 1,
-    item 11)."""
+    port alone (the recurrent stacks, which refuse batched prefill, are
+    served by the loop: ``tests/test_torch_xlstm.py``)."""
     from repro_torch.launch import serve as tsv
 
     _, tc, _, tp, prompts = lm
