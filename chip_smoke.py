@@ -294,17 +294,47 @@
    4 of its 95 layers (the 95 are 67 B parameters): the continuous engine
    with 16 slots and 16 requests, the decode pair at G 8, D 128, held
    layer by layer on a captured step.
-14. Prints the redesigned kernels' times in turns, one JSON line of
+14. Launch specs and the dry run (each part's kernel counts set to 0
+   before it and read after): (L1) tinyllama-1.1b's ``decode_32k`` serve
+   step as ``launch.specs.build_jitted`` builds it on the host mesh, at
+   full width and depth with B cut from 128 to 32 (the bf16 cache alone is
+   94.49 GB at 128, 23.62 GB at 32; seeded values, filled to S − 1 of
+   32,768): the plain step (the reference's default) and the same step
+   with ``decode_attn="cuda"`` (the decode pair, 22 + 22 launches and no
+   other kernel): on each layer the pair within 3e-2 and 0.8 % of a row's
+   norm of its plain version on that layer's inputs, the logits and the 22
+   layers' written K / V rows within ``LOGIT_TOL`` of the plain step's
+   (argmax equal wherever the top-2 margin clears the difference; row
+   errors reported), both steps' wall and
+   device time under the profiler and the kernel step's aten operations,
+   beside the bound (the cache and the f32 parameters read once); then the
+   pair alone at (32, 32,768, 32, 4, 64) in turns with
+   ``scaled_dot_product_attention(enable_gqa=True)``, 6 runs each, beside
+   its 1.074 GB bound.  (L2) ``long_500k`` at its published B 1 × S
+   524,288 with the 8,192 window on the plain path (the pair has no
+   window): on each layer the windowed attention within 3e-2 and 0.8 % a
+   row of the same query against only the last 8,192 positions on the
+   layer's own inputs, the logits within ``LOGIT_TOL`` of the step on a
+   cache of those 8,192 positions alone.  (L3) ``make_train_step`` at ``train_4k``'s T 4,096 with B
+   cut from 256 to 4, in f32 compute: 4 microbatches against 1 from the
+   same θ, θ after the step within tests/test_torch_train.py's f32 rule,
+   the f32 gradients handed to the optimizer within 1e-5 × each leaf's
+   max |g| of the whole batch's; the loss, the step's wall and peak
+   memory.  (L4) the dry run of
+   tinyllama-1.1b × ``train_4k`` on a fake world of 256 ranks on the
+   host: per-device bytes, FLOPs and collective bytes (counts).
+15. Prints the redesigned kernels' times in turns, one JSON line of
    per-kernel numbers (thirteen kernels; the wire kernels' launches count
    the executors phase's, ``topk_encode``'s the serving-and-tracing,
    training, deepseek-v3, qwen2-vl, xlstm and jamba paths' too, the decode
    kernels' those of the continuous engine under the tracer and of
-   olmoe-1b-7b's, qwen2-vl-2b's and deepseek-67b's serving, the bf16
+   olmoe-1b-7b's, qwen2-vl-2b's, deepseek-67b's serving and the
+   ``decode_32k`` step's, the bf16
    flash kernel's qwen2-vl-2b's prefill too), the whole run's seconds,
    the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
-No earlier phase is cut to make room for 8–13 or the serving-and-tracing
+No earlier phase is cut to make room for 8–14 or the serving-and-tracing
 phase (≈ 30 s on the card each, the recurrent / audio / VLM one longer).
 
 Imports nothing of JAX.  Exits non-zero, with no result line, when there
@@ -4638,6 +4668,451 @@ def recurrent_audio_vlm_phase(torch):
     return launches, out
 
 
+# ----------------------------------------------------------------------------
+# Launch specs, sharding and the dry run: tinyllama-1.1b's decode_32k serve
+# step built by launch.specs through the decode pair at S 32,768; long_500k
+# on the plain windowed path; the train step's accumulation; the dry run
+# ----------------------------------------------------------------------------
+
+LAUNCH_ARCH = "tinyllama-1.1b"
+#: decode_32k is B 128 × S 32,768; B is cut to 32: at 128 the bf16 cache
+#: alone is 128 × 32,768 × 4 × 64 × 2 B × 2 × 22 = 94.49 GB, more than the
+#: card holds; at 32 it is 23.62 GB
+LAUNCH_B = 32
+#: long_500k at its published shape: B 1 × S 524,288, window 8,192
+LONG_B, LONG_WINDOW = 1, 8192
+#: train_4k is B 256 × T 4,096; B is cut to 4, one row a microbatch
+ACCUM_B, ACCUM_MB = 4, 4
+#: the accumulation check in f32 compute: one Adam step moves every element
+#: by ±lr, so a bf16 gradient whose sign differs between the two
+#: summations would move it by 2·lr; in f32 only last-bit ties can
+#: (tests/test_torch_train.py's rule: all but FEW of the elements within
+#: rtol / atol, every one within 2·lr)
+ACCUM_RTOL, ACCUM_ATOL, ACCUM_FEW = 1e-5, 1e-6, 2e-4
+#: the accumulated f32 gradients the optimizer is handed, against the whole
+#: batch's: each leaf within 1e-5 × its max |g| (tests/test_torch_train.py's
+#: GRAD_TOL).  One Adam step cannot see their scale, a sum left undivided
+#: by the count (×4) or divided twice (×1/4) would pass the θ check
+ACCUM_GRAD_TOL = 1e-5
+#: row 7's bf16 bounds, held on each of the step's 22 attention calls (the
+#: pair against its plain version on that layer's own inputs): |Δ| and Δ a
+#: row over the row's norm.  The step's logits and written K / V rows are
+#: held to the plain step's at the serving phase's ``LOGIT_TOL``: the two
+#: attention paths differ by bf16 rounding, which 22 bf16 layers carry
+#: into the residual stream (measured on the CPU at full width, B 2: the
+#: plain step against the same step through the pair's plain version,
+#: 0.117 at most in logits of scale 3.8, 3.4 % of a row's norm)
+STEP_TOL, STEP_REL_TOL = 3e-2, 8e-3
+
+
+def _fill_cache(torch, cache, gen) -> int:
+    """Seeded standard-normal keys and values in every layer; returns the
+    cache's bytes."""
+    nbytes = 0
+    for seg in cache.values():
+        for c in seg.values():
+            for t in (c.k, c.v):
+                t.normal_(generator=gen)
+                nbytes += t.numel() * t.element_size()
+    return nbytes
+
+
+def _written_rows(torch, cache, pos: int):
+    """Every layer's K and V rows at ``pos`` (the ones the step wrote)."""
+    c = cache["seg0"]["l0"]
+    return torch.stack([c.k[:, :, pos], c.v[:, :, pos]]).float().clone()
+
+
+def _row_errors(torch, got, want) -> tuple[float, float]:
+    """|Δ| and the largest Δ of a row over the row's norm (last axis)."""
+    want = want.float()
+    d = got.float() - want
+    rel = (d.flatten(0, -2).norm(dim=-1)
+           / want.flatten(0, -2).norm(dim=-1).clamp_min(1e-30)).max()
+    return float(d.abs().max()), float(rel)
+
+
+def _step_close(torch, got, want, what: str) -> dict:
+    """A step's output against the plain step's: finite, |Δ| within
+    ``LOGIT_TOL``; the row errors reported."""
+    err, rel = _row_errors(torch, got, want)
+    check(bool(torch.isfinite(got).all()), f"{what}: not finite")
+    check(err <= LOGIT_TOL, f"{what}: |kernel step - plain step| {err} > {LOGIT_TOL}")
+    return {"max_abs": err, "max_row_rel": rel, "scale": float(want.float().abs().max())}
+
+
+def _profiled_step(torch, step, args) -> dict:
+    """One step under the profiler: wall (ending in a synchronize), device
+    busy time, its share of the wall, and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in on_card) / 1e3
+    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:4]
+    check(busy > 0, "the profiler saw no device time")
+    return {"wall_ms": wall, "device_ms": busy, "idle_share": 1 - busy / wall,
+            "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in top]}
+
+
+def _walls(torch, step, args, reps: int = 5) -> dict:
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return {"median": statistics.median(walls), "min": min(walls), "max": max(walls)}
+
+
+def launch_decode(torch, kernels):
+    """(L1) The decode_32k serve step of ``launch.specs.build_jitted`` on
+    the host mesh, plain (the reference's default) and through the decode
+    pair (``decode_attn="cuda"``), then the pair alone at this shape in
+    turns with SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.kernels.decode_attention import kernel as dak, ref as dar
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.utils.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shape = SHAPES["decode_32k"]
+    B, S_len = LAUNCH_B, shape.seq_len
+    cfg = S.shape_adapted_config(LAUNCH_ARCH, "decode_32k")
+    mesh = make_host_mesh()
+    plain_step, args, _ = S.build_jitted(cfg, "decode", mesh, B, S_len)
+    kernel_step, _, _ = S.build_jitted(cfg, "decode", mesh, B, S_len, decode_attn="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tf.init_params(gen, cfg)
+    param_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    cache = tf.init_cache(cfg, B, S_len, torch.bfloat16, index=S_len - 1, device="cuda")
+    cache_bytes = _fill_cache(torch, cache, gen)
+    spec_leaves = [x for x in tree_leaves(args[1]["cache"]) if isinstance(x, torch.Tensor)]
+    check([tuple(x.shape) for x in spec_leaves]
+          == [tuple(x.shape) for x in tree_leaves(cache) if isinstance(x, torch.Tensor)],
+          "the cache is not input_specs_for's")
+    check(cache_bytes == 2 * cfg.num_layers * B * S_len * cfg.num_kv_heads * cfg.head_dim * 2,
+          "cache bytes")
+    tokens = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    batch = {"tokens": tokens, "cache": cache}
+    torch.cuda.synchronize()
+    bound = {"cache_ms": cache_bytes / HBM_BYTES_PER_S * 1e3,
+             "params_ms": param_bytes / HBM_BYTES_PER_S * 1e3}
+    bound["step_ms"] = bound["cache_ms"] + bound["params_ms"]
+
+    logits_p, new_p = plain_step(params, batch)
+    torch.cuda.synchronize()
+    check(tuple(logits_p.shape) == (B, 1, cfg.padded_vocab), "plain logits shape")
+    check(new_p["seg0"]["l0"].index == S_len, "the plain step's fill index")
+    rows_p = _written_rows(torch, cache, S_len - 1)
+    # the kernel step, each attention call also held to the pair's plain
+    # version on its own inputs (plain math: no launch)
+    from repro_torch.models import attention
+
+    attend, layer_errs = attention._decode_attend, []
+
+    def checked(q1, k_all, v_all, valid_len, *, impl):
+        out = attend(q1, k_all, v_all, valid_len, impl=impl)
+        layer_errs.append(_row_errors(
+            torch, out, dar.decode_attention_plain(q1, k_all, v_all, valid_len)))
+        return out
+
+    kernels.reset_launches()
+    try:
+        attention._decode_attend = checked
+        logits_k, new_k = kernel_step(params, batch)
+        torch.cuda.synchronize()
+    finally:
+        attention._decode_attend = attend
+    launches = {n: kernels.LAUNCHES[n] for n in ("decode_attention", "decode_attention_merge")}
+    check(len(layer_errs) == cfg.num_layers
+          and max(e for e, _ in layer_errs) <= STEP_TOL
+          and max(r for _, r in layer_errs) <= STEP_REL_TOL,
+          f"decode_32k: the pair against its plain version on each layer's inputs "
+          f"{layer_errs} (limits {STEP_TOL}, {STEP_REL_TOL} a row)")
+    check(launches == {"decode_attention": cfg.num_layers,
+                       "decode_attention_merge": cfg.num_layers},
+          f"decode_32k step: decode launches {launches}, not {cfg.num_layers} each")
+    check(sum(kernels.LAUNCHES.values()) == 2 * cfg.num_layers, "another kernel launched")
+    rows_k = _written_rows(torch, cache, S_len - 1)
+    close = {"layers": {"max_abs": max(e for e, _ in layer_errs),
+                        "max_row_rel": max(r for _, r in layer_errs)},
+             "logits": _step_close(torch, logits_k, logits_p, "decode_32k logits"),
+             "cache_rows": _step_close(torch, rows_k, rows_p, "decode_32k cache rows")}
+    check(torch.equal(rows_k[:, 0], rows_p[:, 0]), "layer 0's written rows differ")
+    lk, lp = logits_k[:, 0, : cfg.vocab_size].float(), logits_p[:, 0, : cfg.vocab_size].float()
+    top2 = lk.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > close["logits"]["max_abs"]
+    same = lk.argmax(-1) == lp.argmax(-1)
+    check(bool(same[clear].all()), "decode_32k: argmax differs where the margin is clear")
+    close["logits"].update(argmax_equal_rows=int(same.sum()), rows_clear_margin=int(clear.sum()))
+
+    kernels.reset_launches()
+    timing = {"plain": {"walls": _walls(torch, plain_step, (params, batch), reps=3),
+                        **_profiled_step(torch, plain_step, (params, batch))},
+              "kernel": {"walls": _walls(torch, kernel_step, (params, batch)),
+                         **_profiled_step(torch, kernel_step, (params, batch)),
+                         "aten_ops": aten_ops(lambda: kernel_step(params, batch))}}
+    kernels.reset_launches()
+
+    # the pair alone on layer 0's cache, in turns with SDPA
+    Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    k, v = cache["seg0"]["l0"].k[0], cache["seg0"]["l0"].v[0]
+    q = torch.randn((B, Hq, D), generator=gen, device="cuda").bfloat16()
+    vl = torch.full((B,), S_len, dtype=torch.int32, device="cuda")
+    out = dak.decode_attention(q, k, v, vl)
+    plain = dar.decode_attention_plain(q, k, v, vl)
+    pair_err = float((out.float() - plain.float()).abs().max())
+    check(pair_err <= DECODE_TOL["bfloat16"], f"decode pair at S {S_len}: {pair_err}")
+    mask = torch.ones((B, 1, 1, S_len), dtype=torch.bool, device="cuda")
+    q4, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+    lib = F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask, enable_gqa=True)
+    lib_err = float((lib[:, :, 0].float() - plain.float()).abs().max())
+    nbytes = 2 * B * S_len * Hkv * D * 2 + 2 * q.numel() * 2 + vl.numel() * 4
+    b_ms, b_by = bound_ms(nbytes, 4 * Hq * B * S_len * D)
+    t = turns_ms(torch, {
+        "library": lambda: F.scaled_dot_product_attention(
+            q4, kt, vt, attn_mask=mask, enable_gqa=True),
+        "kernel": lambda: dak.decode_attention(q, k, v, vl),
+    }, inner=10, rounds=3)
+    pair = {"shape": [B, S_len, Hq, Hkv, D], "ms": t["kernel"]["median"], "ms_runs": t["kernel"],
+            "library_ms": t["library"]["median"], "library_runs": t["library"],
+            "plain_ms": graph_ms(torch, lambda: dar.decode_attention_plain(q, k, v, vl),
+                                 inner=2, reps=5),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "max_abs_err": pair_err,
+            "library_max_abs_err": lib_err, "splits": dak.plan_splits(
+                B, Hkv, S_len, torch.cuda.get_device_properties(0).multi_processor_count)}
+    kernels.reset_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    res = {"cut": "decode_32k's B 128 → 32 (the bf16 cache is 94.49 GB at 128)",
+           "B": B, "S": S_len, "cache_bytes": cache_bytes, "param_bytes": param_bytes,
+           "bound": bound, "launches": launches, "close": close, "steps": timing,
+           "pair": pair, "peak_gib": peak}
+    print(f"launch (L1) decode_32k step of {LAUNCH_ARCH} ({smi_line()}): {json.dumps(res)}",
+          flush=True)
+    del params, cache, batch, logits_p, logits_k, new_p, new_k, k, v
+    torch.cuda.empty_cache()
+    return launches, res
+
+
+def launch_long(torch, kernels):
+    """(L2) long_500k at B 1 × S 524,288 with the 8,192 window: the plain
+    windowed step (the pair has no window: ``resolve_decode_attn``
+    refuses), held to the same query against only the last 8,192
+    positions."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.attention import resolve_decode_attn
+
+    shape = SHAPES["long_500k"]
+    B, S_len = LONG_B, shape.seq_len
+    check(B == shape.global_batch, "long_500k's batch")
+    cfg = S.shape_adapted_config(LAUNCH_ARCH, "long_500k")
+    check(cfg.sliding_window == LONG_WINDOW, "long_500k's window")
+    try:
+        resolve_decode_attn(True, sliding_window=cfg.sliding_window)
+        check(False, "resolve_decode_attn took a window")
+    except ValueError:
+        pass
+    step, _, _ = S.build_jitted(cfg, "decode", make_host_mesh(), B, S_len)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = tf.init_params(gen, cfg)
+    cache = tf.init_cache(cfg, B, S_len, torch.bfloat16, index=S_len - 1, device="cuda")
+    cache_bytes = _fill_cache(torch, cache, gen)
+    # the last 8,192 positions alone, the query at the same position
+    last = tf.init_cache(cfg, B, LONG_WINDOW, torch.bfloat16, index=LONG_WINDOW - 1,
+                         device="cuda")
+    for name, c in cache["seg0"].items():
+        last["seg0"][name].k.copy_(c.k[:, :, S_len - LONG_WINDOW:])
+        last["seg0"][name].v.copy_(c.v[:, :, S_len - LONG_WINDOW:])
+    tokens = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    # each layer's windowed attention over the whole cache against the same
+    # query over the last 8,192 keys alone, on the layer's own inputs
+    from repro_torch.models import attention
+
+    sdpa, layer_errs = attention._sdpa, []
+
+    def checked(q, k, v, mask, *, scale):
+        out = sdpa(q, k, v, mask, scale=scale)
+        if k.shape[1] == S_len:
+            m = mask.reshape(-1, S_len)
+            check(bool(m[:, S_len - LONG_WINDOW:].all()) and int(m.sum()) == m.shape[0]
+                  * LONG_WINDOW, "long_500k: the mask is not the last 8,192 positions")
+            ones = torch.ones((q.shape[1], LONG_WINDOW), dtype=torch.bool, device=q.device)
+            layer_errs.append(_row_errors(torch, out, sdpa(
+                q, k[:, S_len - LONG_WINDOW:], v[:, S_len - LONG_WINDOW:], ones, scale=scale)))
+        return out
+
+    kernels.reset_launches()
+    step(params, {"tokens": tokens, "cache": cache})  # warm: the row it writes is the same
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, new = step(params, {"tokens": tokens, "cache": cache})
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    try:
+        attention._sdpa = checked
+        step(params, {"tokens": tokens, "cache": cache})
+    finally:
+        attention._sdpa = sdpa
+    check(len(layer_errs) == cfg.num_layers and max(e for e, _ in layer_errs) <= STEP_TOL
+          and max(r for _, r in layer_errs) <= STEP_REL_TOL,
+          f"long_500k: windowed against the last {LONG_WINDOW} keys a layer {layer_errs}")
+    check(sum(kernels.LAUNCHES.values()) == 0, "long_500k launched a kernel")
+    check(new["seg0"]["l0"].index == S_len, "long_500k's fill index")
+    ref, _ = tf.decode_step(params, cfg, tokens, last, positions=torch.full(
+        (B, 1), S_len - 1, dtype=torch.int64, device="cuda"))
+    close = _step_close(torch, logits, ref, "long_500k logits")
+    top2 = logits[:, 0, : cfg.vocab_size].topk(2, dim=-1).values
+    same = bool(logits[:, 0, : cfg.vocab_size].argmax(-1) == ref[:, 0, : cfg.vocab_size]
+                .argmax(-1))
+    check(same or float(top2[0, 0] - top2[0, 1]) <= close["max_abs"],
+          "long_500k: argmax differs where the margin is clear")
+    res = {"B": B, "S": S_len, "window": LONG_WINDOW, "cache_bytes": cache_bytes,
+           "path": "plain (resolve_decode_attn refuses a window)",
+           "layers_vs_last_window": {"max_abs": max(e for e, _ in layer_errs),
+                                     "max_row_rel": max(r for _, r in layer_errs)},
+           "logits_vs_last_window": close, "argmax_equal": same,
+           "wall_ms": wall, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(f"launch (L2) long_500k step of {LAUNCH_ARCH}: {json.dumps(res)}", flush=True)
+    del params, cache, last, logits, new, ref
+    torch.cuda.empty_cache()
+    return res
+
+
+def launch_accumulation(torch):
+    """(L3) ``make_train_step`` at train_4k's T 4,096, B 4: accumulated
+    over 4 microbatches against the whole batch at once, from the same θ;
+    θ after the step within tests/test_torch_train.py's f32 rule, and the
+    gradients Adam is handed (the accumulated f32 sum, each microbatch's
+    divided by the count) within ``ACCUM_GRAD_TOL`` of the whole batch's."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import specs as S
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.optimizers import Optimizer
+    from repro_torch.utils.tree import tree_flatten
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T = SHAPES["train_4k"].seq_len
+    cfg = S.shape_adapted_config(LAUNCH_ARCH, "train_4k").replace(compute_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (ACCUM_B, T + 1), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    batch = {"tokens": tokens[:, :-1].contiguous(), "labels": tokens[:, 1:].contiguous()}
+    out = {"cut": "train_4k's B 256 → 4, compute in f32", "B": ACCUM_B, "T": T}
+    thetas, grads = {}, {}
+    for mb in (ACCUM_MB, 1):
+        params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+        adam = S.make_optimizer(cfg)
+
+        def keep_grads(g, state, params=None, adam=adam, mb=mb):
+            grads[mb] = tree_flatten(g)[0]
+            return adam.update(g, state, params)
+
+        opt = Optimizer(init=adam.init, update=keep_grads)
+        state = opt.init(params)
+        step = S.make_train_step(cfg, opt, microbatches=mb)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        loss = float(metrics["loss"])
+        check(math.isfinite(loss) and int(state["count"]) == 1, f"microbatches {mb}: step")
+        out[f"microbatches {mb}"] = {"loss": loss, "wall_s": wall,
+                                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        thetas[mb] = tree_flatten(params)[0]
+        del state, opt
+        torch.cuda.empty_cache()
+    lr = 3e-4 / 100  # make_optimizer's warmup-cosine at step 1
+    outside = total = 0
+    worst = 0.0
+    for a, b in zip(thetas[ACCUM_MB], thetas[1]):
+        d = (a - b).abs()
+        worst = max(worst, float(d.max()))
+        outside += int((d > ACCUM_ATOL + ACCUM_RTOL * b.abs()).sum())
+        total += b.numel()
+    check(worst <= 2 * lr and outside <= ACCUM_FEW * total,
+          f"accumulated θ: {outside} of {total} outside rtol/atol, max |Δ| {worst}")
+    g_worst = 0.0  # max over leaves of max |g_acc − g| / max |g|
+    for a, b in zip(grads[ACCUM_MB], grads[1]):
+        check(a.dtype == torch.float32, f"accumulated gradient in {a.dtype}")
+        g_worst = max(g_worst, float((a - b).abs().max() / b.abs().max().clamp_min(1e-30)))
+    g_norm = (math.sqrt(sum(float(a.double().square().sum()) for a in grads[ACCUM_MB]))
+              / math.sqrt(sum(float(b.double().square().sum()) for b in grads[1])))
+    check(g_worst <= ACCUM_GRAD_TOL,
+          f"accumulated gradients: max |Δ| / max |g| {g_worst} > {ACCUM_GRAD_TOL} "
+          f"(norm ratio {g_norm})")
+    check(abs(out[f"microbatches {ACCUM_MB}"]["loss"] - out["microbatches 1"]["loss"])
+          <= 1e-4 * abs(out["microbatches 1"]["loss"]), "accumulated loss")
+    out["theta"] = {"outside_rtol_atol": outside, "elements": total, "max_abs": worst,
+                    "lr_step1": lr}
+    out["grads"] = {"max_abs_over_max_g": g_worst, "limit": ACCUM_GRAD_TOL,
+                    "norm_ratio": g_norm}
+    print(f"launch (L3) accumulation of {LAUNCH_ARCH}: {json.dumps(out)}", flush=True)
+    del thetas, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def launch_dryrun(torch):
+    """(L4) The dry run of tinyllama-1.1b × train_4k on a fake world of
+    256 ranks on this machine's host (counts, not timings)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+
+    check(not dist.is_initialized(), "a process group is up before the dry run")
+    res = dryrun.run_one(LAUNCH_ARCH, "train_4k")
+    check(res["status"] == "ok", f"dry run: {res.get('error')}")
+    check(not dist.is_initialized(), "the dry run left its world up")
+    out = {"torch": torch.__version__, "mesh": res["mesh"], "chips": res["chips"],
+           "argument_bytes_per_device": res["memory"]["argument_size_in_bytes"],
+           "memtracker_peak_bytes_per_device": res["memory"]["memtracker_peak_bytes"],
+           "flops_per_device": res["cost_corrected"]["flops"],
+           "bytes_per_device": res["cost_corrected"]["bytes"],
+           "collective_bytes_per_device": res["cost_corrected"]["coll"],
+           "collectives": {k: v for k, v in res["collectives_raw"].items()
+                           if k not in ("by_tier",)},
+           "op_census": res["op_census"], "seconds": res["probe_s"] + res["lower_s"]}
+    print(f"launch (L4) dry run {LAUNCH_ARCH} × train_4k (counts on the host): "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
+def launch_phase(torch):
+    """Launch specs and the dry run, each part's kernel counts set to 0
+    before it and read after."""
+    from repro_torch import kernels
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launches, decode = launch_decode(torch, kernels)
+    long_ = launch_long(torch, kernels)
+    accum = launch_accumulation(torch)
+    dry = launch_dryrun(torch)
+    kernels.reset_launches()
+    return launches, {"decode_32k": decode, "long_500k": long_, "accumulation": accum,
+                      "dryrun": dry, "seconds": time.perf_counter() - t0}
+
+
 REPLACES = {
     "topk_encode": "src/repro/kernels/topk_compress/kernel.py:73",
     "topk_select": "src/repro/kernels/topk_compress/kernel.py:106",
@@ -4766,6 +5241,9 @@ def main() -> int:
     rav_launches, rav = recurrent_audio_vlm_phase(torch)
     for name, n in rav_launches.items():
         launches[name] += n
+    launch_launches, launch = launch_phase(torch)
+    for name, n in launch_launches.items():
+        launches[name] += n
     print("executors:", json.dumps(executors), flush=True)
     print("serving and tracing:", json.dumps(serving_tracing), flush=True)
     print("security wires and private regression:", json.dumps(secure), flush=True)
@@ -4775,6 +5253,7 @@ def main() -> int:
     print("topk_sparsify:", json.dumps(tk_whole), flush=True)
     print("MLA, MoE and MTP:", json.dumps(mla_moe_mtp), flush=True)
     print("recurrent, audio and VLM:", json.dumps(rav), flush=True)
+    print("launch specs and the dry run:", json.dumps(launch), flush=True)
     print("redesigned kernels, times in turns with the library call:", json.dumps({
         "decode_attention": decode_t, "decode_attention_merge": merge_t,
         **{f"{n} {label}": t for (n, label), t in flash_t.items()},

@@ -86,6 +86,7 @@ from repro_torch.launch.mesh import (
     make_node_mesh,
     mesh_device,
 )
+from repro_torch.sharding.rules import current_mesh_context
 from repro_torch.telemetry import trace as _trace
 from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
@@ -599,8 +600,8 @@ class ServingExecutor(LocalExecutor):
                       executor=api.ServingExecutor(), device="cuda")
         y = res.metrics["serve_engine"].predict(Xq)
 
-    ``mesh=`` anything but None raises in the engine (``ROADMAP.md`` queue
-    1, item 13); other keywords go to the engine."""
+    ``mesh=`` places the engine's θ on that mesh (``ServeEngine(mesh=)``);
+    other keywords go to the engine."""
 
     name = "serve"
 
@@ -679,8 +680,9 @@ class MeshExecutor(Executor):
 
     Strategies with ``replicate_data=True`` (the cascade SVM) get the
     whole data on every rank and find their nodes from
-    ``node_shard_index()``.  The mesh: ``mesh=`` if given, else a 1-D
-    ``("data",)`` mesh over the world (``launch.mesh.make_node_mesh``).
+    ``node_shard_index()``.  The mesh: ``mesh=`` if given, else the active
+    ``sharding.rules.MeshContext``'s, else a 1-D ``("data",)`` mesh over
+    the world (``launch.mesh.make_node_mesh``).
 
     ``reduce_scatter``: ``"auto"`` is off (the reference turns it on only
     on a TPU), ``True`` stages the innermost hop as reduce-scatter →
@@ -711,9 +713,19 @@ class MeshExecutor(Executor):
         pass
 
     def resolve(self) -> ResolvedPlacement:
-        mesh = self._mesh if self._mesh is not None else self._default_mesh()
+        """The mesh and node axes: ``mesh=`` if given, else the active
+        ``sharding.rules.MeshContext``'s mesh and node axes, else the
+        default mesh over the world."""
+        mesh, axes = self._mesh, None
+        if mesh is None:
+            mc = current_mesh_context()
+            if mc is not None:
+                mesh, axes = mc.mesh, mc.node_axes
+            else:
+                mesh = self._default_mesh()
         self._validate_mesh(mesh)
-        axes = batch_axes(mesh)
+        if axes is None:
+            axes = batch_axes(mesh)
         if not axes:
             raise ValueError(
                 f"mesh {mesh} has no 'data'/'pod' axis to place nodes on")
@@ -833,7 +845,8 @@ class MultiPodExecutor(MeshExecutor):
     cheap-vs-expensive split.  ``calibrate=True`` measures the prices on
     the mesh (``core.topology.calibrate_prices``); explicit
     ``intra_price`` / ``inter_price`` win over it.  The mesh: ``mesh=`` if
-    given, else ``launch.mesh.make_multipod_mesh()`` over the world."""
+    given, else the active ``sharding.rules.MeshContext``'s, else
+    ``launch.mesh.make_multipod_mesh()`` over the world."""
 
     name = "multipod"
 

@@ -12,8 +12,9 @@ restores there.
 numpy has no bfloat16 of its own: JAX writes ``ml_dtypes.bfloat16``
 leaves, which ``np.savez`` stores as raw 2-byte voids (``|V2``).  The port
 writes its bf16 leaves the same way and reads every ``|V2`` leaf back as
-bf16 through its 16 bits.  There is no placement on shardings yet
-(``shardings=`` raises; ``ROADMAP.md`` queue 1, item 13).
+bf16 through its 16 bits.  ``restore(shardings=)`` places each leaf on
+its mesh (``sharding.rules.NamedSharding``), as ``jax.device_put`` does
+there.
 """
 
 from __future__ import annotations
@@ -122,18 +123,20 @@ def restore_dict(ckpt_dir: str, step: int, *, device="cuda"):
 def restore(ckpt_dir: str, step: int, like, *, shardings=None):
     """Restore into the structure of ``like`` (a pytree of tensors): each
     leaf takes its template's type and device; a shape that differs
-    raises ``ValueError``."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...) is not ported yet: ROADMAP.md queue 1, "
-            "item 13 (sharding)")
+    raises ``ValueError``.  ``shardings`` (a matching pytree of
+    ``sharding.rules.NamedSharding``) places each leaf on its mesh by its
+    spec: a ``DTensor`` on a device mesh, the tensor itself on a
+    ``SoloMesh``."""
     flat = _load(ckpt_dir, step)
     paths, spec = pytree.tree_flatten_with_path(like)
+    shard_leaves = (pytree.tree_leaves(shardings, is_leaf=lambda s: hasattr(s, "spec"))
+                    if shardings is not None else None)
     leaves = []
-    for path, leaf in paths:
+    for i, (path, leaf) in enumerate(paths):
         key = _key(path)
         arr = flat[key]
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"shape mismatch for {key}: {arr.shape} vs {tuple(leaf.shape)}")
-        leaves.append(_to_tensor(arr, leaf.dtype, leaf.device))
+        x = _to_tensor(arr, leaf.dtype, leaf.device)
+        leaves.append(shard_leaves[i].put(x) if shard_leaves is not None else x)
     return pytree.tree_unflatten(leaves, spec)

@@ -25,8 +25,11 @@ directory, so launches running side by side never share a port::
 ``torch.distributed.init_process_group("gloo")`` and the executors find
 the world from it.
 
-``make_production_mesh`` / ``make_host_mesh`` (activation sharding) are
-not ported yet: ``ROADMAP.md`` queue 1, item 13.
+``make_production_mesh`` (16×16, or 2×16×16 with pods) and
+``make_host_mesh`` (1×1) are the activation meshes of the launch specs and
+the dry run: ``("data", "model")`` / ``("pod", "data", "model")`` device
+meshes over the initialized world (``launch.dryrun`` brings up a fake world
+of 256 or 512 ranks for them).
 """
 
 from __future__ import annotations
@@ -77,7 +80,10 @@ def _mesh(shape: tuple, names: tuple, device_type: str | None):
         return SoloMesh(names, device_type)
     from torch.distributed.device_mesh import init_device_mesh
 
-    key = (id(dist.group.WORLD), tuple(shape), tuple(names), device_type)
+    # the world's group object itself keys the cache (and stays alive in
+    # it), so a world brought up after another was destroyed never finds
+    # the old world's mesh
+    key = (dist.group.WORLD, tuple(shape), tuple(names), device_type)
     if key not in _MESHES:
         _MESHES[key] = init_device_mesh(device_type, tuple(shape),
                                         mesh_dim_names=tuple(names))
@@ -107,6 +113,28 @@ def make_multipod_mesh(num_pods: int | None = None, num_devices: int | None = No
     if n % num_pods:
         raise ValueError(f"{n} devices do not split into {num_pods} pods")
     return _mesh((num_pods, n // num_pods), ("pod", "data"), device_type)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str | None = None):
+    """16×16 = 256 ranks per pod; 2 pods = 512 ranks multi-pod.  A device
+    mesh over the initialized world, which must hold exactly that many
+    ranks (``launch.dryrun`` brings up a fake one)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = 512 if multi_pod else 256
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != n:
+        raise ValueError(
+            f"the {'x'.join(map(str, shape))} production mesh needs a world of {n} "
+            f"ranks, not {world}")
+    return _mesh(shape, axes, device_type)
+
+
+def make_host_mesh(*, device_type: str | None = None):
+    """1×1 ``("data", "model")`` mesh for smoke tests and examples: a
+    ``SoloMesh`` when no process group is up, a device mesh of one rank
+    under a world of one."""
+    return _mesh((1, 1), ("data", "model"), device_type)
 
 
 def axis_names(mesh) -> tuple:

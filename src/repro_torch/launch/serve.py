@@ -34,8 +34,9 @@ Examples (on the card; add ``--reduced --device cpu`` on a CPU)::
 Weights are made from ``--seed`` on the device (``init_params`` on a
 seeded ``torch.Generator``); prompts and queries from a seeded numpy
 generator.  ``--device`` defaults to ``cuda`` and the command raises
-without a GPU unless ``--device cpu`` is given.  ``--mesh`` raises: mesh
-placement of the served θ is ``ROADMAP.md`` queue 1, item 13.
+without a GPU unless ``--device cpu`` is given.  ``--mesh`` places the
+served θ on a ``("data",)`` mesh over the world
+(``launch.mesh.make_node_mesh``: a world of one without a process group).
 """
 
 from __future__ import annotations
@@ -197,7 +198,8 @@ def _serve_arch(args):
     prompts = rng.integers(
         0, cfg.vocab_size, size=(args.requests, args.prompt_len)).astype(np.int32)
     mode = "batched" if batched_prefill_supported(cfg) else "loop"
-    print(f"serving {cfg.name} ({mode} prefill, buckets={batcher.buckets}, mesh=False)")
+    print(f"serving {cfg.name} ({mode} prefill, buckets={batcher.buckets}, "
+          f"mesh={engine.mesh is not None})")
     tickets = [batcher.submit(p) for p in prompts]
     _drain(batcher)
     outs = torch.stack([t.result() for t in tickets]).cpu().numpy()
@@ -275,9 +277,9 @@ def _drain(batcher) -> None:
 def _make_mesh(args):
     if not args.mesh:
         return None
-    raise NotImplementedError(
-        "--mesh is not ported to repro_torch yet: serving on a mesh places θ "
-        "through sharding/rules — ROADMAP.md queue 1, item 13")
+    from repro_torch.launch.mesh import make_node_mesh
+
+    return make_node_mesh()
 
 
 def main(argv=None):
@@ -301,7 +303,7 @@ def main(argv=None):
     ap.add_argument("--timeout-ms", type=float, default=10.0)
     ap.add_argument("--registry", default="", help="model registry root (strategy path)")
     ap.add_argument("--mesh", action="store_true",
-                    help="place the engine on a mesh (not ported: raises)")
+                    help="place the engine on a mesh over the world's ranks")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)

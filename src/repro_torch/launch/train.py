@@ -38,8 +38,11 @@ optimizer strategy is not vmappable, so the levels run in turn inside each
 step, and every level holds its own copy of the training state.  The
 history then carries one ``loss_D<d>`` per level.
 
-Not ported yet: ``--multipod`` (activation sharding over a mesh,
-``ROADMAP.md`` queue 1, item 13); it raises.
+``--multipod`` installs a ``("pod", "data")`` multipod ``MeshContext``
+(``launch.mesh.make_multipod_mesh``: a world of one without a process
+group) for the run, so the models' activation constraints
+(``sharding.rules.maybe_shard``) see the batch on ``("pod", "data")``;
+``--batch`` must divide over the mesh's nodes.
 """
 
 from __future__ import annotations
@@ -55,8 +58,10 @@ from repro_torch.checkpoint import save
 from repro_torch.configs import get_config
 from repro_torch.data import synthetic_lm_batches
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import axis_sizes, make_multipod_mesh
 from repro_torch.models import transformer as tf
 from repro_torch.optim import adam, clip_by_global_norm, warmup_cosine
+from repro_torch.sharding.rules import MeshContext, current_mesh_context, set_mesh_context
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -101,7 +106,7 @@ def main(argv=None):
                     help="comma-separated staleness levels trained in one sweep")
     ap.add_argument("--compress-topk", type=float, default=0.0)
     ap.add_argument("--multipod", action="store_true",
-                    help="multipod mesh placement (not ported yet)")
+                    help="run under a ('pod', 'data') multipod MeshContext")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--fault-seed", type=int, default=0,
                     help="seed for the FaultPlan draw streams")
@@ -117,10 +122,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.multipod:
-        raise NotImplementedError(
-            "--multipod needs the mesh placement, not ported yet: ROADMAP.md "
-            "queue 1, item 13")
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -146,51 +147,65 @@ def main(argv=None):
         sweep_levels = [int(s) for s in args.sweep_staleness.split(",")]
         executor = api.SweepExecutor({"staleness": sweep_levels})
 
-    data = synthetic_lm_batches(args.seed, args.batch, args.seq, cfg.vocab_size,
-                                device=device)
-    fault_note = f", faults={faults!r}" if faults is not None else ""
-    print(f"training {cfg.name} ({n_params / 1e6:.1f}M params, "
-          f"staleness={sweep_levels or args.staleness}, wire={wire}, "
-          f"device={device}{fault_note})")
-    t0 = time.time()
-    history = []
-    carry, done = None, 0
-    wire_bytes = 0
-    while done < args.steps:
-        end = _chunk_end(done, args.steps, args.log_every, args.ckpt_every)
-        stream = stack_batches([next(data) for _ in range(end - done)])
-        res = api.fit(
-            strategy, None, transport="delay_line", staleness=args.staleness,
-            wire=wire, executor=executor, stream=stream, theta0=theta, carry=carry,
-            faults=faults, tag="train", device=device,
-        )
-        carry = res.metrics["carry"]
-        if sweep_levels is None:
-            theta = res.theta
-            wire_bytes += res.ledger.uplink_bytes
-            losses = {"loss": float(res.trajectory[-1])}
-            first = {"loss": float(res.trajectory[0])}
-        else:
-            # θ0 stays the shared start; the sweep resumes from its carry
-            wire_bytes += res.ledger[0].uplink_bytes  # the same in every level
-            losses = {f"loss_D{d}": float(res.trajectory[i, -1])
-                      for i, d in enumerate(sweep_levels)}
-            first = {f"loss_D{d}": float(res.trajectory[i, 0])
-                     for i, d in enumerate(sweep_levels)}
-        if done == 0:
-            history.append({"step": 1, **first})
-        done = end
-        if done % args.log_every == 0 or done == args.steps:
-            if history[-1]["step"] != done:
-                history.append({"step": done, **losses})
-            shown = "  ".join(f"{k} {v:.4f}" for k, v in losses.items())
-            print(f"step {done:5d}  {shown}  ({(time.time() - t0) / done:.2f}s/step)")
-        if args.ckpt_dir and args.ckpt_every and done % args.ckpt_every == 0:
-            save(args.ckpt_dir, done, theta)
-    final = {k: v for k, v in history[-1].items() if k != "step"}
-    print(json.dumps({"final_loss": final["loss"] if sweep_levels is None else final,
-                      "uplink_bytes": wire_bytes, "history": history}))
-    return history
+    mesh_note = ""
+    prev_ctx = current_mesh_context()
+    if args.multipod:
+        mesh = make_multipod_mesh()
+        sizes = axis_sizes(mesh)
+        if args.batch % (sizes["pod"] * sizes["data"]):
+            raise SystemExit(
+                f"--batch {args.batch} must divide over the "
+                f"{sizes['pod']}x{sizes['data']} multipod mesh")
+        set_mesh_context(MeshContext(mesh=mesh, logical={"batch": ("pod", "data")}))
+        mesh_note = f", mesh=pod:{sizes['pod']}x data:{sizes['data']}"
+    try:
+        data = synthetic_lm_batches(args.seed, args.batch, args.seq, cfg.vocab_size,
+                                    device=device)
+        fault_note = f", faults={faults!r}" if faults is not None else ""
+        print(f"training {cfg.name} ({n_params / 1e6:.1f}M params, "
+              f"staleness={sweep_levels or args.staleness}, wire={wire}, "
+              f"device={device}{mesh_note}{fault_note})")
+        t0 = time.time()
+        history = []
+        carry, done = None, 0
+        wire_bytes = 0
+        while done < args.steps:
+            end = _chunk_end(done, args.steps, args.log_every, args.ckpt_every)
+            stream = stack_batches([next(data) for _ in range(end - done)])
+            res = api.fit(
+                strategy, None, transport="delay_line", staleness=args.staleness,
+                wire=wire, executor=executor, stream=stream, theta0=theta, carry=carry,
+                faults=faults, tag="train", device=device,
+            )
+            carry = res.metrics["carry"]
+            if sweep_levels is None:
+                theta = res.theta
+                wire_bytes += res.ledger.uplink_bytes
+                losses = {"loss": float(res.trajectory[-1])}
+                first = {"loss": float(res.trajectory[0])}
+            else:
+                # θ0 stays the shared start; the sweep resumes from its carry
+                wire_bytes += res.ledger[0].uplink_bytes  # the same in every level
+                losses = {f"loss_D{d}": float(res.trajectory[i, -1])
+                          for i, d in enumerate(sweep_levels)}
+                first = {f"loss_D{d}": float(res.trajectory[i, 0])
+                         for i, d in enumerate(sweep_levels)}
+            if done == 0:
+                history.append({"step": 1, **first})
+            done = end
+            if done % args.log_every == 0 or done == args.steps:
+                if history[-1]["step"] != done:
+                    history.append({"step": done, **losses})
+                shown = "  ".join(f"{k} {v:.4f}" for k, v in losses.items())
+                print(f"step {done:5d}  {shown}  ({(time.time() - t0) / done:.2f}s/step)")
+            if args.ckpt_dir and args.ckpt_every and done % args.ckpt_every == 0:
+                save(args.ckpt_dir, done, theta)
+        final = {k: v for k, v in history[-1].items() if k != "step"}
+        print(json.dumps({"final_loss": final["loss"] if sweep_levels is None else final,
+                          "uplink_bytes": wire_bytes, "history": history}))
+        return history
+    finally:
+        set_mesh_context(prev_ctx)
 
 
 if __name__ == "__main__":

@@ -17,6 +17,8 @@ reference.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels.decode_attention import ops as da_ops
@@ -25,6 +27,14 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.cache import KVCache, PagedKVCache, paged_append, paged_view
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_mrope, apply_rope, dense, dense_init
+from repro_torch.sharding.rules import (
+    current_mesh_context,
+    maybe_shard,
+    pin_grad,
+    replicated_where_sharded,
+    split_dim,
+    splits_evenly,
+)
 
 
 def attn_init(gen, cfg: ModelConfig, dtype=torch.float32, device=None):
@@ -47,13 +57,40 @@ def _sdpa(q, k, v, mask, *, scale):
     """
     B, T, H, D = q.shape
     Hkv = k.shape[2]
-    qg = q.reshape(B, T, Hkv, H // Hkv, D)
+    if not splits_evenly(q, 2, Hkv) and replicated_where_sharded(k, q, 2):
+        return _sdpa_repeat_kv(q, k, v, mask, scale=scale)
+    qg = split_dim(q, 2, Hkv, H // Hkv)
     logits = torch.einsum("bthgd,bshd->bhgts", qg.float(), k.float()) * scale
     m = mask if mask.dim() == 3 else mask[None]
     logits = torch.where(m[:, None, None], logits, -1e30)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgts,bshd->bthgd", probs.to(v.dtype).float(), v.float())
     return out.reshape(B, T, H, D).to(q.dtype)
+
+
+def _sdpa_repeat_kv(q, k, v, mask, *, scale):
+    """``_sdpa`` for a ``DTensor`` q whose head shards outnumber the KV
+    heads (4 over a model axis of 16) and K/V are whole along those shards
+    (train and prefill): K/V are repeated to q's H heads (head h reads KV
+    head h // G) and sliced like q, and the attention, parallel over batch
+    and heads, runs on each rank's block (``local_map`` with q's
+    placements in and out) rather than gathering every head of q on every
+    rank.  ``DTensor``'s own products would flatten two sharded batch
+    dimensions into one, which it refuses before torch 2.13.  A decode
+    cache sharded on its sequence keeps ``_sdpa``'s way: gathering q's one
+    token is the cheaper move there."""
+    from torch.distributed.tensor.experimental import local_map
+
+    B, T, H, D = q.shape
+    Hkv, G = k.shape[2], H // k.shape[2]
+
+    def rep(x):
+        return x[:, :, :, None].expand(B, x.shape[1], Hkv, G, D).reshape(B, -1, H, D)
+
+    pl = list(q.placements)
+    per_block = local_map(functools.partial(_sdpa, scale=scale), out_placements=pl,
+                          in_placements=(pl, pl, pl, None), redistribute_inputs=True)
+    return per_block(q, rep(k), rep(v), mask)
 
 
 def _sdpa_q_chunked(q, k, v, *, scale, q_chunk: int, window: int = 0):
@@ -165,9 +202,9 @@ def attn_apply(
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     cd = x.dtype
 
-    q = dense(p["wq"], x).reshape(B, T, H, D)
-    k = dense(p["wk"], x).reshape(B, T, Hkv, D)
-    v = dense(p["wv"], x).reshape(B, T, Hkv, D)
+    q = split_dim(dense(p["wq"], x), -1, H, D)
+    k = split_dim(dense(p["wk"], x), -1, Hkv, D)
+    v = split_dim(dense(p["wv"], x), -1, Hkv, D)
     if cfg.mrope_sections and mrope_positions is not None:
         q = apply_mrope(q, mrope_positions, cfg.rope_theta, cfg.mrope_sections)
         k = apply_mrope(k, mrope_positions, cfg.rope_theta, cfg.mrope_sections)
@@ -208,6 +245,12 @@ def attn_apply(
         cache.k[:, start:start + T] = k.to(cache.k.dtype)
         cache.v[:, start:start + T] = v.to(cache.v.dtype)
         k_all, v_all = cache.k, cache.v
+        ctx = current_mesh_context()
+        if ctx is not None and "kvseq" in ctx.logical:
+            # keep the cache sequence-sharded through the attention compute
+            # (partial softmax per shard instead of all-gathering K/V)
+            k_all = maybe_shard(k_all, "batch", "kvseq", None, None)
+            v_all = maybe_shard(v_all, "batch", "kvseq", None, None)
         if decode_attn != "off" and T == 1 and cfg.sliding_window == 0:
             valid = torch.full((B,), idx + 1, dtype=torch.int32, device=x.device)
             out = _decode_attend(
@@ -220,5 +263,7 @@ def attn_apply(
             out = _sdpa(q, k_all.to(cd), v_all.to(cd), mask, scale=scale)
         new_cache = KVCache(k=k_all, v=v_all, index=idx + T)
 
-    y = dense(p["wo"], out.reshape(B, T, H * D))
+    # the gradient reaches the heads whole where they do not divide the
+    # model axis: DTensor cannot view a head-sharded one back into heads
+    y = dense(p["wo"], pin_grad(out.reshape(B, T, H * D)))
     return y, new_cache

@@ -15,6 +15,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.rules import unshard_dim
+
 
 def truncated_normal(gen: torch.Generator, shape, dtype, stddev: float,
                      device=None) -> torch.Tensor:
@@ -86,7 +88,10 @@ def embedding_init(gen, vocab: int, d: int, dtype=torch.float32, device=None):
 
 
 def embed(p, ids, *, compute_dtype=None):
-    out = F.embedding(ids, p["embedding"])
+    # a vocabulary-sharded DTensor table is gathered whole first: the
+    # masked partial sum DTensor's lookup makes cannot take a partial-sum
+    # gradient back (torch 2.13)
+    out = F.embedding(ids, unshard_dim(p["embedding"], 0))
     if compute_dtype is not None:
         out = out.to(compute_dtype)
     return out

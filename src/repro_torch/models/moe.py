@@ -7,8 +7,9 @@ sort (``_positions_in_expert``), keeps the first ``C = max(1, int(cf·T·k /
 E))`` of each expert and sends the rest to a trash row ``E·C`` (dropped:
 their gate contribution is zero).  The expert SwiGLU runs on the (B, E, C,
 d) buffer as batched products (``torch.einsum``), as the reference's
-einsums do outside any Pallas kernel.  The reference's ``maybe_shard``
-calls are the identity without a mesh and have no counterpart here.
+einsums do outside any Pallas kernel.  The buffer and the experts'
+output pass through ``maybe_shard`` at the reference's places (the
+identity without a mesh context).
 
 Determinism on the card, where the reference's scatters are ordered:
 
@@ -35,6 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, swiglu, swiglu_init, truncated_normal
+from repro_torch.sharding.rules import maybe_shard
 
 #: subtrees ``transformer.compute_params`` leaves in the parameter type
 KEEP_LEAVES = ("router",)
@@ -73,7 +75,7 @@ def _positions_in_expert(ids_f: torch.Tensor, num_experts: int) -> torch.Tensor:
     is_start = torch.ones_like(ids_f, dtype=torch.bool)
     is_start[..., 1:] = sorted_ids[..., 1:] != sorted_ids[..., :-1]
     run_start = torch.cummax(torch.where(is_start, idx, 0), dim=-1).values
-    rank = torch.zeros_like(idx).scatter_(-1, order, idx - run_start)
+    rank = torch.zeros_like(order).scatter_(-1, order, idx - run_start)
     return rank.to(torch.int32)
 
 
@@ -110,24 +112,28 @@ def moe_apply(p, cfg: ModelConfig, x: torch.Tensor, *, compute_dtype=None):
 
     probs, gates, ids = route(p, cfg, x)
     # the dispatch counts, exact in f32 (the reference sums a one-hot); a
-    # scatter of ones, so nothing waits on the device
+    # scatter of ones, so nothing waits on the device.  Buffers are made
+    # like x (new_zeros), so under a mesh they are DTensors written in place
     flat = ids.reshape(-1)
-    counts = torch.zeros(E, device=x.device).scatter_add_(
+    counts = x.new_zeros(E, dtype=torch.float32).scatter_add_(
         0, flat, torch.ones(flat.shape, device=x.device))
     f_e = counts / (B * T) / k
     aux = m.aux_loss_coef * E * torch.sum(f_e * probs.mean(dim=(0, 1)))
 
     dest, keep = dispatch(ids, C, E)  # (B, T·k)
     rows = torch.arange(B, device=x.device)[:, None]
-    buf = torch.zeros((B, E * C + 1, d), dtype=cd, device=x.device)
+    buf = x.new_zeros((B, E * C + 1, d), dtype=cd)
     # entry j of a row is token j // k (the reference's repeat(arange(T), k))
     buf[rows, dest] = x.to(cd)[:, :, None].expand(B, T, k, d).reshape(B, T * k, d)
     xe = buf[:, : E * C].reshape(B, E, C, d)
+    # (B, E, C, d) resharded to (data, model, ·, ·) is the all-to-all
+    xe = maybe_shard(xe, "batch", "model", None, None)
 
     w = p["experts"]
     g = torch.einsum("becd,edf->becf", xe, w["w_gate"].to(cd))
     u = torch.einsum("becd,edf->becf", xe, w["w_up"].to(cd))
     h = torch.einsum("becf,efd->becd", F.silu(g) * u, w["w_down"].to(cd))
+    h = maybe_shard(h, "batch", "model", None, None)
 
     hf = h.reshape(B, E * C, d)
     ent = hf[rows, dest.clamp(max=E * C - 1)]

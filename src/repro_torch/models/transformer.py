@@ -52,6 +52,7 @@ from repro_torch.models.layers import (
     swiglu_init,
     unembed,
 )
+from repro_torch.sharding.rules import maybe_shard, unshard_dim
 from repro_torch.utils.tree import tree_stack, tree_unstack
 
 #: mixers whose caches accept T ≥ 1 appended tokens in ONE decode_step call
@@ -177,14 +178,14 @@ def apply_layer(p, cfg: ModelConfig, spec: LayerSpec, h, *, cache=None,
         kw["absorb"] = mla_absorb
     module, _, apply = _MIXERS[spec.mixer]
     mix, new_cache = getattr(module, apply)(p["mixer"], cfg, hn, cache=cache, **kw)
-    h = h + mix
+    h = maybe_shard(h + mix, "batch", "seq", None)
     if spec.ffn == "none":
         return h, new_cache, 0.0
     hn = rmsnorm(p["ffn_norm"], h, eps=cfg.rms_eps)
     if spec.ffn == "dense":
-        return h + swiglu(p["ffn"], hn), new_cache, 0.0
+        return maybe_shard(h + swiglu(p["ffn"], hn), "batch", "seq", None), new_cache, 0.0
     y, aux = moe.moe_apply(p["ffn"], cfg, hn)
-    return h + y, new_cache, aux
+    return maybe_shard(h + y, "batch", "seq", None), new_cache, aux
 
 
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, seq: int, dtype,
@@ -364,6 +365,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, positions=None,
     h = embed(params["embed"], tokens, compute_dtype=cd)
     if vision_embeds is not None:
         h = torch.cat([vision_embeds.to(cd), h[:, vision_embeds.shape[1]:]], dim=1)
+    h = maybe_shard(h, "batch", "seq", None)
     aux = 0.0
     new_caches = {} if cache is not None else None
     for si, seg in enumerate(segments(cfg)):
@@ -393,7 +395,9 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, positions=None,
             }
 
     h = rmsnorm(params["final_norm"], h, eps=cfg.rms_eps)
-    logits = None if skip_logits else _head_logits(params, cfg, h)
+    logits = None
+    if not skip_logits:
+        logits = maybe_shard(_head_logits(params, cfg, h), "batch", "seq", "model")
     out = (logits, aux, new_caches)
     return out + (h,) if return_hidden else out
 
@@ -443,7 +447,9 @@ def chunked_ce(params, cfg: ModelConfig, hidden, labels, *, mask=None, chunk=512
     def piece(h_c, l_c, m_c):
         logits = _head_logits(params, cfg, h_c).float()
         lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, l_c[..., None].long())[..., 0]
+        # a vocabulary-sharded DTensor is gathered whole first: DTensor's
+        # masked gather on the sharded dimension fails (torch 2.13)
+        gold = torch.gather(unshard_dim(logits, -1), -1, l_c[..., None].long())[..., 0]
         return torch.sum((lse - gold) * m_c), torch.sum(m_c)
 
     tot = torch.zeros((), device=hidden.device)

@@ -29,6 +29,7 @@ from repro_torch.models.layers import (
     truncated_normal,
     unembed,
 )
+from repro_torch.sharding.rules import maybe_shard
 from repro_torch.utils.tree import tree_stack, tree_unstack
 
 #: learned decoder positions (rows of ``dec_pos``)
@@ -127,10 +128,12 @@ def encode(params, cfg: ModelConfig, frame_embeds: torch.Tensor):
     cd = getattr(torch, cfg.compute_dtype)
     S = frame_embeds.shape[1]
     h = frame_embeds.to(cd) + params["enc_pos"][None, :S].to(cd)
+    h = maybe_shard(h, "batch", "seq", None)
     for p in tree_unstack(params["encoder"]):
         x = layernorm(p["ln1"], h)
         h = h + _mha(p["attn"], cfg, x, x, None)
         h = h + gelu_mlp(p["mlp"], layernorm(p["ln2"], h))
+        h = maybe_shard(h, "batch", "seq", None)
     return layernorm(params["enc_ln"], h)
 
 
@@ -144,6 +147,7 @@ def decode(params, cfg: ModelConfig, tokens: torch.Tensor, memory: torch.Tensor,
     h = embed(params["dec_embed"], tokens, compute_dtype=cd)
     start = max(0, min(int(position_offset), params["dec_pos"].shape[0] - T))
     h = h + params["dec_pos"][None, start:start + T].to(cd)
+    h = maybe_shard(h, "batch", "seq", None)
     mem = memory.to(cd)
     mask = torch.ones((T, T), dtype=torch.bool, device=tokens.device).tril()
     for r, p in enumerate(tree_unstack(params["decoder"])):
@@ -156,11 +160,14 @@ def decode(params, cfg: ModelConfig, tokens: torch.Tensor, memory: torch.Tensor,
             h = h + sa
         h = h + _mha(p["cross_attn"], cfg, layernorm(p["ln2"], h), mem, None)
         h = h + gelu_mlp(p["mlp"], layernorm(p["ln3"], h))
+        if cache is None:  # the reference constrains the uncached body only
+            h = maybe_shard(h, "batch", "seq", None)
     h = layernorm(params["dec_ln"], h)
     logits = unembed(params["dec_embed"], h)
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab, device=h.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)
+    logits = maybe_shard(logits, "batch", "seq", "model")
     new_cache = None if cache is None else cache._replace(index=cache.index + T)
     return logits, new_cache
 

@@ -5,9 +5,10 @@ A fit produces ``FitResult.theta``; the strategy that trained it answers
 requests with it (``Strategy.predict``).  The engine owns
 
 * **placement** — θ on one device (its own, or ``device=``); requests are
-  moved there.  Mesh placement (``mesh=``) is not ported: the reference
-  shards θ through ``sharding/rules.place_params`` (``ROADMAP.md`` queue 1,
-  item 13);
+  moved there.  With ``mesh=`` θ is sharded by the name rules
+  (``sharding.rules.place_params``: ``DTensor``s on a device mesh, θ as it
+  is on a ``SoloMesh``) and each request batch is padded to a multiple of
+  the batch axes' size and split over them; the answer comes back whole;
 * **execution** — predicts run eagerly under ``torch.inference_mode()``.
   The reference compiles a jittable predict once per request shape and
   donates the request buffer; PyTorch has no compile step here and donates
@@ -32,9 +33,13 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import SoloMesh, batch_axes, data_axis_size, mesh_device
 from repro_torch.serve.metrics import ServeMetrics
+from repro_torch.sharding.rules import NamedSharding, P, place_params
 from repro_torch.telemetry import trace as _trace
 from repro_torch.utils.tree import tree_leaves, tree_map
 
@@ -64,9 +69,10 @@ class ServeEngine:
       strategy: the Strategy that produced (or can interpret) ``theta``.
       theta: finalized parameters — ``FitResult.theta`` or a registry load
         (tensors or numpy arrays).
-      mesh / model_axis / fsdp_axis / donate: the reference's placement and
-        donation knobs, kept in the signature; anything but ``mesh=None``
-        raises (``ROADMAP.md`` queue 1, item 13), and nothing is donated.
+      mesh / model_axis / fsdp_axis: θ's placement (see above); the device
+        is then the mesh's.
+      donate: the reference's donation knob, kept in the signature;
+        nothing is donated.
       metrics: a shared ``ServeMetrics`` (one per deployment); fresh by
         default.
       tag: ledger event tag for this engine's inference traffic.
@@ -83,16 +89,18 @@ class ServeEngine:
                  fsdp_axis: str | None = None, donate: bool = True,
                  metrics: ServeMetrics | None = None, tag: str = "serve", tracer=None,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ServeEngine(mesh=...) is not ported to repro_torch yet: the reference "
-                "places θ through sharding/rules.place_params — ROADMAP.md queue 1, "
-                "item 13")
         self.strategy = strategy
+        self.mesh = mesh
+        self.model_axis = model_axis
+        self.fsdp_axis = fsdp_axis
+        self._batch_axes = batch_axes(mesh) if mesh is not None else ()
+        self._batch_mul = data_axis_size(mesh) if mesh is not None else 1
         self.tag = tag
         self.metrics = metrics if metrics is not None else ServeMetrics()
         self.tracer = tracer if tracer is not None else _trace.current_tracer()
-        if device is None:
+        if mesh is not None and not isinstance(mesh, SoloMesh):
+            self.device = mesh_device(mesh)
+        elif device is None:
             leaves = _tensor_leaves(theta)
             self.device = leaves[0].device if leaves else resolve_device("cuda")
         else:
@@ -127,7 +135,25 @@ class ServeEngine:
                 return _to_request(x, self.device)
             return x.to(self.device) if isinstance(x, torch.Tensor) else x
 
-        return tree_map(move, theta)
+        theta = tree_map(move, theta)
+        if self.mesh is None:
+            return theta
+        return place_params(self.mesh, theta, model_axis=self.model_axis,
+                            fsdp_axis=self.fsdp_axis)
+
+    def _place_request(self, X: torch.Tensor) -> torch.Tensor:
+        if self.mesh is None or isinstance(self.mesh, SoloMesh) or not self._batch_axes:
+            return X
+        axes = self._batch_axes if len(self._batch_axes) > 1 else self._batch_axes[0]
+        return NamedSharding(self.mesh, P(axes)).put(X)
+
+    def _run(self, theta, X):
+        if isinstance(X, DTensor):
+            # constants the predict makes are the same on every rank
+            with implicit_replication():
+                Y = self._fn(theta, X)
+            return tree_map(lambda y: y.full_tensor() if isinstance(y, DTensor) else y, Y)
+        return self._fn(theta, X)
 
     def swap(self, theta: PyTree) -> None:
         """Replace the served parameters under the engine's lock (registry
@@ -157,6 +183,11 @@ class ServeEngine:
         are returned and metered."""
         X = _to_request(X, self.device)
         n = X.shape[0] if valid is None else valid
+        req = X[:n]
+        pad = (-X.shape[0]) % self._batch_mul
+        if pad:  # a device multiple under a mesh; the padding never leaves
+            X = torch.cat([X, X[-1:].expand(pad, *X.shape[1:])])
+        Xp = self._place_request(X)
         with self._lock:
             theta = self.theta
         tr = self.tracer
@@ -164,14 +195,14 @@ class ServeEngine:
         with (tr.span("serve/predict", batch=int(X.shape[0]), valid=int(n))
               if tr is not None else nullcontext()):
             with torch.inference_mode():
-                Y = self._fn(theta, X)
+                Y = self._run(theta, Xp)
             self._fence()
         dt = time.perf_counter() - t0
         if tr is not None:
             tr.count("serve/requests", n)
             tr.count("serve/padded_slots", int(X.shape[0]) - int(n))
         Y = tree_map(lambda y: y[:n], Y)
-        self.metrics.record_batch(n, X.shape[0], dt, X[:n], Y, tag=self.tag)
+        self.metrics.record_batch(n, X.shape[0], dt, req, Y, tag=self.tag)
         return Y
 
     @property

@@ -152,10 +152,10 @@ class ModelRegistry:
         ``checkpoint.io.restore`` (its structure; each leaf takes its
         template's type and device); without it, nested-dict or bare-array
         thetas are rebuilt from the manifest keys as tensors on ``device``
-        (default ``"cuda"``, raising without a GPU).  ``shardings=`` raises
-        (``ROADMAP.md`` queue 1, item 13)."""
+        (default ``"cuda"``, raising without a GPU).  ``shardings`` (with
+        ``like``) places each leaf on its mesh, as ``restore`` does."""
         v = self.resolve(name, version)
-        if like is not None or shardings is not None:
+        if like is not None:
             return ckpt_io.restore(self._dir(name), v, like, shardings=shardings)
         return ckpt_io.restore_dict(self._dir(name), v, device=device)
 

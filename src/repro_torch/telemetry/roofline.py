@@ -8,8 +8,8 @@
 The dominant term is the bottleneck; MODEL_FLOPS / (FLOPs × chips)
 measures how much of the counted compute is useful (catches recompute).
 The port has no compiled artifact to read FLOPs from: a caller counts them
-(for example with ``torch.utils.flop_counter.FlopCounterMode``; the
-dry-run cost probe is ``ROADMAP.md`` queue 1, item 13).
+(``telemetry.costprobe.probe_costs`` counts a step's products with
+``torch.utils.flop_counter``'s formulas, as the dry run does).
 """
 
 from __future__ import annotations

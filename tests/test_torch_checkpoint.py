@@ -154,9 +154,31 @@ def test_latest_step_empty(tmp_path):
 
 
 def test_restore_onto_shardings_raises_naming_roadmap(tmp_path):
-    t_ckpt.save(str(tmp_path), 1, {"w": torch.ones(2)})
-    with pytest.raises(NotImplementedError, match="item 13"):
-        t_ckpt.restore(str(tmp_path), 1, {"w": torch.ones(2)}, shardings={"w": None})
+    """``restore(shardings=)`` places each leaf by its ``NamedSharding``: on
+    the host mesh (a ``SoloMesh``) the leaves come back as saved, and a
+    checkpoint the JAX package wrote restores onto shardings to the JAX
+    restore's values (``tests/test_torch_sharding.py`` restores onto 8
+    gloo ranks)."""
+    from repro.launch.mesh import make_host_mesh as j_host_mesh
+    from repro.sharding.rules import make_shardings as j_shardings
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.rules import P, make_shardings
+
+    rng = np.random.default_rng(3)
+    tree = {"w": rng.normal(size=(4, 2)).astype(np.float32),
+            "b": rng.normal(size=(2,)).astype(np.float32)}
+    j_ckpt.save(str(tmp_path), 1, {k: jnp.asarray(v) for k, v in tree.items()})
+    like = {k: torch.zeros(v.shape) for k, v in tree.items()}
+    sh = make_shardings(make_host_mesh(), {"w": P("data", "model"), "b": P()})
+    out = t_ckpt.restore(str(tmp_path), 1, like, shardings=sh)
+    from jax.sharding import PartitionSpec as JP
+
+    jsh = j_shardings(j_host_mesh(), {"w": JP("data", "model"), "b": JP()})
+    ref = j_ckpt.restore(str(tmp_path), 1, {k: jnp.zeros(v.shape) for k, v in tree.items()},
+                         shardings=jsh)
+    for k in tree:
+        np.testing.assert_array_equal(out[k].numpy(), np.asarray(ref[k]))
+        np.testing.assert_array_equal(out[k].numpy(), tree[k])
 
 
 # ----------------------------------------------------------------------------

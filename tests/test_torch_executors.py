@@ -481,15 +481,21 @@ def test_make_executor_spec_strings():
 
 def test_serve_executor_names_item_10():
     """``"serve"`` (ROADMAP queue 1, item 10) is ported: the spec resolves
-    to a ``ServingExecutor``.  Its mesh placement moved to item 13, and a
-    mesh still raises naming that item (``tests/test_torch_serve_engine.py``
-    holds the executor to the JAX package's)."""
+    to a ``ServingExecutor``.  With a mesh (here the node mesh, a world of
+    one) its engine serves θ placed on it, answering as the unmeshed one
+    (``tests/test_torch_serve_engine.py`` holds the executor to the JAX
+    package's)."""
     ex = tapi.make_executor("serve")
     assert isinstance(ex, tapi.ServingExecutor) and isinstance(ex, tapi.LocalExecutor)
     X, y = ranks.problem(K=4)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1, item 13\b"):
-        tfit(t_gd(), (X, y), transport="allreduce", steps=2,
-             executor=tapi.ServingExecutor(mesh=object()))
+    meshed = tfit(t_gd(), (X, y), transport="allreduce", steps=2,
+                  executor=tapi.ServingExecutor(mesh=make_node_mesh()))
+    plain = tfit(t_gd(), (X, y), transport="allreduce", steps=2,
+                 executor=tapi.ServingExecutor())
+    Xq = torch.as_tensor(np.asarray(X)[0])
+    assert meshed.metrics["serve_engine"].mesh is not None
+    assert torch.equal(meshed.metrics["serve_engine"].predict(Xq),
+                       plain.metrics["serve_engine"].predict(Xq))
 
 
 def test_sweep_unknown_attribute_rejected():

@@ -28,6 +28,7 @@ from repro.ml.linear import logistic_loss as j_logistic  # noqa: E402
 from repro.ml.linear import lsq_loss as j_lsq  # noqa: E402
 from repro_torch import api as tapi  # noqa: E402
 from repro_torch.convert import carry_from_reference, theta_from_reference  # noqa: E402
+from repro_torch.launch.mesh import make_node_mesh  # noqa: E402
 from repro_torch.ml.linear import logistic_loss as t_logistic  # noqa: E402
 from repro_torch.ml.linear import lsq_loss as t_lsq  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
@@ -242,21 +243,23 @@ def test_default_device_needs_a_gpu():
         make_feature_shards(0, 2, 4, 3)
 
 
-# What of the fit path is still to port: serving on a mesh and restoring
-# onto shardings (item 13).  The tracer (item 12) on any fit — the
-# admm_consensus transport's and a secagg wire's among them — and the serve
-# executor (item 10) are ported (tests/test_torch_trace.py,
-# tests/test_torch_serve_engine.py); so are the mesh, multipod and sweep
-# executors and the train CLI's staleness sweep (tests/test_torch_executors.py)
-@pytest.mark.parametrize("call, item", [
-    (lambda: tapi.fit(tapi.GradientDescent(t_lsq), problem(), transport="allreduce",
-                      steps=2, executor=tapi.ServingExecutor(mesh=object()),
-                      device="cpu"), 13),
-    (lambda: ServeEngine(tapi.GradientDescent(t_lsq), torch.zeros(3), mesh=object()), 13),
+# Nothing of the fit path is left to port: serving on a mesh and restoring
+# onto shardings (item 13) run now (tests/test_torch_sharding.py holds them
+# to the JAX package on 8 gloo ranks), as do the tracer (item 12) on any
+# fit, the serve executor (item 10), the mesh, multipod and sweep executors
+# and the train CLI's staleness sweep
+@pytest.mark.parametrize("call", [
+    lambda: tapi.fit(tapi.GradientDescent(t_lsq), problem(), transport="allreduce",
+                     steps=2, executor=tapi.ServingExecutor(mesh=make_node_mesh()),
+                     device="cpu").metrics["serve_engine"],
+    lambda: ServeEngine(tapi.GradientDescent(t_lsq), torch.zeros(3), mesh=make_node_mesh()),
 ], ids=["serve-mesh", "engine-mesh"])
-def test_out_of_slice_raises_naming_roadmap(call, item):
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md queue 1, item {item}\b"):
-        call()
+def test_out_of_slice_raises_naming_roadmap(call):
+    """The calls this test once saw refused (a mesh for the serving engine,
+    ROADMAP item 13) run: the engine serves θ placed on the node mesh."""
+    engine = call()
+    assert engine.mesh is not None
+    assert engine.predict(torch.ones((2, engine.theta.shape[-1]))).shape == (2,)
 
 
 @pytest.mark.parametrize("spec", ["tracer", "admm", "secagg-tracer", "serve"])

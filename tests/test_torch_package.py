@@ -57,6 +57,9 @@ def test_import_loads_no_jax_and_builds_nothing():
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.serve, repro_torch.models, repro_torch.configs\n"
         "import repro_torch.launch.serve\n"
+        "import repro_torch.launch.specs, repro_torch.launch.dryrun\n"
+        "import repro_torch.sharding, repro_torch.sharding.rules\n"
+        "import repro_torch.telemetry.hlo, repro_torch.telemetry.costprobe\n"
         "from repro_torch.kernels import build\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))"
         " or m == 'repro' for m in sys.modules), sorted(sys.modules)\n"
@@ -79,12 +82,8 @@ def test_import_loads_no_jax_and_builds_nothing():
 REF = REPO / "src" / "repro"
 
 #: reference modules with no counterpart file yet → the ROADMAP item that
-#: brings them (queue 1)
-NOT_YET = {
-    **{p: "item 13" for p in ("launch/specs.py", "launch/dryrun.py", "sharding/__init__.py",
-                               "sharding/rules.py", "telemetry/hlo.py",
-                               "telemetry/costprobe.py")},
-}
+#: brings them (queue 1); empty: every reference module has one
+NOT_YET: dict = {}
 
 #: names a counterpart leaves out on purpose, each with its reason
 ABSENT = {
@@ -96,11 +95,8 @@ ABSENT = {
     **{(f"kernels/{k}/kernel.py", f"{k}_fwd"):
         "the Pallas entry point; the port's kernel.py functions launch the CUDA kernels "
         "under their own names" for k in ("decode_attention", "flash_attention", "pdist_argmin")},
-    ("configs/__init__.py", "InputShape"): "launch shapes: ROADMAP queue 1, item 13",
-    ("configs/__init__.py", "applicable"): "launch shapes: ROADMAP queue 1, item 13",
-    ("launch/mesh.py", "make_production_mesh"): "mesh placement: ROADMAP queue 1, item 13",
-    ("launch/mesh.py", "make_host_mesh"): "mesh placement: ROADMAP queue 1, item 13",
-    ("telemetry/__init__.py", "hlo"): "XLA program parsing: ROADMAP queue 1, item 13",
+    ("telemetry/hlo.py", "parse_replica_groups"):
+        "HLO text parsing; the port records collectives as they run",
 }
 
 

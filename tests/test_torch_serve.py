@@ -370,8 +370,10 @@ def test_launch_serve_continuous_cpu(capsys):
     ids = launch.main(["--reduced", "--device", "cpu", "--batch", "2", "--requests", "3",
                        "--prompt-len", "5", "--gen", "2"])
     assert ids.shape == (3, 2) and ids.dtype == np.int32
-    with pytest.raises(NotImplementedError, match="queue 1, item 13"):
-        launch.main(["--reduced", "--device", "cpu", "--mesh"])
+    # --mesh: θ placed on the node mesh (a world of one here), the same ids
+    meshed = launch.main(["--reduced", "--device", "cpu", "--batch", "2", "--requests", "3",
+                          "--prompt-len", "5", "--gen", "2", "--mesh"])
+    np.testing.assert_array_equal(meshed, ids)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             launch.main(["--reduced", "--continuous"])

@@ -224,12 +224,21 @@ def test_host_requests_are_canonicalized_as_jnp_asarray(gd_fit):
 
 
 def test_engine_refuses_a_mesh_and_a_missing_gpu(gd_fit):
-    """The counterpart of ``TestServeMeshEightDevices`` (mesh serving,
-    ROADMAP queue 1, item 13) is its refusal; a θ with no device raises
-    without a GPU unless ``device="cpu"`` is asked for."""
-    _, rj, ts, rt, _ = gd_fit
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ServeEngine.from_fit(rt, ts, mesh=object())
+    """A mesh is served now: on the host mesh (a ``SoloMesh`` without a
+    process group) the engine answers as the JAX engine on its host mesh,
+    and a request batch of any size comes back whole
+    (``tests/test_torch_sharding.py`` serves on 8 gloo ranks); a θ with no
+    device raises without a GPU unless ``device="cpu"`` is asked for."""
+    from repro.launch.mesh import make_host_mesh as j_host_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+
+    js, rj, ts, rt, n = gd_fit
+    Xq = queries(n)
+    te = ServeEngine.from_fit(rt, ts, mesh=make_host_mesh())
+    je = JEngine.from_fit(rj, js, mesh=j_host_mesh())
+    np.testing.assert_allclose(np_(te.predict(Xq)), np_(je.predict(Xq)),
+                               rtol=P_RTOL, atol=P_ATOL)
+    assert te.ledger.uplink_bytes == je.ledger.uplink_bytes == 7 * n * 4
     if not torch.cuda.is_available():
         # numpy θ names no device: the default is the card, and there is none
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -826,13 +835,15 @@ def test_strategy_cli_publishes_and_serves(tmp_path, strategy):
         "allreduce" if strategy == "gd" else "sequential_server")
 
 
-def test_serve_cli_refuses_mesh():
-    """The counterpart of the CLI's ``--mesh`` (``TestServeMeshEightDevices``)
-    is its refusal, naming ROADMAP queue 1, item 13."""
+def test_serve_cli_refuses_mesh(tmp_path):
+    """The CLI's ``--mesh`` serves on a ``("data",)`` node mesh (a world of
+    one here): the answers are the unmeshed run's, bitwise."""
     from repro_torch.launch import serve as tsv
 
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tsv.main(["--strategy", "gd", "--mesh", "--device", "cpu"])
+    args = ["--strategy", "gd", "--requests", "5", "--batch", "4", "--device", "cpu"]
+    meshed = tsv.main(args + ["--registry", str(tmp_path / "a"), "--mesh"])
+    plain = tsv.main(args + ["--registry", str(tmp_path / "b")])
+    np.testing.assert_array_equal(np.asarray(meshed), np.asarray(plain))
 
 
 # ----------------------------------------------------------------------------

@@ -411,11 +411,19 @@ def test_train_cli_loss_decreases(capsys):
 
 
 # --sweep-staleness is ported (tests/test_torch_executors.py holds each
-# level to a solo run); --multipod waits for item 13
-@pytest.mark.parametrize("flag,item", [("--multipod", "item 13")])
-def test_train_cli_unported_flags_raise(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        t_train.main(["--reduced", "--steps", "2", flag, "--device", "cpu"])
+# level to a solo run); --multipod runs under a ("pod", "data") MeshContext
+@pytest.mark.parametrize("flag", ["--multipod"])
+def test_train_cli_unported_flags_raise(flag):
+    """``--multipod`` on a world of one (no process group) installs the
+    multipod ``MeshContext`` for the run and trains bitwise as without it,
+    as the reference's does on one device; the context is gone after."""
+    from repro_torch.sharding.rules import current_mesh_context
+
+    args = ["--reduced", "--steps", "2", "--batch", "2", "--seq", "16", "--log-every", "1",
+            "--device", "cpu"]
+    meshed = t_train.main(args + [flag])
+    assert current_mesh_context() is None
+    assert meshed == t_train.main(args)
 
 
 def test_train_checkpoint_restore_and_serve(tmp_path):
