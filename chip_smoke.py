@@ -322,7 +322,11 @@
    max |g| of the whole batch's; the loss, the step's wall and peak
    memory.  (L4) the dry run of
    tinyllama-1.1b × ``train_4k`` on a fake world of 256 ranks on the
-   host: per-device bytes, FLOPs and collective bytes (counts).
+   host: per-device bytes, FLOPs and collective bytes (counts); then
+   minicpm3-4b × ``decode_32k``, whisper-base × ``prefill_32k``,
+   xlstm-125m × ``decode_32k`` and deepseek-v3-671b × ``train_4k`` (its
+   widths with 2 layers, one of them MoE), each ``ok``, their FLOPs,
+   collective and argument bytes beside those of torch 2.13.0+cpu.
 15. Prints the redesigned kernels' times in turns, one JSON line of
    per-kernel numbers (thirteen kernels; the wire kernels' launches count
    the executors phase's, ``topk_encode``'s the serving-and-tracing,
@@ -5071,17 +5075,52 @@ def launch_accumulation(torch):
     return out
 
 
+#: (L4)'s added combinations, one per family the uneven head split or the
+#: experts' FSDP dimension had failed: (arch, shape, layers kept or None)
+DRYRUN_ADDED = [("minicpm3-4b", "decode_32k", None), ("whisper-base", "prefill_32k", None),
+                ("xlstm-125m", "decode_32k", None), ("deepseek-v3-671b", "train_4k", 2)]
+#: the same combinations' counts a device on the 16×16 fake world under
+#: torch 2.13.0+cpu (the dry run on a CPU-only host): FLOPs, collective
+#: bytes, argument bytes
+DRYRUN_CPU_COUNTS = {
+    "minicpm3-4b × decode_32k": (2877423616000.0, 185914597376.0, 2233559072),
+    "whisper-base × prefill_32k": (139048910848.0, 437830144.0, 32493568),
+    "xlstm-125m × decode_32k": (343302144.0, 156394080.0, 234957632),
+    "deepseek-v3-671b × train_4k": (180115359137792.0, 6935197515296.0, 1316818948),
+}
+
+
+def dryrun_config(arch, shape, layers):
+    """The shape-adapted config of ``arch``, or with ``layers`` its widths
+    and sharding with the first ``layers`` layers, one dense and the rest
+    MoE (deepseek-v3-671b's full 61 take minutes to count)."""
+    import dataclasses
+
+    from repro_torch.launch import specs as S
+
+    cfg = S.shape_adapted_config(arch, shape)
+    if layers is None:
+        return cfg
+    return cfg.replace(num_layers=layers, moe=dataclasses.replace(cfg.moe, first_k_dense=1))
+
+
 def launch_dryrun(torch):
-    """(L4) The dry run of tinyllama-1.1b × train_4k on a fake world of
-    256 ranks on this machine's host (counts, not timings)."""
+    """(L4) The dry run of tinyllama-1.1b × train_4k, then of one repaired
+    combination per family (``DRYRUN_ADDED``), each on a fake world of 256
+    ranks on this machine's host (counts, not timings), each printed
+    beside the CPU-only host's counts."""
     import torch.distributed as dist
 
     from repro_torch.launch import dryrun
 
-    check(not dist.is_initialized(), "a process group is up before the dry run")
-    res = dryrun.run_one(LAUNCH_ARCH, "train_4k")
-    check(res["status"] == "ok", f"dry run: {res.get('error')}")
-    check(not dist.is_initialized(), "the dry run left its world up")
+    def one(arch, shape, config=None):
+        check(not dist.is_initialized(), "a process group is up before the dry run")
+        res = dryrun.run_one(arch, shape, config=config)
+        check(res["status"] == "ok", f"dry run {arch} × {shape}: {res.get('error')}")
+        check(not dist.is_initialized(), "the dry run left its world up")
+        return res
+
+    res = one(LAUNCH_ARCH, "train_4k")
     out = {"torch": torch.__version__, "mesh": res["mesh"], "chips": res["chips"],
            "argument_bytes_per_device": res["memory"]["argument_size_in_bytes"],
            "memtracker_peak_bytes_per_device": res["memory"]["memtracker_peak_bytes"],
@@ -5093,6 +5132,24 @@ def launch_dryrun(torch):
            "op_census": res["op_census"], "seconds": res["probe_s"] + res["lower_s"]}
     print(f"launch (L4) dry run {LAUNCH_ARCH} × train_4k (counts on the host): "
           f"{json.dumps(out)}", flush=True)
+    added = {}
+    for arch, shape, layers in DRYRUN_ADDED:
+        res = one(arch, shape, dryrun_config(arch, shape, layers))
+        key = f"{arch} × {shape}"
+        flops, coll, args = DRYRUN_CPU_COUNTS[key]
+        added[key] = {
+            "status": res["status"], "layers": layers or "all",
+            "flops_per_device": res["cost_corrected"]["flops"], "cpu_host_flops": flops,
+            "collective_bytes_per_device": res["cost_corrected"]["coll"],
+            "cpu_host_collective_bytes": coll,
+            "argument_bytes_per_device": res["memory"]["argument_size_in_bytes"],
+            "cpu_host_argument_bytes": args,
+            "bytes_per_device": res["cost_corrected"]["bytes"],
+            "memtracker_peak_bytes_per_device": res["memory"]["memtracker_peak_bytes"],
+            "seconds": res["probe_s"] + res["lower_s"]}
+        print(f"launch (L4) dry run {key} (counts on the host, torch {torch.__version__}, "
+              f"beside torch 2.13.0+cpu's): {json.dumps(added[key])}", flush=True)
+    out["added"] = added
     return out
 
 

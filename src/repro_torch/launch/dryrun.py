@@ -37,6 +37,7 @@ import os
 import time
 import traceback
 
+import torch
 import torch.distributed as dist
 
 from repro_torch.configs import SHAPES, applicable
@@ -68,12 +69,15 @@ def run_one(
     reduced: bool = False,
     batch: int | None = None,
     seq_len: int | None = None,
+    config=None,
 ) -> dict:
     """Dry-run one combination.  ``mesh_shape`` replaces the production
     mesh by a smaller one over a fake world of its size (``(4, 2)`` is
     ``("data", "model")``, three entries add ``"pod"`` in front);
     ``reduced`` takes the config's ``reduced()`` variant and ``batch`` /
     ``seq_len`` override the shape's — the small cases the tests run.
+    ``config`` replaces the shape-adapted config of ``arch`` (a variant made
+    from it with ``cfg.replace``, as fewer layers of the same widths).
     Costs are counted in the one pass that runs the step (the reference's
     ``probes`` switch has no counterpart)."""
     shape = SHAPES[shape_name]
@@ -85,7 +89,7 @@ def run_one(
     if not ok:
         return dict(head, status="skipped", reason=why)
 
-    cfg = S.shape_adapted_config(arch, shape_name)
+    cfg = config if config is not None else S.shape_adapted_config(arch, shape_name)
     if reduced:
         cfg = cfg.reduced().replace(
             remat_policy=cfg.remat_policy, attn_q_chunk=cfg.attn_q_chunk,
@@ -161,6 +165,7 @@ def run_one(
             "collectives_raw": coll_raw,
             "op_census": hlo_lib.op_census(counter.counts),
             "roofline": roof.to_dict(),
+            "torch": torch.__version__,
             "config": {
                 "param_dtype": cfg.param_dtype,
                 "remat": cfg.remat_policy,

@@ -337,6 +337,13 @@ def _value_and_grad(loss, params, cfg, batch):
     with torch.enable_grad():
         total, metrics = loss(pytree.tree_unflatten(xs, spec), cfg, batch)
         grads = torch.autograd.grad(total, xs, materialize_grads=True)
+    # each gradient laid out as its parameter (a partial sum over the batch
+    # axes reduce-scattered), as JAX's gradients follow the parameters'
+    # shardings: torch 2.11's DTensor cannot add a partial sum to the
+    # optimizer's sharded moments
+    grads = [g.redistribute(x.device_mesh, x.placements)
+             if isinstance(g, DTensor) and g.placements != x.placements else g
+             for g, x in zip(grads, xs)]
     metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
                for k, v in metrics.items()}
     return (total.detach(), metrics), pytree.tree_unflatten(list(grads), spec)

@@ -20,6 +20,7 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention import ref as da_ref
@@ -30,8 +31,10 @@ from repro_torch.models.layers import apply_mrope, apply_rope, dense, dense_init
 from repro_torch.sharding.rules import (
     current_mesh_context,
     maybe_shard,
+    per_block,
     pin_grad,
     replicated_where_sharded,
+    same_blocks,
     split_dim,
     splits_evenly,
 )
@@ -59,6 +62,11 @@ def _sdpa(q, k, v, mask, *, scale):
     Hkv = k.shape[2]
     if not splits_evenly(q, 2, Hkv) and replicated_where_sharded(k, q, 2):
         return _sdpa_repeat_kv(q, k, v, mask, scale=scale)
+    pl = same_blocks((0, 2), k, v)
+    if pl is not None and isinstance(q, DTensor) and mask.dim() == 2:
+        # K/V sharded on batch and heads only: q is laid out as they are
+        # and each rank attends on its block
+        return per_block(functools.partial(_sdpa, scale=scale), pl, q, k, v, mask)
     qg = split_dim(q, 2, Hkv, H // Hkv)
     logits = torch.einsum("bthgd,bshd->bhgts", qg.float(), k.float()) * scale
     m = mask if mask.dim() == 3 else mask[None]
@@ -88,9 +96,9 @@ def _sdpa_repeat_kv(q, k, v, mask, *, scale):
         return x[:, :, :, None].expand(B, x.shape[1], Hkv, G, D).reshape(B, -1, H, D)
 
     pl = list(q.placements)
-    per_block = local_map(functools.partial(_sdpa, scale=scale), out_placements=pl,
-                          in_placements=(pl, pl, pl, None), redistribute_inputs=True)
-    return per_block(q, rep(k), rep(v), mask)
+    blocks = local_map(functools.partial(_sdpa, scale=scale), out_placements=pl,
+                       in_placements=(pl, pl, pl, None), redistribute_inputs=True)
+    return blocks(q, rep(k), rep(v), mask)
 
 
 def _sdpa_q_chunked(q, k, v, *, scale, q_chunk: int, window: int = 0):

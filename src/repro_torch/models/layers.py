@@ -188,7 +188,9 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *, mask=None):
     """Mean token cross entropy; logits (..., V) f32, labels (...) int."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    # a vocabulary-sharded DTensor is gathered whole first, as in
+    # ``transformer.chunked_ce``
+    gold = torch.gather(unshard_dim(logits, -1), -1, labels[..., None].long())[..., 0]
     nll = lse - gold
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)

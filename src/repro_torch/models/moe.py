@@ -31,12 +31,15 @@ router would change which experts a token picks.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, swiglu, swiglu_init, truncated_normal
-from repro_torch.sharding.rules import maybe_shard
+from repro_torch.sharding.rules import maybe_shard, per_block, same_blocks, unshard_dim
 
 #: subtrees ``transformer.compute_params`` leaves in the parameter type
 KEEP_LEAVES = ("router",)
@@ -102,47 +105,86 @@ def dispatch(ids: torch.Tensor, C: int, num_experts: int):
     return dest, keep
 
 
+def _route_rows(kernel, x, *, cfg: ModelConfig, C: int, cd):
+    """Everything of the MoE FFN that is per batch row, before the experts:
+    ``(probs, gates, counts, xe, dest, keep)`` with the dispatch counts
+    (E,) and the (B, E, C, d) buffer of x's tokens by (expert, rank)."""
+    m = cfg.moe
+    B, T, d = x.shape
+    E, k = m.num_experts, m.top_k
+    probs, gates, ids = route({"router": {"kernel": kernel}}, cfg, x)
+    # the dispatch counts, exact in f32 (the reference sums a one-hot); a
+    # scatter of ones, so nothing waits on the device.  Buffers are made
+    # like x (new_zeros): where x is a DTensor they are DTensors written in
+    # place
+    flat = ids.reshape(-1)
+    counts = x.new_zeros(E, dtype=torch.float32).scatter_add_(
+        0, flat, torch.ones(flat.shape, device=x.device))
+    dest, keep = dispatch(ids, C, E)  # (B, T·k)
+    rows = torch.arange(B, device=x.device)[:, None]
+    buf = x.new_zeros((B, E * C + 1, d), dtype=cd)
+    # entry j of a row is token j // k (the reference's repeat(arange(T), k))
+    buf[rows, dest] = x.to(cd)[:, :, None].expand(B, T, k, d).reshape(B, T * k, d)
+    return probs, gates, counts, buf[:, : E * C].reshape(B, E, C, d), dest, keep
+
+
+def _combine_rows(h, dest, keep, gates, *, cd):
+    """y (B, T, d): each token's k expert outputs (B, E, C, d) weighted by
+    its gates and added in slot order, slot 0 first, as ``.at[tok].add``."""
+    B, E, C, d = h.shape
+    T, k = gates.shape[1:]
+    rows = torch.arange(B, device=h.device)[:, None]
+    ent = h.reshape(B, E * C, d)[rows, dest.clamp(max=E * C - 1)]
+    ent = torch.where(keep[..., None], ent, 0.0) * gates.reshape(B, -1, 1).to(cd)
+    ent = ent.reshape(B, T, k, d)
+    y = torch.zeros((B, T, d), dtype=cd, device=h.device)
+    for j in range(k):
+        y = y + ent[:, :, j]
+    return y
+
+
 def moe_apply(p, cfg: ModelConfig, x: torch.Tensor, *, compute_dtype=None):
-    """``(y, aux_loss)`` for x (B, T, d)."""
+    """``(y, aux_loss)`` for x (B, T, d).  Under a mesh, with x sharded on
+    its batch only, the routing, dispatch and combine run on each rank's
+    rows (``sharding.rules.per_block``; the counts leave as a partial
+    sum), and only the expert products are ``DTensor`` operations."""
     m = cfg.moe
     B, T, d = x.shape
     E, k = m.num_experts, m.top_k
     cd = compute_dtype or x.dtype
     C = max(1, int(m.capacity_factor * T * k / E))
 
-    probs, gates, ids = route(p, cfg, x)
-    # the dispatch counts, exact in f32 (the reference sums a one-hot); a
-    # scatter of ones, so nothing waits on the device.  Buffers are made
-    # like x (new_zeros), so under a mesh they are DTensors written in place
-    flat = ids.reshape(-1)
-    counts = x.new_zeros(E, dtype=torch.float32).scatter_add_(
-        0, flat, torch.ones(flat.shape, device=x.device))
+    kernel = p["router"]["kernel"]
+    route_rows = functools.partial(_route_rows, cfg=cfg, C=C, cd=cd)
+    combine_rows = functools.partial(_combine_rows, cd=cd)
+    pl = same_blocks((0,), x)
+    if pl is not None and isinstance(kernel, DTensor):
+        whole = [Replicate()] * len(pl)
+        summed = [Partial() if q.is_shard() else q for q in pl]
+        probs, gates, counts, xe, dest, keep = per_block(
+            route_rows, pl, kernel, x, in_placements=(whole, pl),
+            out_placements=(pl, pl, summed, pl, pl, pl))
+        combine = functools.partial(per_block, combine_rows, pl)
+    else:
+        probs, gates, counts, xe, dest, keep = route_rows(kernel, x)
+        combine = combine_rows
     f_e = counts / (B * T) / k
     aux = m.aux_loss_coef * E * torch.sum(f_e * probs.mean(dim=(0, 1)))
-
-    dest, keep = dispatch(ids, C, E)  # (B, T·k)
-    rows = torch.arange(B, device=x.device)[:, None]
-    buf = x.new_zeros((B, E * C + 1, d), dtype=cd)
-    # entry j of a row is token j // k (the reference's repeat(arange(T), k))
-    buf[rows, dest] = x.to(cd)[:, :, None].expand(B, T, k, d).reshape(B, T * k, d)
-    xe = buf[:, : E * C].reshape(B, E, C, d)
     # (B, E, C, d) resharded to (data, model, ·, ·) is the all-to-all
     xe = maybe_shard(xe, "batch", "model", None, None)
 
+    # the experts' d dimension is whole before use, as FSDP gathers it:
+    # DTensor's local einsum fails on experts over "model" with d over
+    # "data" (a view across two subspaces); no mesh, no change
     w = p["experts"]
-    g = torch.einsum("becd,edf->becf", xe, w["w_gate"].to(cd))
-    u = torch.einsum("becd,edf->becf", xe, w["w_up"].to(cd))
-    h = torch.einsum("becf,efd->becd", F.silu(g) * u, w["w_down"].to(cd))
+    w_gate, w_up = (unshard_dim(w[n], 1).to(cd) for n in ("w_gate", "w_up"))
+    w_down = unshard_dim(w["w_down"], 2).to(cd)
+    g = torch.einsum("becd,edf->becf", xe, w_gate)
+    u = torch.einsum("becd,edf->becf", xe, w_up)
+    h = torch.einsum("becf,efd->becd", F.silu(g) * u, w_down)
     h = maybe_shard(h, "batch", "model", None, None)
 
-    hf = h.reshape(B, E * C, d)
-    ent = hf[rows, dest.clamp(max=E * C - 1)]
-    ent = torch.where(keep[..., None], ent, 0.0) * gates.reshape(B, -1, 1).to(cd)
-    ent = ent.reshape(B, T, k, d)
-    y = torch.zeros((B, T, d), dtype=cd, device=x.device)
-    for j in range(k):  # slot order, as .at[tok].add
-        y = y + ent[:, :, j]
-
+    y = combine(h, dest, keep, gates)
     if "shared" in p:
         y = y + swiglu(p["shared"], x.to(cd))
     return y.to(x.dtype), aux

@@ -52,7 +52,7 @@ from repro_torch.models.layers import (
     swiglu_init,
     unembed,
 )
-from repro_torch.sharding.rules import maybe_shard, unshard_dim
+from repro_torch.sharding.rules import maybe_shard, per_block, same_blocks, unshard_dim
 from repro_torch.utils.tree import tree_stack, tree_unstack
 
 #: mixers whose caches accept T ≥ 1 appended tokens in ONE decode_step call
@@ -410,7 +410,7 @@ def mtp_hidden(params, cfg: ModelConfig, hidden, tokens, positions):
     e_next = embed(params["embed"], tokens, compute_dtype=_dtype(cfg.compute_dtype))
     x = torch.cat([rmsnorm(p["norm_h"], hidden, eps=cfg.rms_eps),
                    rmsnorm(p["norm_e"], e_next, eps=cfg.rms_eps)], dim=-1)
-    x = dense(p["proj"], x)
+    x = dense(p["proj"], maybe_shard(x, "batch", "seq", None))
     x, _, aux = apply_layer(p["layer"], cfg, _mtp_spec(cfg), x, positions=positions)
     return rmsnorm(p["final_norm"], x, eps=cfg.rms_eps), aux
 
@@ -462,6 +462,14 @@ def chunked_ce(params, cfg: ModelConfig, hidden, labels, *, mask=None, chunk=512
     return tot / torch.clamp_min(cnt, 1.0)
 
 
+def _shift_left(x):
+    """``torch.roll(x, -1, 1)``; a ``DTensor`` sharded on its batch only
+    rolls each rank's rows (torch 2.11 has no sharding rule for ``roll``)."""
+    roll = partial(torch.roll, shifts=-1, dims=1)
+    pl = same_blocks((0,), x)
+    return per_block(roll, pl, x) if pl is not None else roll(x)
+
+
 def loss_fn(params, cfg: ModelConfig, batch):
     """``(total, {"ce", "aux"[, "mtp"]})`` for ``batch`` = tokens (B, T),
     labels (B, T) and optionally ``loss_mask``, ``mrope_positions`` and
@@ -480,10 +488,10 @@ def loss_fn(params, cfg: ModelConfig, batch):
         tokens = batch["tokens"]
         B, T = tokens.shape
         positions = torch.arange(T, device=tokens.device).expand(B, T)
-        h_mtp, aux_mtp = mtp_hidden(params, cfg, hidden, torch.roll(tokens, -1, 1), positions)
+        h_mtp, aux_mtp = mtp_hidden(params, cfg, hidden, _shift_left(tokens), positions)
         mask = torch.ones((B, T), dtype=torch.float32, device=tokens.device)
         mask[:, -2:] = 0.0
-        mtp_loss = chunked_ce(params, cfg, h_mtp, torch.roll(batch["labels"], -1, 1),
+        mtp_loss = chunked_ce(params, cfg, h_mtp, _shift_left(batch["labels"]),
                               mask=mask)
         total = total + cfg.mtp_loss_coef * mtp_loss + aux_mtp
         metrics["mtp"] = mtp_loss

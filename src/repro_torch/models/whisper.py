@@ -12,7 +12,10 @@ decodes through a stacked ``KVCache`` written in place.
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.cache import KVCache
 from repro_torch.models.config import ModelConfig
@@ -29,7 +32,7 @@ from repro_torch.models.layers import (
     truncated_normal,
     unembed,
 )
-from repro_torch.sharding.rules import maybe_shard
+from repro_torch.sharding.rules import maybe_shard, per_block, pin_grad, same_blocks, split_dim
 from repro_torch.utils.tree import tree_stack, tree_unstack
 
 #: learned decoder positions (rows of ``dec_pos``)
@@ -49,7 +52,12 @@ def _mha_init(gen, cfg: ModelConfig, dtype, device=None):
 
 def _attend(q, k, v, mask, out_dtype):
     """Softmax attention with f32 logits and accumulation: q (B, T, H, D),
-    k / v (B, S, H, D), mask (T, S) boolean (True = attend) or None."""
+    k / v (B, S, H, D), mask (T, S) boolean (True = attend) or None.
+    ``DTensor``s sharded alike on batch and heads attend on each rank's
+    block."""
+    pl = same_blocks((0, 2), k, v)
+    if pl is not None and isinstance(q, DTensor):
+        return per_block(functools.partial(_attend, out_dtype=out_dtype), pl, q, k, v, mask)
     logits = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * (q.shape[-1] ** -0.5)
     if mask is not None:
         logits = torch.where(mask, logits, -1e30)
@@ -62,11 +70,11 @@ def _mha(p, cfg, xq, xkv, mask):
     B, T, _ = xq.shape
     S = xkv.shape[1]
     H, D = cfg.num_heads, cfg.head_dim
-    q = dense(p["wq"], xq).reshape(B, T, H, D)
-    k = dense(p["wk"], xkv).reshape(B, S, H, D)
-    v = dense(p["wv"], xkv).reshape(B, S, H, D)
+    q = split_dim(dense(p["wq"], xq), -1, H, D)
+    k = split_dim(dense(p["wk"], xkv), -1, H, D)
+    v = split_dim(dense(p["wv"], xkv), -1, H, D)
     out = _attend(q, k, v, mask, xq.dtype)
-    return dense(p["wo"], out.reshape(B, T, H * D))
+    return dense(p["wo"], pin_grad(out.reshape(B, T, H * D)))
 
 
 def _mha_cached(p, cfg, xq, cache: KVCache):
@@ -75,9 +83,9 @@ def _mha_cached(p, cfg, xq, cache: KVCache):
     their own position."""
     B, T, _ = xq.shape
     H, D = cfg.num_heads, cfg.head_dim
-    q = dense(p["wq"], xq).reshape(B, T, H, D)
-    k = dense(p["wk"], xq).reshape(B, T, H, D)
-    v = dense(p["wv"], xq).reshape(B, T, H, D)
+    q = split_dim(dense(p["wq"], xq), -1, H, D)
+    k = split_dim(dense(p["wk"], xq), -1, H, D)
+    v = split_dim(dense(p["wv"], xq), -1, H, D)
     S = cache.k.shape[1]
     idx = cache.index
     start = max(0, min(idx, S - T))  # where dynamic_update_slice writes
@@ -86,7 +94,7 @@ def _mha_cached(p, cfg, xq, cache: KVCache):
     mask = (torch.arange(S, device=xq.device)[None, :]
             <= idx + torch.arange(T, device=xq.device)[:, None])
     out = _attend(q, cache.k.to(q.dtype), cache.v.to(q.dtype), mask, xq.dtype)
-    y = dense(p["wo"], out.reshape(B, T, H * D))
+    y = dense(p["wo"], pin_grad(out.reshape(B, T, H * D)))
     return y, KVCache(k=cache.k, v=cache.v, index=idx + T)
 
 

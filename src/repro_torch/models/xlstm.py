@@ -17,12 +17,16 @@ sLSTM's FFN).  With a cache each apply returns a new cache;
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.models.cache import MLSTMCache, SLSTMCache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense, dense_init, gelu, rmsnorm, rmsnorm_init
+from repro_torch.sharding.rules import per_block, pin_grad, pointwise, same_blocks, split_dim
 
 # ----------------------------------------------------------------------------
 # mLSTM
@@ -62,7 +66,7 @@ def _mlstm_chunk(state: MLSTMCache, q, k, v, i_pre, f_pre):
     L, Dh = q.shape[1], q.shape[-1]
     C0, n0, m0 = state.C, state.n, state.m  # (B,H,Dk,Dv), (B,H,Dk), (B,H)
 
-    logf = F.logsigmoid(f_pre.float())
+    logf = pointwise(F.logsigmoid, f_pre.float())
     logi = i_pre.float()
     b = torch.cumsum(logf, dim=1)  # (B, L, H)
     a = torch.clamp_min(torch.cummax(logi - b, dim=1).values, -1e30)
@@ -120,7 +124,7 @@ def _mlstm_parallel(q, k, v, i_pre, f_pre, *, chunk: int = 256):
 
 def _mlstm_step(cache: MLSTMCache, q, k, v, i_pre, f_pre):
     """Recurrent mLSTM step: q, k, v (B, H, Dh); i, f (B, H)."""
-    logf = F.logsigmoid(f_pre.float())
+    logf = pointwise(F.logsigmoid, f_pre.float())
     logi = i_pre.float()
     m_new = torch.maximum(logf + cache.m, logi)
     fw = torch.exp(logf + cache.m - m_new)[..., None]
@@ -140,21 +144,29 @@ def mlstm_apply(p, cfg: ModelConfig, x, *, cache: MLSTMCache | None = None, **_)
     xi, z = dense(p["up_proj"], x).chunk(2, dim=-1)
     di = xi.shape[-1]
     Dh = di // H
-    q = dense(p["wq"], xi).reshape(B, T, H, Dh)
-    k = dense(p["wk"], xi).reshape(B, T, H, Dh)
-    v = dense(p["wv"], xi).reshape(B, T, H, Dh)
+    q = split_dim(dense(p["wq"], xi), -1, H, Dh)
+    k = split_dim(dense(p["wk"], xi), -1, H, Dh)
+    v = split_dim(dense(p["wv"], xi), -1, H, Dh)
     i_pre = dense(p["w_i"], xi)
     f_pre = dense(p["w_f"], xi)
     if cache is None:
-        chunk = T if cfg.unroll_time_scans else 256
-        h = _mlstm_parallel(q, k, v, i_pre, f_pre, chunk=chunk)
+        run = functools.partial(_mlstm_parallel,
+                                chunk=T if cfg.unroll_time_scans else 256)
+        pl = same_blocks((0, 2), q, k, v)
+        if pl is not None and all(isinstance(a, DTensor) for a in (i_pre, f_pre)):
+            # batch rows and heads are independent: each rank runs its
+            # block's chunks on plain tensors (torch 2.11's DTensor has no
+            # cummax), the gates laid out as q
+            h = per_block(run, pl, q, k, v, i_pre, f_pre)
+        else:
+            h = run(q, k, v, i_pre, f_pre)
         new_cache = None
     else:
         if T != 1:
             raise ValueError("the recurrent mLSTM path decodes one token (T == 1)")
         new_cache, h1 = _mlstm_step(cache, q[:, 0], k[:, 0], v[:, 0], i_pre[:, 0], f_pre[:, 0])
         h = h1[:, None]
-    h = rmsnorm(p["mh_norm"], h.reshape(B, T, di), eps=cfg.rms_eps)
+    h = rmsnorm(p["mh_norm"], pin_grad(h.reshape(B, T, di)), eps=cfg.rms_eps)
     return dense(p["down_proj"], h * F.silu(z)), new_cache
 
 
@@ -185,8 +197,8 @@ def slstm_init(gen, cfg: ModelConfig, dtype=torch.float32, device=None):
 def _block_recur(r, h, H, dh):
     """Block-diagonal recurrence: h (B, d) by r (..., H, dh, dh) → (..., B, d)."""
     B = h.shape[0]
-    out = torch.einsum("bhk,...hkd->...bhd", h.reshape(B, H, dh), r)
-    return out.reshape(*r.shape[:-3], B, H * dh)
+    out = torch.einsum("bhk,...hkd->...bhd", split_dim(h, -1, H, dh), r)
+    return pin_grad(out.reshape(*r.shape[:-3], B, H * dh))
 
 
 def _slstm_step(r, H: int, state: SLSTMCache, zifo):
@@ -197,7 +209,7 @@ def _slstm_step(r, H: int, state: SLSTMCache, zifo):
     xz, xi, xf, xo = zifo
     z = torch.tanh(xz + rec[0])
     logi = xi + rec[1]  # exponential input gate, in log space
-    logf = F.logsigmoid(xf + rec[2])
+    logf = pointwise(F.logsigmoid, xf + rec[2])
     o = torch.sigmoid(xo + rec[3])
     m_new = torch.maximum(logf + state.m, logi)
     fw = torch.exp(logf + state.m - m_new)
@@ -207,23 +219,43 @@ def _slstm_step(r, H: int, state: SLSTMCache, zifo):
     return SLSTMCache(c=c, n=n, h=o * c / torch.clamp_min(n, 1e-6), m=m_new)
 
 
+def _slstm_scan(r, H: int, state: SLSTMCache, *zifo):
+    """The recurrence over the T steps of ``zifo`` (each (B, T, d)) from
+    ``state``: ``(state after the last step, h (B, T, d))``."""
+    hs = []
+    for t in range(zifo[0].shape[1]):
+        state = _slstm_step(r, H, state, [u[:, t] for u in zifo])
+        hs.append(state.h)
+    return state, torch.stack(hs, dim=1)
+
+
+def _slstm_fresh(r, H: int, *zifo):
+    """h (B, T, d) of the recurrence from the zero state."""
+    B, _, d = zifo[0].shape
+    f32 = dict(dtype=torch.float32, device=zifo[0].device)
+    state = SLSTMCache(c=torch.zeros((B, d), **f32), n=torch.zeros((B, d), **f32),
+                       h=torch.zeros((B, d), **f32), m=torch.full((B, d), -1e30, **f32))
+    return _slstm_scan(r, H, state, *zifo)[1]
+
+
 def slstm_apply(p, cfg: ModelConfig, x, *, cache: SLSTMCache | None = None, **_):
-    B, T, d = x.shape
     cd = x.dtype
     zifo = [dense(p[g], x).float() for g in ("w_z", "w_i", "w_f", "w_o")]
-    if cache is None:
-        f32 = dict(dtype=torch.float32, device=x.device)
-        state = SLSTMCache(c=torch.zeros((B, d), **f32), n=torch.zeros((B, d), **f32),
-                           h=torch.zeros((B, d), **f32), m=torch.full((B, d), -1e30, **f32))
-    else:
-        state = cache
     r = torch.stack([p[g].float() for g in ("r_z", "r_i", "r_f", "r_o")])
-    hs = []
-    for t in range(T):
-        state = _slstm_step(r, cfg.num_heads, state, [u[:, t] for u in zifo])
-        hs.append(state.h)
-    h = rmsnorm(p["group_norm"], torch.stack(hs, dim=1).to(cd), eps=cfg.rms_eps)
+    pl = same_blocks((0,), *zifo)
+    if cache is None and pl is not None and isinstance(r, DTensor):
+        # rows are independent: each rank runs its rows' loop on plain
+        # tensors, not T steps of DTensor dispatch (32,768 at prefill_32k)
+        whole = [Replicate()] * len(pl)
+        hs = per_block(_slstm_fresh, pl, r, cfg.num_heads, *zifo,
+                       in_placements=(whole, None, pl, pl, pl, pl))
+        state = None
+    elif cache is None:
+        state, hs = None, _slstm_fresh(r, cfg.num_heads, *zifo)
+    else:
+        state, hs = _slstm_scan(r, cfg.num_heads, cache, *zifo)
+    h = rmsnorm(p["group_norm"], hs.to(cd), eps=cfg.rms_eps)
     # post up/down GLU FFN (the paper's projection factor 4/3)
     a, b = dense(p["ffn_up"], h).chunk(2, dim=-1)
     out = dense(p["ffn_down"], gelu(a) * b)
-    return out, (state if cache is not None else None)
+    return out, state

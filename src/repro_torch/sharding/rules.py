@@ -253,6 +253,66 @@ def split_dim(x: torch.Tensor, dim: int, *sizes) -> torch.Tensor:
     return x.reshape(*x.shape[:dim], *sizes, *x.shape[dim + 1:])
 
 
+def same_blocks(dims, *xs):
+    """The placements of ``xs`` when all are ``DTensor``s laid out alike
+    and sharded (plain ``Shard``) only on dimensions in ``dims``, else
+    None.  A computation independent along ``dims`` (attention along
+    batch and heads) then runs on each rank's block under ``local_map``
+    with no collective, and without ``DTensor``'s search for a sharding of
+    each product, which on a 3-D mesh takes minutes for one einsum."""
+    if not all(isinstance(x, DTensor) for x in xs):
+        return None
+    pl = xs[0].placements
+    if any(x.placements != pl for x in xs[1:]):
+        return None
+    if not all(p.is_replicate() or (type(p) is Shard and p.dim in dims) for p in pl):
+        return None
+    return list(pl)
+
+
+def per_block(fn, pl, *args, in_placements=None, out_placements=None):
+    """``fn(*args)`` on each rank's block: the ``DTensor`` arguments
+    redistributed to ``pl`` (from ``same_blocks``), or to their entry of
+    ``in_placements``, where they are laid out otherwise, the others (a
+    (T, S) mask) whole on every rank; the output laid out by ``pl``, or
+    the outputs by ``out_placements``."""
+    from torch.distributed.tensor.experimental import local_map
+
+    in_pl = in_placements or tuple(pl if isinstance(a, DTensor) else None for a in args)
+
+    def blocks(*local):
+        return fn(*(_ContiguousGrad.apply(a) if isinstance(a, torch.Tensor) else a
+                    for a in local))
+
+    return local_map(blocks, out_placements=out_placements or pl, in_placements=in_pl,
+                     redistribute_inputs=True)(*args)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient leaves contiguous: a block's gradient
+    from an einsum's backward may be a permuted view, which ``DTensor``
+    takes back with its global (contiguous) strides and then cannot
+    view."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def pointwise(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for an elementwise ``fn`` whose operator, or its backward,
+    has no ``DTensor`` sharding strategy (``log_sigmoid_backward``): on a
+    ``DTensor`` it runs on each rank's block, ``x``'s placements in and
+    out (a partial sum is made whole first); a plain tensor is ``fn(x)``."""
+    if not isinstance(x, DTensor):
+        return fn(x)
+    return per_block(fn, [Replicate() if p.is_partial() else p for p in x.placements], x)
+
+
 # ----------------------------------------------------------------------------
 # Parameter partition specs (name-based rules)
 # ----------------------------------------------------------------------------

@@ -238,3 +238,89 @@ def collectives_program(rank, world):
     out["vmapped_scatter"] = torch.func.vmap(
         lambda v: ar.hierarchical_allreduce(v, hops, reduce_scatter=True))(xs).numpy()
     return out
+
+
+#: the reduced archs whose 4 heads a model axis of 8 does not divide, and
+#: the MoE archs whose expert block runs with its experts' d over "data"
+UNEVEN_HEAD_ARCHS = ("minicpm3-4b", "whisper-base", "xlstm-125m")
+EXPERT_ARCHS = ("olmoe-1b-7b", "deepseek-v3-671b")
+
+
+def split_friendly(cfg):
+    """``cfg`` with xlstm-125m's sLSTM FFN at 3/2 of d rather than 4/3: the
+    reduced d of 256 gives a 682-wide leaf at 4/3, which a model axis of 8
+    does not divide (in the reference either); other configs as they are."""
+    import dataclasses
+
+    if cfg.xlstm is None:
+        return cfg
+    return cfg.replace(xlstm=dataclasses.replace(cfg.xlstm, proj_factor_slstm=1.5))
+
+
+def uneven_heads_program(rank, world):
+    """The prefill forward of each of ``UNEVEN_HEAD_ARCHS``, reduced, on a
+    (1, 8) ("data", "model") mesh, and the expert block of each of
+    ``EXPERT_ARCHS`` on a (2, 4) mesh with the experts over "model" and
+    their d over "data" (FSDP); each beside the same forward without a
+    mesh, on the same seeded values.  xlstm-125m's parameters are f64 (its
+    cells compute in f32 either way): in f32 its row-parallel products sum
+    in another order than one product does, 1.7e-6 off at worst."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import _mesh
+    from repro_torch.models import moe, transformer as tf, whisper
+    from repro_torch.sharding.rules import (
+        MeshContext,
+        P,
+        partition_params,
+        place,
+        set_mesh_context,
+    )
+
+    rng = np.random.default_rng(0)
+    out = {}
+    mesh = _mesh((1, 8), ("data", "model"), "cpu")
+    B, T = 2, 16
+    for arch in UNEVEN_HEAD_ARCHS:
+        cfg = split_friendly(get_config(arch).reduced())
+        if cfg.xlstm is not None:
+            cfg = cfg.replace(param_dtype="float64", compute_dtype="float64")
+        init = whisper.init_params if cfg.is_encoder_decoder else tf.init_params
+        params = init(torch.Generator().manual_seed(0), cfg)
+        batch = {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32))}
+        if cfg.is_encoder_decoder:
+            batch["frame_embeds"] = torch.from_numpy(rng.standard_normal(
+                (B, cfg.encoder_seq_len, cfg.d_model), dtype=np.float32))
+        want = S.make_prefill_step(cfg)(params, batch)
+        step, _, _ = S.build_jitted(cfg, "prefill", mesh, B, T)
+        set_mesh_context(S.make_mesh_context_for(mesh, cfg, B))
+        try:
+            got = step(params, batch)
+        finally:
+            set_mesh_context(None)
+        out[arch] = {"plain": _np(want), "mesh": _np(got.full_tensor()),
+                     "dtensor": isinstance(got, DTensor)}
+
+    mesh = _mesh((2, 4), ("data", "model"), "cpu")
+    for arch in EXPERT_ARCHS:
+        cfg = get_config(arch).reduced()
+        p = moe.moe_init(torch.Generator().manual_seed(1), cfg)
+        x = torch.from_numpy(rng.standard_normal((4, 8, cfg.d_model), dtype=np.float32))
+        y, aux = moe.moe_apply(p, cfg, x)
+        placed = place(mesh, p, partition_params(p, model_axis="model", fsdp_axis="data"))
+        set_mesh_context(MeshContext(mesh=mesh, logical={"model": "model", "batch": "data"},
+                                     fsdp=True))
+        try:
+            with implicit_replication():
+                yd, auxd = moe.moe_apply(placed, cfg, place(mesh, x, P("data", None, None)))
+        finally:
+            set_mesh_context(None)
+        out[arch] = {"plain": _np(y), "mesh": _np(yd.full_tensor()),
+                     "aux": _np(aux), "aux_mesh": _np(auxd.full_tensor()),
+                     "w_down": str(placed["experts"]["w_down"].placements),
+                     "dtensor": isinstance(yd, DTensor)}
+    return out
