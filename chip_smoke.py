@@ -21,7 +21,15 @@
    recorded times (one atomic a warp, behind a zero fill); absmax in turns
    with ``vector_norm(x, inf, dim=1)``; quant-dequant the median of 20
    replays of a CUDA graph of the launches; all four also at the
-   executors phase's (8 × 16, 2000) rows.
+   executors phase's (8 × 16, 2000) rows.  The int8 wire encode
+   (``int8_encode``: EF add, scale, round trip and residual; one launch
+   for rows of at most N_A = 16,384, absmax + quant above), with and
+   without a residual, out, res and scale bitwise ``int8_encode_ref`` at
+   those shapes and rows of N_A and N_A + 1, on the edge rows also equal
+   to the plain version on the CPU by value and NaN position, and
+   quant-dequant alone bitwise its plain version on the edge rows; timed
+   in turns with the seven-launch chain it replaced at (16, 2000),
+   (128, 2000), 2^24 and the training leaf.
 3. Main path: ``repro_torch.api.fit`` with ``GradientDescent(logistic_loss)``
    on the local executor at the shape of the dense PASCAL "epsilon" set
    (400,000 × 2,000 f32, K = 16 nodes of 25,000 rows; synthetic, made on
@@ -61,7 +69,7 @@
    against wall); (ii) a staleness sweep D ∈ {0, 1, 2, 3} × delay_line ×
    ``topk:0.01`` (the select kernel 20 times); (iii) a dropout sweep p ∈
    {0, 0.2, 0.5} × a ``FaultPlan`` (a straggler lag, a quorum of 10) ×
-   ``int8+ef`` (absmax and quant 20 times each).  Each sweep: kernel on ≡
+   ``int8+ef`` (the one-launch int8 encode 20 times).  Each sweep: kernel on ≡
    off bitwise, every scenario's ledger its solo fit's, the same sweep
    over the dense wire within rtol 1e-6 / atol 1e-7 of its solo fits, and
    the kernel wire's θ gap to its solo fits with the first round apart
@@ -231,7 +239,12 @@
    ``c = u + r`` and ``|c|``, and the encode kernel) and the delay line;
    the model-FLOP share (6·N·tokens against 989 TFLOP/s dense bf16); the
    state's size; and one more forward + backward under the profiler,
-   its device time by kind of kernel.
+   its device time by kind of kernel.  Then the int8 wire's training run
+   (its counts set to 0 before it and read after): tinyllama-1.1b at full
+   width cut to 2 layers, 3 steps of B 2 × T 256 under ``int8+ef``, each
+   leaf one row: the norms through the one-launch encode, the matrices
+   (up to 65.5 M elements) through absmax + quant, once a leaf a step;
+   bitwise the same fit with ``use_kernel=False``.
 12. MLA, MoE and multi-token prediction (each part's kernel counts set to
    0 before it and read after): olmoe-1b-7b at full width and depth (6.92
    B f32 parameters from a seeded generator on the card, bf16 compute, 64
@@ -560,6 +573,93 @@ def encode_timings(torch, x, t, inner: int, label: str) -> dict:
     return out
 
 
+def int8_encode_checks(torch, gen, same_bits) -> tuple[int, float]:
+    """The int8 wire encode, both routes, with and without an EF residual:
+    out, res and scale bitwise ``int8_encode_ref`` on the card at encode's
+    shapes, the sweep's S·K rows and rows of N_A and N_A + 1 (N_A the
+    longest row of one launch); on the edge rows (NaN, ±inf, −0.0) also
+    equal to the plain version on the CPU wherever it is a number, NaN in
+    the same places; and quant-dequant alone bitwise its plain version on
+    the edge rows.  Returns the comparisons made and the largest |error|."""
+    from repro_torch.kernels.int8_quant import kernel as q8k, ref as q8r
+
+    n_a = q8k.one_launch_max()
+    checked, err = 0, 0.0
+
+    def nan_where_same(a, b):
+        nan = torch.isnan(b)
+        return torch.equal(torch.isnan(a), nan) and same_bits(a[~nan], b[~nan])
+
+    shapes = ENCODE_SHAPES + [(8 * K, D), (1, n_a), (5, n_a), (1, n_a + 1), (5, n_a + 1)]
+    edge = [(5, 8193), (K, D), (1, (1 << 24) + 3), (5, n_a), (5, n_a + 1)]
+    for shape, on_edge in [(sh, False) for sh in shapes] + [(sh, True) for sh in edge]:
+        m = edge_rows(torch, shape, gen) if on_edge else torch.randn(
+            shape, generator=gen, device="cuda")
+        r0 = 0.25 * torch.randn(shape, generator=gen, device="cuda")
+        for r in (r0, None):
+            got = q8k.int8_encode(m, r)
+            want = q8r.int8_encode_ref(m, r)
+            torch.cuda.synchronize()
+            what = (f"int8 encode {shape} {'with' if r is not None else 'without'} EF"
+                    + (" on the edge rows" if on_edge else "")
+                    + f" (route {'A' if shape[1] <= n_a else 'B'})")
+            for part, a, b in zip(("out", "res", "scale"), got, want):
+                check((a is None) == (b is None), f"{what}: {part} missing")
+                if a is None:
+                    continue
+                check(same_bits(a, b), f"{what}: {part} differs from the plain version")
+                fin = torch.isfinite(b)
+                if bool(fin.any()):
+                    err = max(err, float((a[fin] - b[fin]).abs().max()))
+            if on_edge:
+                cpu = q8r.int8_encode_ref(m.cpu(), None if r is None else r.cpu())
+                for part, a, b in zip(("out", "res", "scale"), got, cpu):
+                    if a is not None:
+                        check(nan_where_same(a.cpu(), b),
+                              f"{what}: {part} differs from the plain version on the CPU")
+            checked += 1
+        if on_edge:
+            s = torch.clamp_min(q8r.absmax_ref(m), 1e-12) * (1.0 / 127.0)
+            q = q8k.quant_dequant(m, s)
+            torch.cuda.synchronize()
+            check(same_bits(q, q8r.quant_dequant_ref(m, s)),
+                  f"int8 quant differs on the edge rows {shape}")
+            checked += 1
+        print(f"int8 encode {shape}{' edge rows' if on_edge else ''}, with and without EF: "
+              f"bitwise the plain version (route {'A' if shape[1] <= n_a else 'B'})",
+              flush=True)
+    return checked, err
+
+
+def int8_encode_timings(torch, m, r, inner: int) -> dict:
+    """The int8 wire encode of rows ``m`` (+ ``r``) in turns with the chain
+    it replaced (c = m + r, absmax's zero fill and kernel, clamp_min, the
+    multiply by 1/127, quant-dequant, c - out: seven launches with EF),
+    median and min–max of 6 runs; its plain version, bound (reading m and
+    r, writing out, res and the scales) and route."""
+    from repro_torch.kernels.int8_quant import kernel as q8k, ref as q8r
+
+    def chain():
+        c = m if r is None else m + r
+        s = torch.clamp_min(q8k.absmax(c), 1e-12) * (1.0 / 127.0)
+        o = q8k.quant_dequant(c, s)
+        return o, (None if r is None else c - o), s
+
+    turns = turns_ms(torch, {"chain": chain, "encode": lambda: q8k.int8_encode(m, r)},
+                     inner=inner)
+    rows, n = m.shape
+    ef = r is not None
+    one = n <= q8k.one_launch_max()
+    b_ms, b_by = bound_ms((16 if ef else 8) * rows * n + 4 * rows, (8 if ef else 6) * rows * n)
+    return {"ms": turns["encode"]["median"], "chain_ms": turns["chain"]["median"],
+            "turns": turns,
+            "plain_ms": graph_ms(torch, lambda: q8r.int8_encode_ref(m, r),
+                                 inner=max(1, inner // 5), reps=5),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "shape": [rows, n],
+            "ef": ef, "route": "A" if one else "B",
+            "route_bytes_per_element": (16 if ef else 8) if one else (24 if ef else 12)}
+
+
 def kernel_phase(torch):
     from repro_torch.kernels.int8_quant import kernel as q8k, ref as q8r
     from repro_torch.kernels.topk_compress import kernel as tkk, ref as tkr
@@ -569,7 +669,7 @@ def kernel_phase(torch):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     err = {"topk_encode": 0.0, "topk_select": 0.0, "int8_absmax": 0.0, "int8_quant": 0.0}
-    checked = 0
+    checked, err["int8_encode"] = int8_encode_checks(torch, gen, same_bits)
     for shape in ENCODE_SHAPES:
         x = torch.randn(shape, generator=gen, device="cuda")
         for case, xc, t, k in encode_cases(torch, x):
@@ -685,6 +785,12 @@ def kernel_phase(torch):
                           library_ms=None if lib is None else lib_time(torch, lib, inner=inner))
             timings[(name, label)] = tm
             print(f"time {name} {label} {shape}: {tm}", flush=True)
+        r = 0.25 * torch.randn(shape, generator=gen, device="cuda")
+        with_ef = [(label, r)] + ([] if label == "sweep" else [(f"{label} no EF", None)])
+        for lab, rr in with_ef:
+            tm = int8_encode_timings(torch, x, rr, inner)
+            timings[("int8_encode", lab)] = tm
+            print(f"time int8_encode {lab} {shape}: {tm}", flush=True)
     return err, timings
 
 
@@ -742,7 +848,7 @@ def main_path(torch, data):
         "a": dict(transport="allreduce", wire="topk:0.01+ef", steps=STEPS,
                   expect={"topk_encode": STEPS}, push=topk_push, pushes=STEPS * K),
         "b": dict(transport="allreduce", wire="int8+ef", steps=STEPS,
-                  expect={"int8_absmax": STEPS, "int8_quant": STEPS},
+                  expect={"int8_encode": STEPS},
                   push=int8_push, pushes=STEPS * K),
         "c": dict(transport="delay_line", staleness=2, wire="topk:0.01", steps=STEPS,
                   expect={"topk_select": STEPS}, push=topk_push, pushes=STEPS * K),
@@ -758,7 +864,7 @@ def main_path(torch, data):
                   expect={"topk_select": STEPS}, push=topk_push, pushes=STEPS * K,
                   bitwise_of="c"),
         "h": dict(transport="allreduce", wire="int8+ef>secagg", steps=STEPS,
-                  expect={"int8_absmax": STEPS, "int8_quant": STEPS},
+                  expect={"int8_encode": STEPS},
                   push=int8_push, pushes=STEPS * K, bitwise_of="b"),
     }
     # the first fit of a process pays one-off set-up (CUDA/cuBLAS handles,
@@ -1018,11 +1124,10 @@ def executors_phase(torch, data, run_a):
     spec_iii = dict(transport="delay_line", staleness=1, wire="int8+ef", steps=STEPS,
                     faults=api.FaultPlan(**plan), executor="sweep",
                     sweep={"dropout_p": list(SWEEP_PS)})
-    res, wall, peak, delta = run("iii", {"int8_absmax": STEPS, "int8_quant": STEPS},
-                                 **spec_iii)
+    res, wall, peak, delta = run("iii", {"int8_encode": STEPS}, **spec_iii)
     out["iii"] = {"scenarios": len(SWEEP_PS), "wall_s": wall,
                   "scenario_rounds_per_s": len(SWEEP_PS) * STEPS / wall,
-                  "launches": [delta["int8_absmax"], delta["int8_quant"]],
+                  "launches": delta["int8_encode"],
                   "uplink_bytes": [led.uplink_bytes for led in res.ledger],
                   **sweep_checks("iii", res, spec_iii,
                                  api.Int8Wire(error_feedback=True, use_kernel=False),
@@ -1030,8 +1135,8 @@ def executors_phase(torch, data, run_a):
                                        faults=api.FaultPlan(dropout_p=p, **plan))
                                   for p in SWEEP_PS])}
     print(f"run iii dropout sweep p ∈ {SWEEP_PS} × FaultPlan({plan}) × int8+ef: "
-          f"{len(SWEEP_PS) * STEPS / wall:.2f} scenario-rounds/s, absmax and quant "
-          f"launched {delta['int8_absmax']} and {delta['int8_quant']} times: "
+          f"{len(SWEEP_PS) * STEPS / wall:.2f} scenario-rounds/s, the one-launch int8 "
+          f"encode launched {delta['int8_encode']} times: "
           + json.dumps(out["iii"]), flush=True)
 
     # NCCL: one card takes a world of one; ranks across cards are not here
@@ -3238,6 +3343,24 @@ def topk_phase(torch, leaf):
     for name, tm in encode_t.items():
         print(f"time {name} leaf as one row {tuple(row.shape)}: {tm}", flush=True)
     torch.cuda.empty_cache()
+    # the int8 wire encode of the leaf with an EF residual (route B):
+    # bitwise the plain version, then in turns with the chain it replaced
+    from repro_torch.kernels.int8_quant import kernel as q8k, ref as q8r
+
+    r_row = 0.25 * torch.randn(row.shape, generator=gen, device="cuda")
+    got = q8k.int8_encode(row, r_row)
+    want = q8r.int8_encode_ref(row, r_row)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+              for a, b in zip(got, want)),
+          "int8 encode differs from the plain version on the leaf")
+    del got, want
+    torch.cuda.empty_cache()
+    encode_t["int8_encode"] = int8_encode_timings(torch, row, r_row, inner=2)
+    print(f"int8 encode on the leaf as one row with EF: bitwise the plain version; "
+          f"time {encode_t['int8_encode']}", flush=True)
+    del r_row
+    torch.cuda.empty_cache()
     return launches, timings, whole, err, encode_t
 
 
@@ -3529,6 +3652,80 @@ def train_phase(torch):
     del theta, carry, res, stream, state_bytes
     torch.cuda.empty_cache()
     return launched["topk_encode"], summary
+
+
+#: the int8 wire's training run: tinyllama-1.1b at full width, cut to 2 of
+#: its 22 layers, B 2 × T 256, 3 steps
+INT8_TRAIN_LAYERS, INT8_TRAIN_B, INT8_TRAIN_T, INT8_TRAIN_STEPS = 2, 2, 256, 3
+
+
+def int8_training_phase(torch):
+    """tinyllama-1.1b at full width (2 of its 22 layers) trains through
+    ``api.fit`` as ``launch/train.py`` drives it (clip ∘ Adam ∘
+    warmup-cosine × ``delay_line(1)``) with an ``int8+ef`` wire, each leaf
+    one row: the norms (2,048 and 2 × 2,048 elements) take the one-launch
+    encode, the matrices (up to 65.5 M elements) absmax + quant.  One fit of
+    3 steps with the kernels, one with ``use_kernel=False`` (no launch):
+    θ, the EF residual, the trajectory and the ledger bitwise.  Returns
+    the first fit's launches and the numbers."""
+    from repro_torch import api, kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.compression import _kernel_eligible
+    from repro_torch.data import synthetic_lm_batches
+    from repro_torch.kernels.int8_quant import kernel as q8k
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer as tf
+    from repro_torch.utils.tree import tree_leaves
+
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=INT8_TRAIN_LAYERS)
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(1), cfg)
+    it = synthetic_lm_batches(1, INT8_TRAIN_B, INT8_TRAIN_T, cfg.vocab_size, device="cuda")
+    stream = train_cli.stack_batches([next(it) for _ in range(INT8_TRAIN_STEPS)])
+    strategy = train_cli.make_strategy(
+        cfg, train_cli.make_optimizer(TRAIN_LR, INT8_TRAIN_STEPS))
+    sizes = [x.numel() for x in tree_leaves(params) if _kernel_eligible(x)]
+    short = sum(n <= q8k.one_launch_max() for n in sizes)
+    long_ = len(sizes) - short
+    check(short > 0 and long_ > 0, f"int8 training: leaves {sizes} do not take both routes")
+    runs, walls, launched = {}, {}, {}
+    for use in (True, False):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        runs[use] = api.fit(strategy, None, transport="delay_line", staleness=1,
+                            wire=api.Int8Wire(error_feedback=True, use_kernel=use),
+                            stream=stream, theta0=params, tag="train", device="cuda")
+        torch.cuda.synchronize()
+        walls[use] = time.perf_counter() - t0
+        launched[use] = dict(kernels.LAUNCHES)
+    steps = INT8_TRAIN_STEPS
+    want = {n: 0 for n in kernels.KERNEL_NAMES}
+    want.update(int8_encode=steps * short, int8_absmax=steps * long_, int8_quant=steps * long_)
+    check(launched[True] == want, f"int8 training launches {launched[True]}, expected {want}")
+    check(not any(launched[False].values()), f"int8 training off launched {launched[False]}")
+    on, off = runs[True], runs[False]
+
+    def same(a, b):
+        return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    check(same(on.theta, off.theta) and same(on.metrics["carry"][2], off.metrics["carry"][2])
+          and torch.equal(on.trajectory, off.trajectory)
+          and on.ledger.summary() == off.ledger.summary(),
+          "int8 training: use_kernel on differs from off (θ, EF residual, trajectory, ledger)")
+    losses = [float(v) for v in on.trajectory.reshape(-1)]
+    check(all(math.isfinite(v) for v in losses), f"int8 training losses {losses}")
+    out = {"arch": cfg.name, "layers": INT8_TRAIN_LAYERS, "batch": INT8_TRAIN_B,
+           "seq": INT8_TRAIN_T, "steps": steps, "losses": losses,
+           "wall_s": {"kernel": walls[True], "use_kernel=False": walls[False]},
+           "leaves_one_launch": short, "leaves_two_launches": long_,
+           "largest_leaf": max(sizes),
+           "launches": {n: c for n, c in launched[True].items() if c}}
+    print("int8 training (kernel on ≡ off, bitwise):", json.dumps(out), flush=True)
+    del params, stream, runs, on, off
+    torch.cuda.empty_cache()
+    return launched[True], out
 
 
 # ----------------------------------------------------------------------------
@@ -5175,6 +5372,7 @@ REPLACES = {
     "topk_select": "src/repro/kernels/topk_compress/kernel.py:106",
     "int8_absmax": "src/repro/kernels/int8_quant/kernel.py:34",
     "int8_quant": "src/repro/kernels/int8_quant/kernel.py:53",
+    "int8_encode": "src/repro/kernels/int8_quant/kernel.py:53",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:31",
     "decode_attention_merge": "src/repro/kernels/decode_attention/kernel.py:74",
     "pdist_argmin": "src/repro/kernels/pdist_argmin/kernel.py:20",
@@ -5291,6 +5489,9 @@ def main() -> int:
         timings[(name, "leaf")] = t
     train_launches, train_stats = train_phase(torch)
     launches["topk_encode"] += train_launches
+    int8_train_launches, _ = int8_training_phase(torch)
+    for name, n in int8_train_launches.items():
+        launches[name] += n
     moe_decode, moe_encode, mla_moe_mtp = mla_moe_mtp_phase(torch)
     for name in ("decode_attention", "decode_attention_merge"):
         launches[name] += moe_decode[name]
@@ -5324,6 +5525,8 @@ def main() -> int:
         "topk_sparsify leaf": tk_whole["turns"],
         **{f"int8_absmax {label}": timings[("int8_absmax", label)]["turns"]
            for label in ("main", "2^24")},
+        **{f"int8_encode {label}": timings[("int8_encode", label)]["turns"]
+           for label in ("main", "main no EF", "sweep", "2^24", "2^24 no EF", "leaf")},
         **{f"{name} {label}": timings[(name, label)]["turns"]
            for name in ("topk_encode", "topk_select") for label in ("main", "2^24", "leaf")}}),
         flush=True)

@@ -51,7 +51,7 @@ from repro_torch.telemetry import trace as _trace
 PyTree = Any
 
 #: the kernels a wire's encode launches (``metrics["wire_kernel_launches"]``)
-_WIRE_KERNELS = ("topk_encode", "topk_select", "int8_absmax", "int8_quant")
+_WIRE_KERNELS = ("topk_encode", "topk_select", "int8_absmax", "int8_quant", "int8_encode")
 
 
 def _jsonable(v, _size_cap: int = 100_000):

@@ -320,8 +320,9 @@ class TopKWire(_FusedWire):
 
 
 class Int8Wire(_FusedWire):
-    """Int8 wire: absmax + quantize→dequantize CUDA kernels per eligible
-    leaf, one scale per node."""
+    """Int8 wire: the whole encode of an eligible leaf (EF add, scale,
+    quantize→dequantize, residual) in one CUDA launch where a row fits on
+    chip, one scale per node."""
 
     def __init__(self, *, error_feedback: bool = False, use_kernel="auto"):
         super().__init__(
@@ -332,13 +333,13 @@ class Int8Wire(_FusedWire):
         )
 
     def _encode_rows(self, m, r):
-        c = m if r is None else m + r
-        if _kernel_eligible(c[0]):
+        if _kernel_eligible(m[0]):
             from repro_torch.kernels.int8_quant import ops as q8_ops
 
-            out = q8_ops.int8_roundtrip(c)[0]
-        else:
-            out = int8_rows(c.reshape(c.shape[0], -1)).view(c.shape)
+            out, res, _scale = q8_ops.int8_encode(m, r)
+            return out, res
+        c = m if r is None else m + r
+        out = int8_rows(c.reshape(c.shape[0], -1)).view(c.shape)
         return out, (None if r is None else c - out)
 
     def _per_push_bytes(self, tree):

@@ -20,9 +20,10 @@ from __future__ import annotations
 
 #: the kernels of this package, by the name their wrapper counts under
 KERNEL_NAMES = (
-    "topk_encode", "topk_select", "int8_absmax", "int8_quant", "decode_attention",
-    "decode_attention_merge", "pdist_argmin", "pdist_argmin_tc", "flash_attention_tf32_prep",
-    "flash_attention_tf32", "flash_attention_tc", "topk_count", "topk_mask",
+    "topk_encode", "topk_select", "int8_absmax", "int8_quant", "int8_encode",
+    "decode_attention", "decode_attention_merge", "pdist_argmin", "pdist_argmin_tc",
+    "flash_attention_tf32_prep", "flash_attention_tf32", "flash_attention_tc", "topk_count",
+    "topk_mask",
 )
 
 #: launches per kernel name since the last ``reset_launches``

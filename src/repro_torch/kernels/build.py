@@ -43,6 +43,8 @@ SIGNATURES = {
         "repro_topk_encode": ([_P, _P, _P, _P, _P, _LL, _LL, _P], ctypes.c_int),
         "repro_absmax": ([_P, _P, _LL, _LL, _P], ctypes.c_int),
         "repro_quant_dequant": ([_P, _P, _P, _LL, _LL, _P], ctypes.c_int),
+        "repro_int8_encode": ([_P, _P, _P, _P, _P, _P, _LL, _LL, _P], ctypes.c_int),
+        "repro_int8_encode_one_launch_max": ([], ctypes.c_longlong),
     },
     "decode_attention": {
         "repro_decode_attention": (

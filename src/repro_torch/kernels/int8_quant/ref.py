@@ -20,6 +20,18 @@ def quant_dequant_ref(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(x.dtype) * s
 
 
+def int8_encode_ref(m: torch.Tensor, r: torch.Tensor | None = None):
+    """The int8 wire encode of rows ``m`` (K, n) with EF residuals ``r``:
+    ``(out, res | None, scale)`` for ``c = m + r``, composed of the two
+    halves above as the wire composed them before the encode was one
+    kernel: ``scale = clamp_min(absmax(c), 1e-12) * (1/127)``, ``out =
+    quant_dequant(c, scale)``, ``res = c - out``."""
+    c = m if r is None else m + r
+    scale = torch.clamp_min(absmax_ref(c), 1e-12) * (1.0 / 127.0)
+    out = quant_dequant_ref(c, scale)
+    return out, (None if r is None else c - out), scale
+
+
 def int8_roundtrip_ref(x: torch.Tensor):
     """The whole tensor as one row: ``(dequantised x, scale)`` with
     ``scale = max(max |x|, 1e-12) / 127`` (a true divide, as the JAX

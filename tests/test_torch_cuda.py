@@ -922,6 +922,106 @@ def test_int8_absmax_bitwise_with_plain(cuda, shape):
     assert same_bits(m[finite], q8_ref.absmax_ref(x)[finite])
 
 
+#: the int8 encode's shapes: the fit's (16, 2000) and the sweep's (128,
+#: 2000), rows of 16,384 (the longest of one launch, route A) and 16,385
+#: (route B), rows off 16 bytes, rows shorter than a float4, and one row
+#: of 2^24 + 3 (route B's grid-stride loops, a scalar tail)
+INT8_ENCODE_SHAPES = [(16, 2000), (128, 2000), (1, 16384), (5, 16384), (1, 16385),
+                      (5, 16385), (5, 8193), (1, 1), (1, 3), (7, 257), (1, (1 << 24) + 3)]
+
+
+def _nan_where_same(a, b) -> bool:
+    """Equal bits wherever ``b`` is a number, NaN where ``b`` is NaN."""
+    nan = torch.isnan(b)
+    return torch.equal(torch.isnan(a), nan) and same_bits(a[~nan], b[~nan])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["normal", "edge"])
+@pytest.mark.parametrize("with_ef", [True, False], ids=["ef", "no-ef"])
+@pytest.mark.parametrize("shape", INT8_ENCODE_SHAPES, ids=str)
+def test_int8_encode_routes_bitwise_with_plain(cuda, shape, with_ef, rows):
+    """Both routes of the int8 wire encode (one launch up to 16,384
+    elements a row, absmax + quant-dequant above): out, res and scale
+    bitwise ``int8_encode_ref`` on the card, one count under the route's
+    names.  On rows with NaN, ±inf and −0.0 (in m, so in c = m + r too)
+    also equal to the plain version on the CPU wherever it is a number,
+    NaN in the same places (the card writes NaNs of its own)."""
+    assert q8_kernel.one_launch_max() == 16384
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + with_ef)
+    m = (_absmax_rows(cuda, shape, sum(shape)) if rows == "edge"
+         else torch.randn(shape, generator=g, device=cuda))
+    r = 0.25 * torch.randn(shape, generator=g, device=cuda) if with_ef else None
+    before = dict(kernels.LAUNCHES)
+    out, res, scale = q8_kernel.int8_encode(m, r)
+    torch.cuda.synchronize()
+    delta = {n: kernels.LAUNCHES[n] - before[n] for n in kernels.KERNEL_NAMES}
+    names = ("int8_encode",) if shape[1] <= 16384 else ("int8_absmax", "int8_quant")
+    assert delta == {n: int(n in names) for n in kernels.KERNEL_NAMES}
+    want = q8_ref.int8_encode_ref(m, r)
+    assert same_bits(out, want[0]) and same_bits(scale, want[2])
+    assert (res is None) == (not with_ef)
+    if with_ef:
+        assert same_bits(res, want[1])
+    cpu = q8_ref.int8_encode_ref(m.cpu(), None if r is None else r.cpu())
+    for got, w in zip((out, res, scale), cpu):
+        if w is not None:
+            assert _nan_where_same(got.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5, 8193), (16, 2000), (1, (1 << 24) + 3)], ids=str)
+def test_int8_quant_on_edge_rows_is_the_plain_version(cuda, shape):
+    """quant-dequant on rows with NaN and ±inf: a NaN quotient (±inf over
+    an inf scale) goes through int8 as 0, as the plain version's clamp and
+    cast give it, so the kernel is bitwise the plain version on the card."""
+    x = _absmax_rows(cuda, shape, sum(shape) + 1)
+    s = torch.clamp_min(q8_ref.absmax_ref(x), 1e-12) * (1.0 / 127.0)
+    got = q8_kernel.quant_dequant(x, s)
+    torch.cuda.synchronize()
+    assert same_bits(got, q8_ref.quant_dequant_ref(x, s))
+    assert _nan_where_same(got.cpu(), q8_ref.quant_dequant_ref(x.cpu(), s.cpu()))
+
+
+@pytest.mark.cuda
+def test_single_stream_int8_fit_takes_both_routes(cuda):
+    """``OptimizerStrategy`` × ``delay_line(1)`` × ``int8+ef`` at the
+    reduced tinyllama-1.1b, each leaf as one row: leaves of at most 16,384
+    elements take the one-launch encode, longer ones absmax + quant, one
+    launch (or pair) a leaf a step; bitwise the fit through the reference
+    codec."""
+    from repro_torch import api
+    from repro_torch.core.compression import _kernel_eligible
+    from repro_torch.utils.tree import tree_leaves
+
+    steps = 3
+    _, params, stream, strategy = _train_setup(cuda, steps)
+    sizes = [x.numel() for x in tree_leaves(params) if _kernel_eligible(x)]
+    short = sum(n <= 16384 for n in sizes)
+    assert 0 < short < len(sizes)
+    runs = {}
+    for use in (True, False):
+        before = dict(kernels.LAUNCHES)
+        runs[use] = api.fit(strategy, None, transport="delay_line", staleness=1,
+                            wire=api.Int8Wire(error_feedback=True, use_kernel=use),
+                            stream=stream, theta0=params, device="cuda")
+        torch.cuda.synchronize()
+        delta = {n: kernels.LAUNCHES[n] - before[n] for n in kernels.KERNEL_NAMES}
+        want = dict.fromkeys(kernels.KERNEL_NAMES, 0)
+        if use:
+            want.update(int8_encode=steps * short, int8_absmax=steps * (len(sizes) - short),
+                        int8_quant=steps * (len(sizes) - short))
+        assert delta == want, (use, delta)
+    on, off = runs[True], runs[False]
+    for a, b in zip(tree_leaves(on.theta), tree_leaves(off.theta)):
+        assert same_bits(a, b)
+    for a, b in zip(tree_leaves(on.metrics["carry"][2]), tree_leaves(off.metrics["carry"][2])):
+        assert same_bits(a, b)
+    assert torch.equal(on.trajectory, off.trajectory)
+    assert on.ledger.summary() == off.ledger.summary()
+    assert bool(torch.isfinite(on.trajectory).all())
+
+
 #: encode's and select's shapes: one element, a row shorter than a float4,
 #: rows off 16 bytes (n odd), the fit's (16, 2000) (one block a row) and
 #: a row whose grid-stride loop takes several trips, with a scalar tail
@@ -1217,7 +1317,7 @@ def test_secagg_payloads_on_the_card(cuda):
 @pytest.mark.parametrize("wire, base, expect", [
     ("topk:0.01>secagg", "topk:0.01", {"topk_select": 4}),
     ("topk:0.01+ef>secagg", "topk:0.01+ef", {"topk_encode": 4}),
-    ("int8+ef>secagg", "int8+ef", {"int8_absmax": 4, "int8_quant": 4}),
+    ("int8+ef>secagg", "int8+ef", {"int8_encode": 4}),
 ])
 def test_secagg_chain_fit_bitwise_its_first_stage(cuda, wire, base, expect):
     """A chain ending in secagg launches its first stage's kernels once a
@@ -1334,7 +1434,7 @@ def test_ml_families_run_on_the_card(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("op", ["topk-ef", "topk-select", "int8"])
+@pytest.mark.parametrize("op", ["topk-ef", "topk-select", "int8", "int8-ef"])
 def test_custom_ops_under_vmap_launch_once(cuda, op):
     """An (S, K, n) call through ``torch.func.vmap`` folds into S·K rows:
     ONE launch, bitwise S launches on (K, n)."""
@@ -1348,8 +1448,10 @@ def test_custom_ops_under_vmap_launch_once(cuda, op):
         fn, args, names = (lambda a, b: tk_ops.topk_encode(a, b, k=20)), (u, r), ("topk_encode",)
     elif op == "topk-select":
         fn, args, names = (lambda a: tk_ops.topk_encode(a, k=20)[::2]), (u,), ("topk_select",)
+    elif op == "int8":
+        fn, args, names = q8_ops.int8_roundtrip, (u,), ("int8_encode",)
     else:
-        fn, args, names = q8_ops.int8_roundtrip, (u,), ("int8_absmax", "int8_quant")
+        fn, args, names = q8_ops.int8_encode, (u, r), ("int8_encode",)
     kernels.reset_launches()
     got = torch.func.vmap(fn)(*args)
     torch.cuda.synchronize()
