@@ -29,7 +29,12 @@
    to the plain version on the CPU by value and NaN position, and
    quant-dequant alone bitwise its plain version on the edge rows; timed
    in turns with the seven-launch chain it replaced at (16, 2000),
-   (128, 2000), 2^24 and the training leaf.
+   (128, 2000), 2^24 and the training leaf.  Past grid.y's 65,535 blocks
+   (each block loops over rows): every wire wrapper at 65,535, 65,536 and
+   100,000 rows, bitwise its plain version with one launch a call —
+   encode, select, absmax and quant-dequant at n 2,000 and 2,001, the int8
+   encode's route A at n 2,000 and route B at n 16,392, with and without
+   EF; encode, select and the int8 encode timed at (100,000, 2,000).
 3. Main path: ``repro_torch.api.fit`` with ``GradientDescent(logistic_loss)``
    on the local executor at the shape of the dense PASCAL "epsilon" set
    (400,000 × 2,000 f32, K = 16 nodes of 25,000 rows; synthetic, made on
@@ -78,6 +83,17 @@
    bitwise run (a); (v) multipod on a (1, 1) mesh, bitwise (iv), its
    ``by_hop`` split summing to the total; (vi) ``mesh+sweep`` of (i)'s 8
    learning rates, bitwise (i).
+   Many clients (counts set to 0 before the phase and read after), on
+   views of the same records: (m1) 100,000 clients of 4 records ×
+   allreduce × ``topk:0.01+ef`` and (m2) × ``int8+ef``, 20 rounds — the
+   encode launched once a round on all 100,000 rows, the loss falls, the
+   uplink exactly 20 × 100,000 × 160 and × 2,004 bytes, bitwise the
+   ``use_kernel=False`` fit; (m3) run (i)'s 8-lr sweep over 10,000
+   clients of 40 records under both wires — one launch a round on 80,000
+   folded rows, bitwise the ``use_kernel=False`` sweep, ledgers exact, the
+   gap to the solo fits at lr 1.0 and 3.0 reported and the dense twin's
+   held at rtol 1e-6 / atol 1e-7; rounds/s, peak memory and 5 profiled
+   rounds of each.
 4. Decode-attention kernel phase: the kernels (split over S, then the
    merge) against their plain version (``decode_attention_plain``) in f32
    and bf16 at the JAX package's test shapes, the serving shape (B 16, S
@@ -341,14 +357,15 @@
    widths with 2 layers, one of them MoE), each ``ok``, their FLOPs,
    collective and argument bytes beside those of torch 2.13.0+cpu.
 15. Prints the redesigned kernels' times in turns, one JSON line of
-   per-kernel numbers (thirteen kernels; the wire kernels' launches count
-   the executors phase's, ``topk_encode``'s the serving-and-tracing,
+   per-kernel numbers (fourteen kernels; the wire kernels' launches count
+   the executors and many-client phases', ``topk_encode``'s the serving-and-tracing,
    training, deepseek-v3, qwen2-vl, xlstm and jamba paths' too, the decode
    kernels' those of the continuous engine under the tracer and of
    olmoe-1b-7b's, qwen2-vl-2b's, deepseek-67b's serving and the
    ``decode_32k`` step's, the bf16
-   flash kernel's qwen2-vl-2b's prefill too), the whole run's seconds,
-   the card's name and power limit, and last
+   flash kernel's qwen2-vl-2b's prefill too), the whole run's seconds
+   beside the recorded run before the many-client phases, the card's name
+   and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
 No earlier phase is cut to make room for 8–14 or the serving-and-tracing
@@ -660,6 +677,81 @@ def int8_encode_timings(torch, m, r, inner: int) -> dict:
             "route_bytes_per_element": (16 if ef else 8) if one else (24 if ef else 12)}
 
 
+#: node rows around grid.y's 65,535 blocks, past which the wire kernels
+#: loop over rows; the many-client fits' leaf width; route B's row length
+MANY_ROWS = (65535, 65536, 100_000)
+MANY_N_B = 16392
+
+
+def many_rows_checks(torch, gen, same_bits) -> int:
+    """Every wire wrapper on more node rows than grid.y holds, bitwise its
+    plain version, one launch each (route B: one absmax and one quant):
+    encode and select, absmax and quant-dequant at n 2,000 and 2,001 (rows
+    off 16 bytes), the int8 encode's route A at n 2,000 and route B at n
+    16,392 (up to 6.6 GB an operand, held a block of 16,384 rows at a time:
+    rows are independent), each with and without EF.  Returns the
+    comparisons made."""
+    from repro_torch import kernels
+    from repro_torch.kernels.int8_quant import kernel as q8k, ref as q8r
+    from repro_torch.kernels.topk_compress import kernel as tkk, ref as tkr
+
+    def launched(fn, names):
+        before = dict(kernels.LAUNCHES)
+        out = fn()
+        torch.cuda.synchronize()
+        delta = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.KERNEL_NAMES}
+        check(delta == {k: int(k in names) for k in kernels.KERNEL_NAMES},
+              f"launches {delta}, expected one of each of {names}")
+        return out
+
+    def held(got, want, what):
+        for part, a, b in zip(("output", "residual", "count or scale"), got, want):
+            check((a is None) == (b is None), f"{what}: {part} missing")
+            if a is not None:
+                check(same_bits(a, b), f"{what}: {part} differs from the plain version")
+
+    checked = 0
+    for rows in MANY_ROWS:
+        for n in (D, D + 1):
+            x = torch.randn((rows, n), generator=gen, device="cuda")
+            r = 0.25 * torch.randn((rows, n), generator=gen, device="cuda")
+            t = torch.topk(x.abs(), max(1, n // 100), dim=1).values[:, -1].contiguous()
+            for name, w in (("topk_encode", True), ("topk_select", False)):
+                got = launched(lambda: tkk.encode_threshold(x, t, with_residual=w), (name,))
+                held(got, tkr.encode_threshold_ref(x, t, with_residual=w),
+                     f"{name} at ({rows}, {n})")
+            s = torch.clamp_min(q8r.absmax_ref(x), 1e-12) * (1.0 / 127.0)
+            held((launched(lambda: q8k.absmax(x), ("int8_absmax",)),), (q8r.absmax_ref(x),),
+                 f"int8 absmax at ({rows}, {n})")
+            held((launched(lambda: q8k.quant_dequant(x, s), ("int8_quant",)),),
+                 (q8r.quant_dequant_ref(x, s),), f"int8 quant at ({rows}, {n})")
+            checked += 4
+            if n == D:
+                for rr in (r, None):
+                    held(launched(lambda: q8k.int8_encode(x, rr), ("int8_encode",)),
+                         q8r.int8_encode_ref(x, rr),
+                         f"int8 encode (route A) at ({rows}, {n}), EF {rr is not None}")
+                    checked += 1
+            del x, r, t, s
+        m = torch.randn((rows, MANY_N_B), generator=gen, device="cuda")
+        r = 0.25 * torch.randn((rows, MANY_N_B), generator=gen, device="cuda")
+        for rr in (r, None):
+            got = launched(lambda: q8k.int8_encode(m, rr), ("int8_absmax", "int8_quant"))
+            for i in range(0, rows, 16384):
+                sl = slice(i, min(i + 16384, rows))
+                held(tuple(None if a is None else a[sl] for a in got),
+                     q8r.int8_encode_ref(m[sl], None if rr is None else rr[sl]),
+                     f"int8 encode (route B) at ({rows}, {MANY_N_B}), EF {rr is not None}")
+            checked += 1
+            del got
+        del m, r
+        torch.cuda.empty_cache()
+        print(f"wire kernels at {rows} rows: encode, select, absmax, quant (n {D}, {D + 1}), "
+              f"int8 encode route A (n {D}) and route B (n {MANY_N_B}), with and without EF: "
+              f"one launch each, bitwise the plain versions", flush=True)
+    return checked
+
+
 def kernel_phase(torch):
     from repro_torch.kernels.int8_quant import kernel as q8k, ref as q8r
     from repro_torch.kernels.topk_compress import kernel as tkk, ref as tkr
@@ -740,6 +832,7 @@ def kernel_phase(torch):
         check(same_bits(m[finite], m_r[finite]), f"int8 absmax differs on the edge rows {shape}")
         checked += 1
         print(f"absmax edge rows {shape}: bitwise equal ({m[:5].tolist()})", flush=True)
+    checked += many_rows_checks(torch, gen, same_bits)
     print(f"kernel phase: {checked} comparisons, all bitwise equal", flush=True)
 
     # times at the main path's shape (one θ leaf of D for K nodes), at the
@@ -791,6 +884,17 @@ def kernel_phase(torch):
             tm = int8_encode_timings(torch, x, rr, inner)
             timings[("int8_encode", lab)] = tm
             print(f"time int8_encode {lab} {shape}: {tm}", flush=True)
+    # the many-client fits' leaf: 100,000 node rows of D, each block of
+    # the grid looping over rows past grid.y's 65,535
+    shape = (MANY_ROWS[-1], D)
+    x = torch.randn(shape, generator=gen, device="cuda")
+    t = torch.topk(x.abs(), max(1, int(round(TOPK_F * D))), dim=1).values[:, -1].contiguous()
+    for name, tm in encode_timings(torch, x, t, 5, "100k").items():
+        timings[(name, "100k")] = tm
+        print(f"time {name} 100k {shape}: {tm}", flush=True)
+    tm = int8_encode_timings(torch, x, 0.25 * torch.randn(shape, generator=gen, device="cuda"), 5)
+    timings[("int8_encode", "100k")] = tm
+    print(f"time int8_encode 100k {shape}: {tm}", flush=True)
     return err, timings
 
 
@@ -952,6 +1056,28 @@ def timed_fit(torch, api, kernels, strategy, data, **spec):
     return res, wall, delta, torch.cuda.max_memory_allocated() / 2**30
 
 
+def profiled_rounds(torch, fit, rounds: int) -> dict:
+    """``fit()``, a fit of ``rounds`` rounds, under the profiler: wall and
+    device busy ms a round, the device's idle share, and the four kernels
+    that take the most device time (name, ms and calls a round)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fit()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in on_card) / 1e3
+    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:4]
+    return {"wall_ms_a_round": wall / rounds, "device_ms_a_round": busy / rounds,
+            "idle_share": 1 - busy / wall if busy > 0 else None,
+            "top": [[e.key[:70], e.self_device_time_total / (rounds * 1e3), e.count / rounds]
+                    for e in top]}
+
+
 def same_fit(torch, a, b) -> bool:
     """θ, trajectory and ledger of two fits bit for bit."""
     return (torch.equal(a.theta.view(torch.int32), b.theta.view(torch.int32))
@@ -1084,26 +1210,12 @@ def executors_phase(torch, data, run_a):
 
     # where a round's time goes: 5 rounds of run (a) and of the sweep under
     # the profiler, device busy time against the wall of the same rounds
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     prof_out = {}
     for label, extra in (("a", {}), ("i", {"executor": "sweep",
                                            "sweep": {"lr": list(SWEEP_LRS)}})):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            api.fit(gd(), data, transport="allreduce", wire="topk:0.01+ef", steps=5,
-                    device="cuda", **extra)
-            torch.cuda.synchronize()
-            p_wall = (time.perf_counter() - t0) * 1e3
-        on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in on_card) / 1e3
-        top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:4]
-        prof_out[label] = {
-            "wall_ms_a_round": p_wall / 5, "device_ms_a_round": busy / 5,
-            "idle_share": 1 - busy / p_wall if busy > 0 else None,
-            "top": [[e.key[:70], e.self_device_time_total / 5e3, e.count / 5] for e in top]}
+        prof_out[label] = profiled_rounds(torch, lambda: api.fit(
+            gd(), data, transport="allreduce", wire="topk:0.01+ef", steps=5, device="cuda",
+            **extra), 5)
     out["profiled"] = prof_out
     print("profiled rounds (5 each, under the profiler): " + json.dumps(prof_out), flush=True)
 
@@ -1179,6 +1291,164 @@ def executors_phase(torch, data, run_a):
           f"rounds/s; run v multipod (1, 1): bitwise run iv, by_hop {json.dumps(by_hop)}; "
           f"run vi mesh+sweep of {S} lr: {S * STEPS / wall_ms:.2f} scenario-rounds/s, "
           f"bitwise run i", flush=True)
+    return total, out
+
+
+#: the many-client fits: the epsilon records as 100,000 clients of 4
+#: records (m1, m2) and as 10,000 clients of 40 (m3, whose 8 scenarios
+#: fold into 80,000 rows); the two learning rates held to solo fits
+MANY_K, MANY_K_SWEEP = 100_000, 10_000
+MANY_SOLO_LRS = (1.0, 3.0)
+
+
+def many_clients_phase(torch, data, timings):
+    """``repro_torch.api.fit`` at phone-scale client counts on the epsilon
+    records, views of ``data`` (no copy): (m1) 100,000 clients × allreduce ×
+    ``topk:0.01+ef`` and (m2) × ``int8+ef``, 20 rounds each — one encode
+    launch a round on all 100,000 rows, the loss falls, the uplink exact,
+    bitwise the ``use_kernel=False`` fit; (m3) the sweep of run (i)'s 8
+    learning rates over 10,000 clients of 40 records under both wires —
+    one launch a round on 80,000 rows, bitwise the ``use_kernel=False``
+    sweep, ledgers exact, and for lr ∈ ``MANY_SOLO_LRS`` the gap to the
+    solo fits (the dense twin held at rtol 1e-6 / atol 1e-7; ROADMAP queue
+    3, item 18 for the compressed wires).  Counts are set to 0 before the
+    phase and read after.  Returns (launches, summary)."""
+    from repro_torch import api, kernels
+    from repro_torch.kernels.int8_quant import kernel as q8k
+    from repro_torch.kernels.topk_compress import kernel as tkk
+    from repro_torch.ml.linear import logistic_loss
+
+    def gd(lr=1.0):
+        return api.GradientDescent(logistic_loss, lr=lr)
+
+    Xs, ys = data
+    few = (Xs.view(MANY_K, -1, D), ys.view(MANY_K, -1))
+    sweep_data = (Xs.view(MANY_K_SWEEP, -1, D), ys.view(MANY_K_SWEEP, -1))
+    loss0 = float(gd().summary(gd().init_theta(few), few)["loss"])
+    rows_seen = []
+    saved = (tkk.encode_threshold, q8k.int8_encode)
+
+    def rows_of(fn):
+        def wrapped(x, *args, **kw):
+            rows_seen.append(x.shape[0])
+            return fn(x, *args, **kw)
+        return wrapped
+
+    k = max(1, int(round(TOPK_F * D)))
+    pushes = {"topk:0.01+ef": (k * 8, "topk_encode",
+                               api.TopKWire(TOPK_F, error_feedback=True, use_kernel=False)),
+              "int8+ef": (D + 4, "int8_encode",
+                          api.Int8Wire(error_feedback=True, use_kernel=False))}
+    out, total = {}, dict.fromkeys(kernels.KERNEL_NAMES, 0)
+    # warm-up: the first round at this K pays the allocator's growth
+    api.fit(gd(), few, transport="allreduce", wire="topk:0.01+ef", steps=1, device="cuda")
+    kernels.reset_launches()
+    tkk.encode_threshold, q8k.int8_encode = rows_of(saved[0]), rows_of(saved[1])
+    try:
+        for tag, wire in (("m1", "topk:0.01+ef"), ("m2", "int8+ef")):
+            push, name, off_wire = pushes[wire]
+            rows_seen.clear()
+            res, wall, delta, peak = timed_fit(torch, api, kernels, gd(), few,
+                                               transport="allreduce", wire=wire, steps=STEPS)
+            want = {n: STEPS * (n == name) for n in kernels.KERNEL_NAMES}
+            check(delta == want, f"run {tag}: launches {delta}, expected {want}")
+            check(rows_seen == [MANY_K] * STEPS, f"run {tag}: encode rows {rows_seen}")
+            loss = float(res.metrics["loss"])
+            check(math.isfinite(loss) and loss < loss0, f"run {tag}: loss {loss} did not fall")
+            check(res.ledger.uplink_bytes == STEPS * MANY_K * push,
+                  f"run {tag}: uplink {res.ledger.uplink_bytes} != {STEPS} × {MANY_K} × {push}")
+            off = api.fit(gd(), few, transport="allreduce", wire=off_wire, steps=STEPS,
+                          device="cuda")
+            check(same_fit(torch, res, off),
+                  f"run {tag}: not bitwise its use_kernel=False fit (θ, trajectory, ledger)")
+            for n in kernels.KERNEL_NAMES:
+                total[n] += delta[n]
+            enc = timings[(name, "100k")]
+            out[tag] = {"clients": MANY_K, "records_each": int(few[0].shape[1]),
+                        "wire": wire, "rounds": STEPS, "wall_s": wall,
+                        "rounds_per_s": STEPS / wall, "peak_gib": peak, "launches": delta[name],
+                        "loss": [loss0, loss], "uplink_bytes": res.ledger.uplink_bytes,
+                        "encode_ms_at_100k": enc["ms"], "encode_bound_ms": enc["bound_ms"],
+                        "bitwise_use_kernel_false": True}
+            print(f"run {tag} {MANY_K} clients × allreduce × {wire}: loss {loss0:.6f} -> "
+                  f"{loss:.6f}, {STEPS} rounds in {wall:.4f} s ({STEPS / wall:.2f} rounds/s), "
+                  f"peak {peak:.3f} GiB, {name} launched {delta[name]} times on {MANY_K} rows "
+                  f"each, uplink {res.ledger.uplink_bytes} B = {STEPS} × {MANY_K} × {push}, "
+                  f"bitwise its use_kernel=False fit; one encode at ({MANY_K}, {D}) "
+                  f"{enc['ms']:.6f} ms (bound {enc['bound_ms']:.6f} ms at 3.35 TB/s)",
+                  flush=True)
+
+        S = len(SWEEP_LRS)
+        spec = dict(transport="allreduce", steps=STEPS, executor="sweep",
+                    sweep={"lr": list(SWEEP_LRS)})
+        # where a round's time goes: 5 rounds of each run under the profiler
+        prof = out["profiled"] = {}
+        for tag, wire in (("m1", "topk:0.01+ef"), ("m2", "int8+ef")):
+            prof[tag] = profiled_rounds(torch, lambda w=wire: api.fit(
+                gd(), few, transport="allreduce", wire=w, steps=5, device="cuda"), 5)
+            prof[f"m3 {wire}"] = profiled_rounds(torch, lambda w=wire: api.fit(
+                gd(), sweep_data, wire=w, device="cuda", **dict(spec, steps=5)), 5)
+        print("many clients, profiled rounds (5 each): " + json.dumps(out["profiled"]),
+              flush=True)
+        idx = [SWEEP_LRS.index(lr) for lr in MANY_SOLO_LRS]
+        dense = api.fit(gd(), sweep_data, device="cuda", **dict(spec, wire="dense"))
+        dense_gap = 0.0
+        for i, lr in zip(idx, MANY_SOLO_LRS):
+            solo = api.fit(gd(lr), sweep_data, transport="allreduce", wire="dense",
+                           steps=STEPS, device="cuda")
+            for a, b, what in ((dense.theta[i], solo.theta, "θ"),
+                               (dense.trajectory[i], solo.trajectory, "trajectory")):
+                check(torch.allclose(a, b, rtol=S_RTOL, atol=S_ATOL),
+                      f"run m3 (dense) lr {lr}: {what} off its solo fit by "
+                      f"{float((a - b).abs().max())}")
+            check(dense.ledger[i].summary() == solo.ledger.summary(),
+                  f"run m3 (dense) lr {lr}: ledger differs from its solo fit")
+            dense_gap = max(dense_gap, float((dense.theta[i] - solo.theta).abs().max()))
+        out["m3"] = {"clients": MANY_K_SWEEP, "records_each": int(sweep_data[0].shape[1]),
+                     "scenarios": S, "folded_rows": S * MANY_K_SWEEP,
+                     "dense_max_dtheta_vs_solo": dense_gap}
+        for wire in ("topk:0.01+ef", "int8+ef"):
+            push, name, off_wire = pushes[wire]
+            rows_seen.clear()
+            kernels.reset_launches()
+            res, wall, delta, peak = timed_fit(torch, api, kernels, gd(), sweep_data,
+                                               wire=wire, **spec)
+            want = {n: STEPS * (n == name) for n in kernels.KERNEL_NAMES}
+            check(delta == want, f"run m3 {wire}: launches {delta}, expected {want}")
+            check(rows_seen == [S * MANY_K_SWEEP] * STEPS,
+                  f"run m3 {wire}: encode rows {rows_seen}")
+            off = api.fit(gd(), sweep_data, device="cuda", **dict(spec, wire=off_wire))
+            check(same_sweep(torch, res, off), f"run m3 {wire}: use_kernel on ≢ off")
+            for n in kernels.KERNEL_NAMES:
+                total[n] += delta[n]
+            gaps, within = [], 0
+            for i, lr in zip(idx, MANY_SOLO_LRS):
+                solo = api.fit(gd(lr), sweep_data, transport="allreduce", wire=wire,
+                               steps=STEPS, device="cuda")
+                check(res.ledger[i].summary() == solo.ledger.summary()
+                      and solo.ledger.uplink_bytes == STEPS * MANY_K_SWEEP * push,
+                      f"run m3 {wire} lr {lr}: ledger differs from its solo fit")
+                check(bool(torch.isfinite(res.theta[i]).all()), f"run m3 {wire}: θ not finite")
+                gaps.append(float((res.theta[i] - solo.theta).abs().max()))
+                within += bool(torch.allclose(res.theta[i], solo.theta, rtol=S_RTOL,
+                                              atol=S_ATOL)
+                               and torch.allclose(res.trajectory[i], solo.trajectory,
+                                                  rtol=S_RTOL, atol=S_ATOL))
+            out["m3"][wire] = {
+                "wall_s": wall, "scenario_rounds_per_s": S * STEPS / wall, "peak_gib": peak,
+                "launches": delta[name], "rows_a_launch": S * MANY_K_SWEEP,
+                "losses": [float(x) for x in res.metrics["loss"]],
+                "bitwise_use_kernel_false": True, "solo_lrs": list(MANY_SOLO_LRS),
+                "max_dtheta_vs_solo": gaps, "within_sweep_tol": within}
+            print(f"run m3 sweep of {S} lr × {MANY_K_SWEEP} clients × allreduce × {wire}: "
+                  f"{S * STEPS / wall:.2f} scenario-rounds/s, peak {peak:.3f} GiB, {name} "
+                  f"launched {delta[name]} times on {S * MANY_K_SWEEP} rows each, bitwise its "
+                  f"use_kernel=False sweep, ledgers exact; |Δθ| to the solo fits at lr "
+                  f"{MANY_SOLO_LRS}: {gaps} ({within} of 2 within rtol 1e-6 / atol 1e-7; "
+                  f"the dense twin {dense_gap:.3g})", flush=True)
+    finally:
+        tkk.encode_threshold, q8k.int8_encode = saved
+    kernels.reset_launches()
     return total, out
 
 
@@ -5367,6 +5637,10 @@ def launch_phase(torch):
                       "dryrun": dry, "seconds": time.perf_counter() - t0}
 
 
+#: the whole run's seconds before the many-client phases, as PERF.md
+#: records it (NVIDIA H100 80GB HBM3, 700 W)
+EARLIER_WHOLE_RUN_S = 389.47
+
 REPLACES = {
     "topk_encode": "src/repro/kernels/topk_compress/kernel.py:73",
     "topk_select": "src/repro/kernels/topk_compress/kernel.py:106",
@@ -5445,6 +5719,9 @@ def main() -> int:
     exec_launches, executors = executors_phase(torch, data, run_a)
     for name, n in exec_launches.items():
         launches[name] += n
+    many_launches, many_clients = many_clients_phase(torch, data, timings)
+    for name, n in many_launches.items():
+        launches[name] += n
     ref_a = run_a["res"]  # θ, trajectory and ledger for the serving phase's bitwise checks
     del data, run_a
     torch.cuda.empty_cache()
@@ -5503,6 +5780,7 @@ def main() -> int:
     for name, n in launch_launches.items():
         launches[name] += n
     print("executors:", json.dumps(executors), flush=True)
+    print("many clients:", json.dumps(many_clients), flush=True)
     print("serving and tracing:", json.dumps(serving_tracing), flush=True)
     print("security wires and private regression:", json.dumps(secure), flush=True)
     print("ml families:", json.dumps(families), flush=True)
@@ -5537,6 +5815,8 @@ def main() -> int:
                                         if (n, "2^24") in timings}))
     print(f"times at the sweep's rows ({8 * K}, {D}):", json.dumps(
         {n: timings[(n, "sweep")] for n in REPLACES if (n, "sweep") in timings}))
+    print(f"times at the many-client rows ({MANY_K}, {D}):", json.dumps(
+        {n: timings[(n, "100k")] for n in REPLACES if (n, "100k") in timings}))
     rows = []
     for name in REPLACES:
         t = timings[(name, "main")]
@@ -5548,7 +5828,8 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
-    print(f"whole run: {time.perf_counter() - t_run:.2f} s", flush=True)
+    print(f"whole run: {time.perf_counter() - t_run:.2f} s (before the many-client "
+          f"phases: {EARLIER_WHOLE_RUN_S} s recorded)", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -20,8 +20,11 @@ single-stream leaf is encoded as one row, a (1, n) view of it.
 ``use_kernel`` is tri-state: ``"auto"`` means "the tensors are on CUDA",
 ``True``/``False`` force it — ``False`` on CUDA runs the reference
 formulas, which is how ``chip_smoke.py`` shows the kernels change no bit
-of a fit.  Server transports encode through ``CompressedWire.encode_push``
-with the reference codecs, as in the JAX package.
+of a fit.  Off the kernels the stacked messages take the same formulas
+row by row (``topk_rows`` / ``int8_rows``), one call a leaf for all K
+nodes, as the reference vmaps its codec: no host loop over the nodes.
+Server transports encode through ``CompressedWire.encode_push`` with the
+reference codecs, as in the JAX package.
 
 The security wires: ``dp:<clip>,<sigma>`` clips each node's message to an
 L2 norm and adds Gaussian noise; ``secagg`` simulates pairwise-masked
@@ -246,9 +249,10 @@ class _FusedWire(CompressedWire):
         plan["wire"] = self.name
         return plan
 
-    def _encode_rows(self, m: torch.Tensor, r: torch.Tensor | None):
+    def _encode_rows(self, m: torch.Tensor, r: torch.Tensor | None, kernel: bool):
         """One leaf for all K nodes, ``m`` (K, …) → (encoded, new residual
-        | None)."""
+        | None): through the kernel where ``kernel`` and the leaf is
+        eligible, else the reference formulas on each row."""
         raise NotImplementedError
 
     def _per_push_bytes(self, tree: PyTree) -> float:
@@ -261,12 +265,13 @@ class _FusedWire(CompressedWire):
         return int(self._per_push_bytes(theta))
 
     def encode_updates(self, wstate, msgs, *, stacked: bool = True):
-        if not self._kernel_active(msgs):
-            return super().encode_updates(wstate, msgs, stacked=stacked)
+        kernel = self._kernel_active(msgs)
+        if not (kernel or stacked):
+            return super().encode_updates(wstate, msgs, stacked=False)
         leaves_m, spec = tree_flatten(msgs)
         leaves_r = tree_leaves(wstate) if self.error_feedback else [None] * len(leaves_m)
         if stacked:
-            outs = [self._encode_rows(m, r) for m, r in zip(leaves_m, leaves_r)]
+            outs = [self._encode_rows(m, r, kernel) for m, r in zip(leaves_m, leaves_r)]
             K = leaves_m[0].shape[0]
             per = self._per_push_bytes(tree_map(lambda x: x[0], msgs))
             up = torch.full((K,), per).sum()
@@ -274,7 +279,8 @@ class _FusedWire(CompressedWire):
             # one push: each leaf as one row, a (1, n) view of it
             outs = [
                 tuple(None if x is None else x[0]
-                      for x in self._encode_rows(m[None], None if r is None else r[None]))
+                      for x in self._encode_rows(m[None], None if r is None else r[None],
+                                                 kernel))
                 for m, r in zip(leaves_m, leaves_r)
             ]
             up = torch.tensor(self._per_push_bytes(msgs))
@@ -299,16 +305,18 @@ class TopKWire(_FusedWire):
         )
         self.fraction = fraction
 
-    def _encode_rows(self, m, r):
+    def _encode_rows(self, m, r, kernel):
         k = max(1, int(round(self.fraction * m[0].numel())))
-        if _kernel_eligible(m[0]):
+        if kernel and _kernel_eligible(m[0]):
             from repro_torch.kernels.topk_compress import ops as tk_ops
 
             out, res, _count = tk_ops.topk_encode(m, r, k=k)
             return out, res
         # reference fallback — identical formulas, so mixed kernel /
-        # fallback leaves stay bit-equal to the all-reference path
-        c = m if r is None else m + r
+        # fallback leaves stay bit-equal to the all-reference path; c
+        # contiguous as the kernel's operand, so that the outputs sum over
+        # the nodes in the same order
+        c = (m if r is None else m + r).contiguous()
         o = topk_rows(c.reshape(c.shape[0], -1), k).view(c.shape)
         return o, (None if r is None else c - o)
 
@@ -332,13 +340,13 @@ class Int8Wire(_FusedWire):
             use_kernel=use_kernel,
         )
 
-    def _encode_rows(self, m, r):
-        if _kernel_eligible(m[0]):
+    def _encode_rows(self, m, r, kernel):
+        if kernel and _kernel_eligible(m[0]):
             from repro_torch.kernels.int8_quant import ops as q8_ops
 
             out, res, _scale = q8_ops.int8_encode(m, r)
             return out, res
-        c = m if r is None else m + r
+        c = (m if r is None else m + r).contiguous()
         out = int8_rows(c.reshape(c.shape[0], -1)).view(c.shape)
         return out, (None if r is None else c - out)
 

@@ -196,14 +196,15 @@ struct Layout {
 };
 
 // The partial of split blockIdx.z over keys [z * chunk, (z + 1) * chunk) ∩
-// [0, valid_len[b]).
+// [0, valid_len[b]), for the rows b = blockIdx.y, blockIdx.y + gridDim.y,
+// ... below B (gridDim.y is at most 65,535; rows are independent).
 template <typename T, int D>
 __global__ void decode_split_kernel(
     const typename Elem<T>::Storage* __restrict__ q,
     const typename Elem<T>::Storage* __restrict__ k,
     const typename Elem<T>::Storage* __restrict__ v,
     const int* __restrict__ valid_len, float* __restrict__ part_acc,
-    float* __restrict__ part_ml, int S, int Hkv, int G, int chunk, float scale) {
+    float* __restrict__ part_ml, int B, int S, int Hkv, int G, int chunk, float scale) {
   using L = Layout<T, D>;
   using St = typename Elem<T>::Storage;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -212,122 +213,124 @@ __global__ void decode_split_kernel(
   float* ps = qs + G * D;
 
   const int h = blockIdx.x;
-  const int b = blockIdx.y;
   const int split = blockIdx.z;
   const int n_split = gridDim.z;
   const int g = threadIdx.x >> 5;  // this warp's query head in the group
   const int lane = threadIdx.x & 31;
   const int nthreads = blockDim.x;
 
-  int n = valid_len[b];
-  n = n < 0 ? 0 : (n > S ? S : n);
-  const long long s_beg = (long long)split * chunk;
-  const int s_end = (int)(s_beg + chunk < n ? s_beg + chunk : n);
+  for (long long b = blockIdx.y; b < B; b += gridDim.y) {
+    int n = valid_len[b];
+    n = n < 0 ? 0 : (n > S ? S : n);
+    const long long s_beg = (long long)split * chunk;
+    const int s_end = (int)(s_beg + chunk < n ? s_beg + chunk : n);
 
-  float m = kNegInf, l = 0.0f;
-  float acc[L::kEpl];
+    float m = kNegInf, l = 0.0f;
+    float acc[L::kEpl];
 #pragma unroll
-  for (int i = 0; i < L::kEpl; ++i) acc[i] = 0.0f;
+    for (int i = 0; i < L::kEpl; ++i) acc[i] = 0.0f;
 
-  if (s_beg < s_end) {
-    // q[b, h*G + g, :] for every g, widened to f32
-    const St* qb = q + ((long long)b * Hkv + h) * G * D;
-    for (int i = threadIdx.x; i < G * D; i += nthreads) qs[i] = Elem<T>::load(qb + i);
+    if (s_beg < s_end) {
+      // q[b, h*G + g, :] for every g, widened to f32
+      const St* qb = q + ((long long)b * Hkv + h) * G * D;
+      for (int i = threadIdx.x; i < G * D; i += nthreads) qs[i] = Elem<T>::load(qb + i);
 
-    const long long row_stride = (long long)Hkv * D;  // elements between keys s, s+1
-    const St* kb = k + (long long)b * S * row_stride + (long long)h * D;
-    const St* vb = v + (long long)b * S * row_stride + (long long)h * D;
-    auto stage = [&](int t0, int st) {
-      const int rows = min(kTile, s_end - t0);
-      unsigned char* ks = kv + st * 2 * L::kTileBytes;
-      unsigned char* vs = ks + L::kTileBytes;
-      for (int c = threadIdx.x; c < rows * L::kChunksPerRow; c += nthreads) {
-        const int r = c / L::kChunksPerRow;
-        const int cc = c - r * L::kChunksPerRow;
-        const long long off = (long long)(t0 + r) * row_stride;
-        cp_async16(ks + r * L::kStagedRow + cc * 16, reinterpret_cast<const uint4*>(kb + off) + cc);
-        cp_async16(vs + r * L::kStagedRow + cc * 16, reinterpret_cast<const uint4*>(vb + off) + cc);
-      }
-    };
-    float* pg = ps + g * kTile;
-    __syncthreads();  // qs is written
-    // this warp's query: in registers up to D 64, else read from qs
-    constexpr int kQR = D <= 64 ? D : 1;
-    float qreg[kQR];
+      const long long row_stride = (long long)Hkv * D;  // elements between keys s, s+1
+      const St* kb = k + (long long)b * S * row_stride + (long long)h * D;
+      const St* vb = v + (long long)b * S * row_stride + (long long)h * D;
+      auto stage = [&](int t0, int st) {
+        const int rows = min(kTile, s_end - t0);
+        unsigned char* ks = kv + st * 2 * L::kTileBytes;
+        unsigned char* vs = ks + L::kTileBytes;
+        for (int c = threadIdx.x; c < rows * L::kChunksPerRow; c += nthreads) {
+          const int r = c / L::kChunksPerRow;
+          const int cc = c - r * L::kChunksPerRow;
+          const long long off = (long long)(t0 + r) * row_stride;
+          cp_async16(ks + r * L::kStagedRow + cc * 16, reinterpret_cast<const uint4*>(kb + off) + cc);
+          cp_async16(vs + r * L::kStagedRow + cc * 16, reinterpret_cast<const uint4*>(vb + off) + cc);
+        }
+      };
+      float* pg = ps + g * kTile;
+      __syncthreads();  // qs is written
+      // this warp's query: in registers up to D 64, else read from qs
+      constexpr int kQR = D <= 64 ? D : 1;
+      float qreg[kQR];
 #pragma unroll
-    for (int i = 0; i < kQR; ++i) qreg[i] = qs[g * D + i];
-    const float* qsm = qs + g * D;
+      for (int i = 0; i < kQR; ++i) qreg[i] = qs[g * D + i];
+      const float* qsm = qs + g * D;
 
-    stage((int)s_beg, 0);
-    cp_async_commit();
-    int it = 0;
-    for (int t0 = (int)s_beg; t0 < s_end; t0 += kTile, ++it) {
-      if (t0 + kTile < s_end) stage(t0 + kTile, (it + 1) % kStages);
+      stage((int)s_beg, 0);
       cp_async_commit();
-      cp_async_wait<1>();  // tile it has landed
-      __syncthreads();     // for every thread
-      const unsigned char* ks = kv + (it % kStages) * 2 * L::kTileBytes;
-      const unsigned char* vs = ks + L::kTileBytes;
-      const int rows = min(kTile, s_end - t0);
+      int it = 0;
+      for (int t0 = (int)s_beg; t0 < s_end; t0 += kTile, ++it) {
+        if (t0 + kTile < s_end) stage(t0 + kTile, (it + 1) % kStages);
+        cp_async_commit();
+        cp_async_wait<1>();  // tile it has landed
+        __syncthreads();     // for every thread
+        const unsigned char* ks = kv + (it % kStages) * 2 * L::kTileBytes;
+        const unsigned char* vs = ks + L::kTileBytes;
+        const int rows = min(kTile, s_end - t0);
 
-      float s0 = kNegInf, s1 = kNegInf;
-      const bool ok0 = lane < rows, ok1 = lane + 32 < rows;
-      if constexpr (D <= 64) {
-        if (ok0) s0 = dot_row<T, D>(qreg, ks + lane * L::kStagedRow) * scale;
-        if (ok1) s1 = dot_row<T, D>(qreg, ks + (lane + 32) * L::kStagedRow) * scale;
-      } else {
-        if (ok0) s0 = dot_row<T, D>(qsm, ks + lane * L::kStagedRow) * scale;
-        if (ok1) s1 = dot_row<T, D>(qsm, ks + (lane + 32) * L::kStagedRow) * scale;
-      }
-      const float m_new = fmaxf(m, warp_max(fmaxf(s0, s1)));
-      const float alpha = expf(m - m_new);
-      const float p0 = ok0 ? expf(s0 - m_new) : 0.0f;
-      const float p1 = ok1 ? expf(s1 - m_new) : 0.0f;
-      pg[lane] = p0;
-      pg[lane + 32] = p1;
-      l = l * alpha + warp_sum(p0 + p1);
-      m = m_new;
-      __syncwarp();
+        float s0 = kNegInf, s1 = kNegInf;
+        const bool ok0 = lane < rows, ok1 = lane + 32 < rows;
+        if constexpr (D <= 64) {
+          if (ok0) s0 = dot_row<T, D>(qreg, ks + lane * L::kStagedRow) * scale;
+          if (ok1) s1 = dot_row<T, D>(qreg, ks + (lane + 32) * L::kStagedRow) * scale;
+        } else {
+          if (ok0) s0 = dot_row<T, D>(qsm, ks + lane * L::kStagedRow) * scale;
+          if (ok1) s1 = dot_row<T, D>(qsm, ks + (lane + 32) * L::kStagedRow) * scale;
+        }
+        const float m_new = fmaxf(m, warp_max(fmaxf(s0, s1)));
+        const float alpha = expf(m - m_new);
+        const float p0 = ok0 ? expf(s0 - m_new) : 0.0f;
+        const float p1 = ok1 ? expf(s1 - m_new) : 0.0f;
+        pg[lane] = p0;
+        pg[lane + 32] = p1;
+        l = l * alpha + warp_sum(p0 + p1);
+        m = m_new;
+        __syncwarp();
 
 #pragma unroll
-      for (int i = 0; i < L::kEpl; ++i) acc[i] *= alpha;
-      if (D >= 32 || lane < D) {
-        const St* vcol = reinterpret_cast<const St*>(vs) + lane * L::kEpl;
-        constexpr int kRowElems = L::kStagedRow / (int)sizeof(St);
-        int j = 0;
-        for (; j + 4 <= rows; j += 4) {  // four keys a step: one 16-byte load of p
-          const float4 p4 = *reinterpret_cast<const float4*>(pg + j);
-          const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
+        for (int i = 0; i < L::kEpl; ++i) acc[i] *= alpha;
+        if (D >= 32 || lane < D) {
+          const St* vcol = reinterpret_cast<const St*>(vs) + lane * L::kEpl;
+          constexpr int kRowElems = L::kStagedRow / (int)sizeof(St);
+          int j = 0;
+          for (; j + 4 <= rows; j += 4) {  // four keys a step: one 16-byte load of p
+            const float4 p4 = *reinterpret_cast<const float4*>(pg + j);
+            const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
+            for (int u = 0; u < 4; ++u) {
+              float vv[L::kEpl];
+              Elem<T>::template load_n<L::kEpl>(vcol + (j + u) * kRowElems, vv);
+#pragma unroll
+              for (int i = 0; i < L::kEpl; ++i) acc[i] = fmaf(pj[u], vv[i], acc[i]);
+            }
+          }
+          for (; j < rows; ++j) {
             float vv[L::kEpl];
-            Elem<T>::template load_n<L::kEpl>(vcol + (j + u) * kRowElems, vv);
+            Elem<T>::template load_n<L::kEpl>(vcol + j * kRowElems, vv);
 #pragma unroll
-            for (int i = 0; i < L::kEpl; ++i) acc[i] = fmaf(pj[u], vv[i], acc[i]);
+            for (int i = 0; i < L::kEpl; ++i) acc[i] = fmaf(pg[j], vv[i], acc[i]);
           }
         }
-        for (; j < rows; ++j) {
-          float vv[L::kEpl];
-          Elem<T>::template load_n<L::kEpl>(vcol + j * kRowElems, vv);
-#pragma unroll
-          for (int i = 0; i < L::kEpl; ++i) acc[i] = fmaf(pg[j], vv[i], acc[i]);
-        }
+        __syncthreads();  // stage it % kStages is free for tile it + 2
       }
-      __syncthreads();  // stage it % kStages is free for tile it + 2
+      cp_async_wait<0>();
     }
-    cp_async_wait<0>();
-  }
 
-  const long long row = ((long long)b * Hkv + h) * G + g;  // (b, query head)
-  const long long pi = row * n_split + split;
-  if (lane == 0) {
-    part_ml[2 * pi] = m;
-    part_ml[2 * pi + 1] = l;
-  }
-  float* pa = part_acc + pi * D;
-  if (D >= 32 || lane < D) {
+    const long long row = ((long long)b * Hkv + h) * G + g;  // (b, query head)
+    const long long pi = row * n_split + split;
+    if (lane == 0) {
+      part_ml[2 * pi] = m;
+      part_ml[2 * pi + 1] = l;
+    }
+    float* pa = part_acc + pi * D;
+    if (D >= 32 || lane < D) {
 #pragma unroll
-    for (int i = 0; i < L::kEpl; ++i) pa[lane * L::kEpl + i] = acc[i];
+      for (int i = 0; i < L::kEpl; ++i) pa[lane * L::kEpl + i] = acc[i];
+    }
+    __syncthreads();  // shared memory is read before the next row stages into it
   }
 }
 
@@ -393,9 +396,11 @@ int launch(const void* q, const void* k, const void* v, const int* valid_len,
     if (e != cudaSuccess) return (int)e;
     if (dev < kMaxDevices) raised[dev] = true;
   }
-  kern<<<dim3((unsigned)Hkv, (unsigned)B, (unsigned)n_split), 32 * G, smem, st>>>(
+  // grid.y holds at most 65,535 blocks: past that, each loops over rows
+  const unsigned by = (unsigned)(B < 65535 ? B : 65535);
+  kern<<<dim3((unsigned)Hkv, by, (unsigned)n_split), 32 * G, smem, st>>>(
       static_cast<const St*>(q), static_cast<const St*>(k),
-      static_cast<const St*>(v), valid_len, part_acc, part_ml, S, Hkv, G, chunk, scale);
+      static_cast<const St*>(v), valid_len, part_acc, part_ml, B, S, Hkv, G, chunk, scale);
   return (int)cudaGetLastError();
 }
 

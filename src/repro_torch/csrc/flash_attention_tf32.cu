@@ -299,40 +299,44 @@ __device__ __forceinline__ int key_at(int pk) {
 
 // One block a (64-key tile, b * Hkv + hkv): the prepared tile, one thread an
 // output float (hi plane, then lo; K, then V^T), zero past S and past D.
+// grid.y holds at most 65,535 blocks, so each block takes the (b, hkv)
+// pairs blockIdx.y, blockIdx.y + gridDim.y, ... below BH = B * Hkv.
 template <int D>
 __global__ void __launch_bounds__(kPrepThreads)
 flash_tf32_prep_kernel(const float* __restrict__ k, const float* __restrict__ v,
-                       float* __restrict__ image, Strides sk, Strides sv, int S, int Hkv) {
+                       float* __restrict__ image, Strides sk, Strides sv, int S, int Hkv,
+                       long long BH) {
   using Sh = Shape<D>;
   constexpr int kKFloats = Sh::kKPart / 4, kPlaneK = kKFloats / 2;
   constexpr int kVFloats = Sh::kVPart / 4, kPlaneV = kVFloats / 2;
   const int kt = blockIdx.x;
-  const int bk = blockIdx.y;
-  const int b = bk / Hkv, hk = bk % Hkv;
-  const long long k0 = (long long)kt * kBK;
-  const float* kb = k + b * sk.b + hk * sk.h;
-  const float* vb = v + b * sv.b + hk * sv.h;
-  float* out = image + ((size_t)bk * gridDim.x + kt) * (Sh::kTile / 4);
-  for (int f = threadIdx.x; f < kKFloats + kVFloats; f += kPrepThreads) {
-    float x = 0.0f;
-    bool lo;
-    if (f < kKFloats) {  // K: plane, 32-column block, key row, swizzled float
-      lo = f >= kPlaneK;
-      const int g = lo ? f - kPlaneK : f;
-      const int cb = g >> 11, r = (g >> 5) & 63, w = g & 31;
-      const int c = cb * 32 + ((((w >> 2) ^ r) & 7) << 2) + (w & 3);
-      if (c < D && k0 + r < S) x = kb[(k0 + r) * sk.t + c];
-    } else {  // V^T: plane, 64-row block, 32-key block, head-column row, swizzled float
-      const int f2 = f - kKFloats;
-      lo = f2 >= kPlaneV;
-      const int g = lo ? f2 - kPlaneV : f2;
-      const int nb = g >> 12, kb2 = (g >> 11) & 1, rr = (g >> 5) & 63, w = g & 31;
-      const int pk = kb2 * 32 + ((((w >> 2) ^ rr) & 7) << 2) + (w & 3);
-      const int d = nb * 64 + rr, r = key_at(pk);
-      if (d < D && k0 + r < S) x = vb[(k0 + r) * sv.t + d];
+  for (long long bk = blockIdx.y; bk < BH; bk += gridDim.y) {
+    const long long b = bk / Hkv, hk = bk % Hkv;
+    const long long k0 = (long long)kt * kBK;
+    const float* kb = k + b * sk.b + hk * sk.h;
+    const float* vb = v + b * sv.b + hk * sv.h;
+    float* out = image + ((size_t)bk * gridDim.x + kt) * (Sh::kTile / 4);
+    for (int f = threadIdx.x; f < kKFloats + kVFloats; f += kPrepThreads) {
+      float x = 0.0f;
+      bool lo;
+      if (f < kKFloats) {  // K: plane, 32-column block, key row, swizzled float
+        lo = f >= kPlaneK;
+        const int g = lo ? f - kPlaneK : f;
+        const int cb = g >> 11, r = (g >> 5) & 63, w = g & 31;
+        const int c = cb * 32 + ((((w >> 2) ^ r) & 7) << 2) + (w & 3);
+        if (c < D && k0 + r < S) x = kb[(k0 + r) * sk.t + c];
+      } else {  // V^T: plane, 64-row block, 32-key block, head-column row, swizzled float
+        const int f2 = f - kKFloats;
+        lo = f2 >= kPlaneV;
+        const int g = lo ? f2 - kPlaneV : f2;
+        const int nb = g >> 12, kb2 = (g >> 11) & 1, rr = (g >> 5) & 63, w = g & 31;
+        const int pk = kb2 * 32 + ((((w >> 2) ^ rr) & 7) << 2) + (w & 3);
+        const int d = nb * 64 + rr, r = key_at(pk);
+        if (d < D && k0 + r < S) x = vb[(k0 + r) * sv.t + d];
+      }
+      const float hi = tf32_rn(x);
+      out[f] = lo ? tf32_rn(x - hi) : hi;
     }
-    const float hi = tf32_rn(x);
-    out[f] = lo ? tf32_rn(x - hi) : hi;
   }
 }
 
@@ -633,12 +637,14 @@ template <int D>
 int launch_prep(const void* k, const void* v, void* image, const long long* strides, int B,
                 int S, int Hkv, cudaStream_t st) {
   const long long nkt = (S + kBK - 1) / kBK;
-  if (nkt > 0x7fffffffLL || (long long)B * Hkv > 65535) return (int)cudaErrorInvalidConfiguration;
+  if (nkt > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   const Strides sk{strides[0], strides[1], strides[2]};
   const Strides sv{strides[3], strides[4], strides[5]};
-  flash_tf32_prep_kernel<D><<<dim3((unsigned)nkt, (unsigned)(B * Hkv)), kPrepThreads, 0, st>>>(
+  const long long bh = (long long)B * Hkv;
+  const unsigned by = (unsigned)(bh < 65535 ? bh : 65535);  // the rest loop on grid.y
+  flash_tf32_prep_kernel<D><<<dim3((unsigned)nkt, by), kPrepThreads, 0, st>>>(
       static_cast<const float*>(k), static_cast<const float*>(v), static_cast<float*>(image),
-      sk, sv, S, Hkv);
+      sk, sv, S, Hkv, bh);
   return (int)cudaGetLastError();
 }
 

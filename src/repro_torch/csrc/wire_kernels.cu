@@ -32,8 +32,12 @@
 //
 // Layout.  Every kernel takes a (rows, n) row-major f32 matrix: one row per
 // node of one parameter leaf (rows = 1 for an unstacked leaf), so a whole
-// round of K node messages is one launch per leaf.  grid.y walks the rows,
-// grid.x blocks stride over the row's elements: one float4 a thread across
+// round of K node messages is one launch per leaf, whatever K is.  grid.y
+// walks the rows: gridDim.y = min(rows, 65,535), each block a grid-stride
+// loop over the rows blockIdx.y, blockIdx.y + gridDim.y, ... (rows are
+// independent, so the result does not depend on the split; route A of the
+// int8 encode puts its rows on grid.x, which has no such cap).  grid.x
+// blocks stride over the row's elements: one float4 a thread across
 // the row for quant (grid_for); encode, select and absmax take a grid of a
 // few blocks an SM shared among the rows (spread_grid), each block a
 // grid-stride loop with several 16-byte loads in flight a thread.  Each
@@ -86,6 +90,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
+// the most blocks a launch may have on grid.y
+constexpr long long kMaxGridY = 65535;
 
 struct RowSplit {
   long long head;   // scalar elements before the first 16-byte boundary
@@ -153,56 +159,58 @@ template <bool kResidual>
 __global__ void __launch_bounds__(kThreads)
     topk_encode_kernel(const float* __restrict__ c, const float* __restrict__ t,
                        float* __restrict__ o, float* __restrict__ res,
-                       int* __restrict__ count, long long n) {
+                       int* __restrict__ count, long long rows, long long n) {
   __shared__ int warp_kept[kThreads / 32];
-  const long long row = blockIdx.y;
-  const float thr = t[row];
-  const float* cr = c + row * n;
-  float* orow = o + row * n;
-  float* rrow = kResidual ? res + row * n : nullptr;
-  const RowSplit s = split_row(cr, n);
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (long long row = blockIdx.y; row < rows; row += gridDim.y) {
+    const float thr = t[row];
+    const float* cr = c + row * n;
+    float* orow = o + row * n;
+    float* rrow = kResidual ? res + row * n : nullptr;
+    const RowSplit s = split_row(cr, n);
 
-  int kept = 0;
-  for (long long i = tid; i < s.head; i += stride)
-    kept += encode_one<kResidual>(cr[i], thr, orow, rrow, i);
-  for (long long i = s.tail0 + tid; i < n; i += stride)
-    kept += encode_one<kResidual>(cr[i], thr, orow, rrow, i);
+    int kept = 0;
+    for (long long i = tid; i < s.head; i += stride)
+      kept += encode_one<kResidual>(cr[i], thr, orow, rrow, i);
+    for (long long i = s.tail0 + tid; i < n; i += stride)
+      kept += encode_one<kResidual>(cr[i], thr, orow, rrow, i);
 
-  // the body: c, o and res rows share their offset mod 16 (the wrapper
-  // checks that every base pointer is 16-byte aligned)
-  const float4* c4 = reinterpret_cast<const float4*>(cr + s.head);
-  float4* o4 = reinterpret_cast<float4*>(orow + s.head);
-  float4* r4 = kResidual ? reinterpret_cast<float4*>(rrow + s.head) : nullptr;
-  const long long per_block = (long long)kThreads * kEncodeLoads;
-  for (long long base = (long long)blockIdx.x * per_block + threadIdx.x;
-       base < s.body4; base += (long long)gridDim.x * per_block) {
-    float4 v[kEncodeLoads];
+    // the body: c, o and res rows share their offset mod 16 (the wrapper
+    // checks that every base pointer is 16-byte aligned)
+    const float4* c4 = reinterpret_cast<const float4*>(cr + s.head);
+    float4* o4 = reinterpret_cast<float4*>(orow + s.head);
+    float4* r4 = kResidual ? reinterpret_cast<float4*>(rrow + s.head) : nullptr;
+    const long long per_block = (long long)kThreads * kEncodeLoads;
+    for (long long base = (long long)blockIdx.x * per_block + threadIdx.x;
+         base < s.body4; base += (long long)gridDim.x * per_block) {
+      float4 v[kEncodeLoads];
 #pragma unroll
-    for (int u = 0; u < kEncodeLoads; ++u) {
-      const long long j = base + u * kThreads;
-      v[u] = j < s.body4 ? c4[j] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    }
+      for (int u = 0; u < kEncodeLoads; ++u) {
+        const long long j = base + u * kThreads;
+        v[u] = j < s.body4 ? c4[j] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
 #pragma unroll
-    for (int u = 0; u < kEncodeLoads; ++u) {
-      const long long j = base + u * kThreads;
-      if (j < s.body4) kept += encode4<kResidual>(v[u], thr, o4, r4, j);
+      for (int u = 0; u < kEncodeLoads; ++u) {
+        const long long j = base + u * kThreads;
+        if (j < s.body4) kept += encode4<kResidual>(v[u], thr, o4, r4, j);
+      }
     }
-  }
 
-  kept = __reduce_add_sync(kFull, kept);
-  if ((threadIdx.x & 31) == 0) warp_kept[threadIdx.x >> 5] = kept;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    kept = threadIdx.x < kThreads / 32 ? warp_kept[threadIdx.x] : 0;
     kept = __reduce_add_sync(kFull, kept);
-    if (threadIdx.x == 0) {
-      if (gridDim.x == 1)
-        count[row] = kept;
-      else if (kept != 0)
-        atomicAdd(count + row, kept);
+    if ((threadIdx.x & 31) == 0) warp_kept[threadIdx.x >> 5] = kept;
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      kept = threadIdx.x < kThreads / 32 ? warp_kept[threadIdx.x] : 0;
+      kept = __reduce_add_sync(kFull, kept);
+      if (threadIdx.x == 0) {
+        if (gridDim.x == 1)
+          count[row] = kept;
+        else if (kept != 0)
+          atomicAdd(count + row, kept);
+      }
     }
+    __syncthreads();  // warp_kept is read before the next row writes it
   }
 }
 
@@ -246,43 +254,45 @@ constexpr int kAbsmaxBlocksPerSm = 4;
 template <bool kSum>
 __global__ void __launch_bounds__(kThreads)
     absmax_kernel(const float* __restrict__ x, const float* __restrict__ r,
-                  unsigned* __restrict__ out, long long n) {
+                  unsigned* __restrict__ out, long long rows, long long n) {
   __shared__ unsigned warp_max[kThreads / 32];
-  const long long row = blockIdx.y;
-  const float* xr = x + row * n;
-  const float* rr = kSum ? r + row * n : nullptr;
-  const RowSplit s = split_row(xr, n);
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (long long row = blockIdx.y; row < rows; row += gridDim.y) {
+    const float* xr = x + row * n;
+    const float* rr = kSum ? r + row * n : nullptr;
+    const RowSplit s = split_row(xr, n);
 
-  unsigned m = 0u;
-  for (long long i = tid; i < s.head; i += stride)
-    m = max(m, abs_bits(kSum ? __fadd_rn(xr[i], rr[i]) : xr[i]));
-  for (long long i = s.tail0 + tid; i < n; i += stride)
-    m = max(m, abs_bits(kSum ? __fadd_rn(xr[i], rr[i]) : xr[i]));
-  const float4* x4 = reinterpret_cast<const float4*>(xr + s.head);
-  const float4* r4 = kSum ? reinterpret_cast<const float4*>(rr + s.head) : nullptr;
-  const long long per_block = (long long)kThreads * kAbsmaxLoads;
-  for (long long base = (long long)blockIdx.x * per_block + threadIdx.x;
-       base < s.body4; base += (long long)gridDim.x * per_block) {
-    float4 v[kAbsmaxLoads];
+    unsigned m = 0u;
+    for (long long i = tid; i < s.head; i += stride)
+      m = max(m, abs_bits(kSum ? __fadd_rn(xr[i], rr[i]) : xr[i]));
+    for (long long i = s.tail0 + tid; i < n; i += stride)
+      m = max(m, abs_bits(kSum ? __fadd_rn(xr[i], rr[i]) : xr[i]));
+    const float4* x4 = reinterpret_cast<const float4*>(xr + s.head);
+    const float4* r4 = kSum ? reinterpret_cast<const float4*>(rr + s.head) : nullptr;
+    const long long per_block = (long long)kThreads * kAbsmaxLoads;
+    for (long long base = (long long)blockIdx.x * per_block + threadIdx.x;
+         base < s.body4; base += (long long)gridDim.x * per_block) {
+      float4 v[kAbsmaxLoads];
 #pragma unroll
-    for (int u = 0; u < kAbsmaxLoads; ++u) {
-      const long long j = base + u * kThreads;
-      v[u] = j < s.body4 ? x4[j] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (kSum && j < s.body4) v[u] = add4(v[u], r4[j]);
+      for (int u = 0; u < kAbsmaxLoads; ++u) {
+        const long long j = base + u * kThreads;
+        v[u] = j < s.body4 ? x4[j] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (kSum && j < s.body4) v[u] = add4(v[u], r4[j]);
+      }
+#pragma unroll
+      for (int u = 0; u < kAbsmaxLoads; ++u)
+        m = max(m, max4(v[u]));
     }
-#pragma unroll
-    for (int u = 0; u < kAbsmaxLoads; ++u)
-      m = max(m, max4(v[u]));
-  }
-  m = __reduce_max_sync(kFull, m);
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    m = threadIdx.x < kThreads / 32 ? warp_max[threadIdx.x] : 0u;
     m = __reduce_max_sync(kFull, m);
-    if (threadIdx.x == 0 && m != 0u) atomicMax(out + row, m);
+    if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      m = threadIdx.x < kThreads / 32 ? warp_max[threadIdx.x] : 0u;
+      m = __reduce_max_sync(kFull, m);
+      if (threadIdx.x == 0 && m != 0u) atomicMax(out + row, m);
+    }
+    __syncthreads();  // warp_max is read before the next row writes it
   }
 }
 
@@ -316,31 +326,32 @@ __global__ void __launch_bounds__(kThreads)
     quant_dequant_kernel(const float* __restrict__ x, const float* __restrict__ r,
                          const unsigned* __restrict__ bits,
                          float* __restrict__ scale, float* __restrict__ out,
-                         float* __restrict__ res, long long n) {
-  const long long row = blockIdx.y;
-  const float s = kFromBits ? scale_of(bits[row]) : scale[row];
-  if (kFromBits && blockIdx.x == 0 && threadIdx.x == 0) scale[row] = s;
-  const float* xr = x + row * n;
-  const float* rr = kResidual ? r + row * n : nullptr;
-  float* orow = out + row * n;
-  float* resrow = kResidual ? res + row * n : nullptr;
-  const RowSplit sp = split_row(xr, n);
+                         float* __restrict__ res, long long rows, long long n) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (long long row = blockIdx.y; row < rows; row += gridDim.y) {
+    const float s = kFromBits ? scale_of(bits[row]) : scale[row];
+    if (kFromBits && blockIdx.x == 0 && threadIdx.x == 0) scale[row] = s;
+    const float* xr = x + row * n;
+    const float* rr = kResidual ? r + row * n : nullptr;
+    float* orow = out + row * n;
+    float* resrow = kResidual ? res + row * n : nullptr;
+    const RowSplit sp = split_row(xr, n);
 
-  for (long long i = tid; i < sp.head; i += stride)
-    quant_at<kResidual>(xr, rr, orow, resrow, i, s);
-  for (long long i = sp.tail0 + tid; i < n; i += stride)
-    quant_at<kResidual>(xr, rr, orow, resrow, i, s);
-  const float4* x4 = reinterpret_cast<const float4*>(xr + sp.head);
-  const float4* r4 = kResidual ? reinterpret_cast<const float4*>(rr + sp.head) : nullptr;
-  float4* o4 = reinterpret_cast<float4*>(orow + sp.head);
-  float4* res4 = kResidual ? reinterpret_cast<float4*>(resrow + sp.head) : nullptr;
-  for (long long i = tid; i < sp.body4; i += stride) {
-    const float4 c = kResidual ? add4(x4[i], r4[i]) : x4[i];
-    const float4 o = quant4(c, s);
-    o4[i] = o;
-    if (kResidual) res4[i] = sub4(c, o);
+    for (long long i = tid; i < sp.head; i += stride)
+      quant_at<kResidual>(xr, rr, orow, resrow, i, s);
+    for (long long i = sp.tail0 + tid; i < n; i += stride)
+      quant_at<kResidual>(xr, rr, orow, resrow, i, s);
+    const float4* x4 = reinterpret_cast<const float4*>(xr + sp.head);
+    const float4* r4 = kResidual ? reinterpret_cast<const float4*>(rr + sp.head) : nullptr;
+    float4* o4 = reinterpret_cast<float4*>(orow + sp.head);
+    float4* res4 = kResidual ? reinterpret_cast<float4*>(resrow + sp.head) : nullptr;
+    for (long long i = tid; i < sp.body4; i += stride) {
+      const float4 c = kResidual ? add4(x4[i], r4[i]) : x4[i];
+      const float4 o = quant4(c, s);
+      o4[i] = o;
+      if (kResidual) res4[i] = sub4(c, o);
+    }
   }
 }
 
@@ -428,12 +439,18 @@ void launch_encode(const float* m, const float* r, float* out, float* res, float
                                                                      scale, n);
 }
 
+// grid.y of a launch over `rows` rows: one block row a row up to
+// kMaxGridY, past it each block row loops over several
+unsigned grid_rows(long long rows) {
+  return (unsigned)(rows < kMaxGridY ? rows : kMaxGridY);
+}
+
 // One float4 per thread across the row, at least one block per row.
 dim3 grid_for(long long rows, long long n) {
   long long per_block = (long long)kThreads * 4;
   long long bx = (n + per_block - 1) / per_block;
   if (bx < 1) bx = 1;
-  return dim3((unsigned)bx, (unsigned)rows, 1);
+  return dim3((unsigned)bx, grid_rows(rows), 1);
 }
 
 // A grid of blocks_per_sm blocks an SM split among the rows (at least one
@@ -449,7 +466,7 @@ dim3 spread_grid(long long rows, long long n, int loads, int blocks_per_sm) {
   if (cap < 1) cap = 1;
   if (bx > cap) bx = cap;
   if (bx < 1) bx = 1;
-  return dim3((unsigned)bx, (unsigned)rows, 1);
+  return dim3((unsigned)bx, grid_rows(rows), 1);
 }
 
 }  // namespace
@@ -468,9 +485,9 @@ int repro_topk_encode(const float* c, const float* t, float* o, float* res,
     if (e != cudaSuccess) return (int)e;
   }
   if (res != nullptr)
-    topk_encode_kernel<true><<<grid, kThreads, 0, st>>>(c, t, o, res, count, n);
+    topk_encode_kernel<true><<<grid, kThreads, 0, st>>>(c, t, o, res, count, rows, n);
   else
-    topk_encode_kernel<false><<<grid, kThreads, 0, st>>>(c, t, o, nullptr, count, n);
+    topk_encode_kernel<false><<<grid, kThreads, 0, st>>>(c, t, o, nullptr, count, rows, n);
   return (int)cudaGetLastError();
 }
 
@@ -480,7 +497,7 @@ int repro_absmax(const float* x, float* out, long long rows, long long n,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   absmax_kernel<false><<<spread_grid(rows, n, kAbsmaxLoads, kAbsmaxBlocksPerSm),
                          kThreads, 0, st>>>(
-      x, nullptr, reinterpret_cast<unsigned*>(out), n);
+      x, nullptr, reinterpret_cast<unsigned*>(out), rows, n);
   return (int)cudaGetLastError();
 }
 
@@ -488,7 +505,7 @@ int repro_quant_dequant(const float* x, const float* scale, float* out,
                         long long rows, long long n, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   quant_dequant_kernel<false, false><<<grid_for(rows, n), kThreads, 0, st>>>(
-      x, nullptr, nullptr, const_cast<float*>(scale), out, nullptr, n);
+      x, nullptr, nullptr, const_cast<float*>(scale), out, nullptr, rows, n);
   return (int)cudaGetLastError();
 }
 
@@ -526,13 +543,13 @@ int repro_int8_encode(const float* m, const float* r, float* out, float* res,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid = spread_grid(rows, n, kAbsmaxLoads, kAbsmaxBlocksPerSm);
   if (r != nullptr) {
-    absmax_kernel<true><<<grid, kThreads, 0, st>>>(m, r, bits, n);
+    absmax_kernel<true><<<grid, kThreads, 0, st>>>(m, r, bits, rows, n);
     quant_dequant_kernel<true, true><<<grid_for(rows, n), kThreads, 0, st>>>(
-        m, r, bits, scale, out, res, n);
+        m, r, bits, scale, out, res, rows, n);
   } else {
-    absmax_kernel<false><<<grid, kThreads, 0, st>>>(m, nullptr, bits, n);
+    absmax_kernel<false><<<grid, kThreads, 0, st>>>(m, nullptr, bits, rows, n);
     quant_dequant_kernel<true, false><<<grid_for(rows, n), kThreads, 0, st>>>(
-        m, nullptr, bits, scale, out, nullptr, n);
+        m, nullptr, bits, scale, out, nullptr, rows, n);
   }
   return (int)cudaGetLastError();
 }

@@ -173,14 +173,15 @@ def build_info(name: str = "wire_kernels") -> dict:
 
 def check_rows(x, what: str) -> None:
     """Validate a kernel operand: a contiguous, 16-byte aligned f32 matrix
-    on a CUDA device with 1..65535 rows (grid.y) of at least one element."""
+    on a CUDA device with 1..2^31 - 1 rows of at least one element (the
+    kernels loop over rows past grid.y's 65,535 blocks)."""
     if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
         raise ValueError(f"{what}: expected a CUDA tensor")
     if x.dtype != torch.float32:
         raise ValueError(f"{what}: expected float32, got {x.dtype}")
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous (rows, n) matrix")
-    if not (1 <= x.shape[0] <= 65535 and x.shape[1] >= 1):
+    if not (1 <= x.shape[0] <= 2**31 - 1 and x.shape[1] >= 1):
         raise ValueError(f"{what}: unsupported shape {tuple(x.shape)}")
     if x.data_ptr() % 16:
         raise ValueError(f"{what}: base pointer is not 16-byte aligned")

@@ -28,6 +28,8 @@ _DTYPES = (torch.float32, torch.bfloat16)
 TILE = 64
 #: blocks an SM the split aims for
 BLOCKS_PER_SM = 2
+#: the C interface's row counts (B, B·Hq) are ints
+_INT_MAX = 2**31 - 1
 _SMS: dict = {}
 
 
@@ -87,7 +89,7 @@ def _checked(q, k, v, valid_len) -> None:
         raise ValueError(
             f"decode attention: no kernel for G={G}, D={D} "
             f"(G in {GROUPS}, D in {HEAD_DIMS})")
-    if not (1 <= B <= 65535 and 1 <= Hkv <= 65535 and S >= 1):
+    if not (B >= 1 and 1 <= Hkv <= 65535 and S >= 1 and B * Hq <= _INT_MAX):
         raise ValueError(f"decode attention: unsupported shape {tuple(k.shape)}")
     if valid_len.dtype != torch.int32 or valid_len.shape != (B,):
         raise ValueError(

@@ -97,7 +97,7 @@ def tf32_image(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     B, S, Hkv, D = k.shape
     if D not in HEAD_DIMS:
         raise ValueError(f"flash attention: no kernel for D={D} (D in {HEAD_DIMS})")
-    if B * Hkv > 65535 or S > _INT_MAX:
+    if max(B, S, Hkv) > _INT_MAX:
         raise ValueError(f"flash attention prep: unsupported shape {tuple(k.shape)}")
     lib = build.library("flash_attention_tf32")
     nbytes = lib.repro_flash_tf32_image_bytes(B, S, Hkv, D)

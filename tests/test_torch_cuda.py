@@ -73,6 +73,12 @@ def test_wrappers_refuse_bad_operands(cuda):
         q8_kernel.absmax(x.cpu())
     with pytest.raises(ValueError, match="threshold"):
         tk_kernel.encode_threshold(x, torch.zeros(3, device=cuda), with_residual=True)
+    # past grid.y's 65,535 blocks the kernels loop over rows: 65,536 rows
+    # are taken, 0 rows still refused
+    many = torch.zeros((65536, 4), device=cuda)
+    assert q8_kernel.absmax(many).shape == (65536,)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        q8_kernel.absmax(many[:0])
 
 
 # (B, S, Hq, Hkv, D): the JAX package's decode test shapes, the serving
@@ -1679,3 +1685,118 @@ def test_full_width_mamba_mixer_matches_the_cpu(cuda):
         outs[dev] = (torch.cat(ys, 1), cache.ssm.cpu())
     for got, want in zip(outs["cuda"], outs["cpu"]):
         assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+#: rows around grid.y's 65,535 blocks, past which each block loops over rows
+MANY_ROWS = (65535, 65536, 100000)
+
+
+def _row_chunks(rows: int, step: int = 16384):
+    return [slice(i, min(i + step, rows)) for i in range(0, rows, step)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2000, 257])
+@pytest.mark.parametrize("rows", MANY_ROWS)
+def test_wire_kernels_at_many_rows(cuda, rows, n):
+    """Encode, select, absmax, quant-dequant and the one-launch int8 encode
+    (route A) on more rows than grid.y holds: one launch each, bitwise the
+    plain version (n 257 puts most rows off 16 bytes)."""
+    g = torch.Generator(device=cuda).manual_seed(rows + n)
+    x = torch.randn((rows, n), generator=g, device=cuda)
+    r = 0.25 * torch.randn((rows, n), generator=g, device=cuda)
+    t = torch.topk(x.abs(), max(1, n // 100), dim=1).values[:, -1].contiguous()
+    s = torch.clamp_min(q8_ref.absmax_ref(x), 1e-12) * (1.0 / 127.0)
+    calls = [
+        ("topk_encode", lambda: tk_kernel.encode_threshold(x, t, with_residual=True),
+         lambda: tk_ref.encode_threshold_ref(x, t, with_residual=True)),
+        ("topk_select", lambda: tk_kernel.encode_threshold(x, t, with_residual=False),
+         lambda: tk_ref.encode_threshold_ref(x, t, with_residual=False)),
+        ("int8_absmax", lambda: (q8_kernel.absmax(x),), lambda: (q8_ref.absmax_ref(x),)),
+        ("int8_quant", lambda: (q8_kernel.quant_dequant(x, s),),
+         lambda: (q8_ref.quant_dequant_ref(x, s),)),
+        ("int8_encode", lambda: q8_kernel.int8_encode(x, r),
+         lambda: q8_ref.int8_encode_ref(x, r)),
+        ("int8_encode", lambda: q8_kernel.int8_encode(x), lambda: q8_ref.int8_encode_ref(x)),
+    ]
+    for name, kern, plain in calls:
+        before = dict(kernels.LAUNCHES)
+        got = kern()
+        torch.cuda.synchronize()
+        delta = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.KERNEL_NAMES}
+        assert delta == {k: int(k == name) for k in kernels.KERNEL_NAMES}, name
+        for a, b in zip(got, plain()):
+            assert (a is None) == (b is None), name
+            if a is not None:
+                assert a.shape[0] == rows and same_bits(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_ef", [True, False], ids=["ef", "no-ef"])
+@pytest.mark.parametrize("rows", MANY_ROWS)
+def test_int8_encode_route_b_at_many_rows(cuda, rows, with_ef):
+    """Route B of the int8 encode (rows of 16,392 > 16,384: absmax then
+    quant-dequant, each a loop over rows past grid.y) on 65,535 to 100,000
+    rows, up to 6.6 GB an operand: one launch of each, out, res and scale
+    bitwise the plain version, taken a block of rows at a time (rows are
+    independent)."""
+    n = 16392
+    g = torch.Generator(device=cuda).manual_seed(rows + with_ef)
+    m = torch.randn((rows, n), generator=g, device=cuda)
+    r = 0.25 * torch.randn((rows, n), generator=g, device=cuda) if with_ef else None
+    before = dict(kernels.LAUNCHES)
+    out, res, scale = q8_kernel.int8_encode(m, r)
+    torch.cuda.synchronize()
+    delta = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.KERNEL_NAMES}
+    assert delta == {k: int(k in ("int8_absmax", "int8_quant")) for k in kernels.KERNEL_NAMES}
+    assert (res is None) == (not with_ef)
+    for sl in _row_chunks(rows):
+        want = q8_ref.int8_encode_ref(m[sl], None if r is None else r[sl])
+        assert same_bits(out[sl], want[0]) and same_bits(scale[sl], want[2])
+        if with_ef:
+            assert same_bits(res[sl], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_at_many_kv_rows(cuda, dtype):
+    """B · Hkv = 65,536 (B 32,768 × Hkv 2, T = S = 80: two key tiles, one
+    ragged): the f32 route's prep loops over grid.y's rows, its image
+    bitwise ``tf32_image_ref``; both routes within their limits of the
+    plain version."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    q, k, v = _flash_inputs(cuda, (32768, 80, 80, 4, 2, 16), dtype)
+    if dtype == torch.float32:
+        img = fa_kernel.tf32_image(k, v)
+        want = fa_ref.tf32_image_ref(k, v)
+        torch.cuda.synchronize()
+        assert torch.equal(img.view(torch.int32), want.view(torch.int32))
+        del img, want
+    before = dict(kernels.LAUNCHES)
+    out = fa_kernel.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    prep = int(dtype == torch.float32)
+    assert sum(kernels.LAUNCHES.values()) == sum(before.values()) + 1 + prep
+    tr = lambda x: x.transpose(1, 2)  # noqa: E731
+    plain = tr(fa_ref.attention_ref(tr(q), tr(k), tr(v)))
+    assert float((out.float() - plain.float()).abs().max()) <= FLASH_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_decode_attention_at_many_rows(cuda, dtype):
+    """B = 65,536 rows (S 96, Hq 8, Hkv 2, D 32; valid lengths 0, 1, S and
+    a ragged one among them): the split kernel loops over grid.y's rows,
+    the pair within its limit of the plain version, one launch each."""
+    q, k, v, vl = _decode_inputs(cuda, (65536, 96, 8, 2, 32), dtype, 3)
+    vl = vl[torch.arange(65536, device=cuda) % 4].contiguous()  # the four lengths, repeated
+    before = dict(kernels.LAUNCHES)
+    out = da_kernel.decode_attention(q, k, v, vl)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["decode_attention"] == before["decode_attention"] + 1
+    assert kernels.LAUNCHES["decode_attention_merge"] == before["decode_attention_merge"] + 1
+    plain = da_ref.decode_attention_plain(q, k, v, vl)
+    assert float((out.float() - plain.float()).abs().max()) <= DECODE_TOL[dtype]
+    assert bool((out[vl == 0] == 0).all())
