@@ -3,11 +3,11 @@
 // bidirectional, sliding window, query offset.
 //
 // Replaces the Pallas TPU kernel of the JAX package, for bf16 operands:
-//   flash_attention_tc_kernel<D>  <- src/repro/kernels/flash_attention/kernel.py _flash_kernel
+//   flash_attention_tc_kernel<Dc, kExact>  <- src/repro/kernels/flash_attention/kernel.py _flash_kernel
 // (reached through ops.flash_attention <- models/attention.attn_apply(...,
 // use_kernel=True) on the cache-free branch with T >= 128, once a layer).
-// f32 operands go to flash_attention.cu's CUDA-core kernel, which holds the
-// 2e-5 f32 limit; the route is a fixed function of the type
+// f32 operands go to flash_attention_tf32.cu's 3xTF32 kernel, which holds
+// the 2e-5 f32 limit; the route is a fixed function of the type
 // (kernels/flash_attention/kernel.py ROUTES).
 //
 // Function.  For q (B, T, Hq, D), k and v (B, S, Hkv, D) in bf16, Hq =
@@ -55,7 +55,15 @@
 // Each branch retires the products it issued before it reads O, and the
 // warpgroup index is made warp-uniform, so that ptxas keeps the products
 // asynchronous.  D < 64 pads the shared rows to 64 columns with zeros (the
-// padded output columns are never stored).  As in flash_attention.cu: the
+// padded output columns are never stored).  Head widths: D 8, 16, 32, 64
+// and 128 have exact instantiations; any other multiple of 8 up to 256
+// runs in the width class of 64, 128 or 256 above it, its shared rows
+// zeroed past D (zero columns add exactly 0 to Q.K^T, and the P.V columns
+// past D are never stored).  At 256 a 64-key K or V tile is 32 KB, so
+// three stages of both and the 128-row query tile would not fit in shared
+// memory: K and V pass through rings of their own, two stages each (197,696
+// bytes), V of a tile staged an iteration before its P.V; the O
+// accumulator is 128 f32 registers a thread.  As in flash_attention.cu: the
 // key loop runs from the window's left edge of the tile's first row to the
 // causal diagonal of its last row, a warpgroup skips the tiles none of its
 // rows sees, and heavy query tiles are launched first.  A view whose base
@@ -82,14 +90,9 @@
 
 namespace {
 
-constexpr int kWG = 2;               // consumer warpgroups a block
-constexpr int kBQ = 64 * kWG;        // query rows a block
-constexpr int kThreads = 128 * kWG;
-constexpr int kStages = 3;           // K/V ring: tile it + 1 lands while P.V of it - 1 runs
 constexpr float kNegInf = -1e30f;    // the TPU kernel's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxDevices = 64;
-constexpr int kBarBytes = 2 * kStages * 8;  // full and empty mbarriers
 
 // element strides (b, t, h) of a (B, T, H, D) operand whose D is contiguous
 struct Strides {
@@ -97,20 +100,32 @@ struct Strides {
 };
 
 
-template <int D>
+// The tiles of width Dc: an exact head width (8, 16, 32, 64, 128) or a
+// width class (64, 128, 256) whose rows are zero past the true D.
+template <int Dc>
 struct Shape {
-  // keys a tile: 128 at D 128 (one block an SM either way, by registers),
-  // else 64 (two blocks an SM)
-  static constexpr int kBK = D == 128 ? 128 : 64;
-  static constexpr int kNB = D < 64 ? 1 : D / 64;  // 64-column blocks of a row
-  static constexpr int kKS = (D + 15) / 16;        // k-steps of Q.K^T
-  static constexpr int kChunks = D / 8;            // 16-byte chunks of a row
-  static constexpr int kHalves = kBK / 64;         // 64-key products of a tile
+  // Dc 256: K and V in rings of their own, two stages each (a query tile of
+  // 128 rows and three 64 KB K/V stages would not fit in shared memory);
+  // else one ring of three K/V stages: tile it + 1 lands while P.V of it - 1
+  // runs
+  static constexpr bool kSplit = Dc == 256;
+  static constexpr int kStages = kSplit ? 2 : 3;
+  static constexpr int kBars = (kSplit ? 4 : 2) * kStages;  // full and empty mbarriers
+  static constexpr int kWG = 2;                     // consumer warpgroups a block
+  static constexpr int kBQ = 64 * kWG;              // query rows a block
+  static constexpr int kThreads = 128 * kWG;
+  // keys a tile: 128 at Dc 128 (one block an SM either way, by registers),
+  // else 64 (two blocks an SM up to Dc 64)
+  static constexpr int kBK = Dc == 128 ? 128 : 64;
+  static constexpr int kNB = Dc < 64 ? 1 : Dc / 64;  // 64-column blocks of a row
+  static constexpr int kKS = (Dc + 15) / 16;         // k-steps of Q.K^T
+  static constexpr int kChunks = Dc / 8;             // 16-byte chunks of a row
+  static constexpr int kHalves = kBK / 64;           // 64-key products of a tile
   static constexpr int kQRegion = kNB * 64 * 128;    // 64 query rows
   static constexpr int kKVRegion = kNB * kBK * 128;  // one K or V tile
   static constexpr size_t smem =
-      1024 + (size_t)kWG * kQRegion + (size_t)kStages * 2 * kKVRegion + kBarBytes;
-  static constexpr int kMinBlocks = D <= 64 ? 2 : 1;
+      1024 + (size_t)kWG * kQRegion + (size_t)kStages * 2 * kKVRegion + kBars * 8;
+  static constexpr int kMinBlocks = Dc <= 64 ? 2 : 1;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -235,16 +250,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Stage this thread's share of `rows` rows of D bf16 columns (rows >=
+// Stage this thread's share of `rows` rows of C 16-byte chunks (rows >=
 // valid are zero) into a swizzled region: 16-byte chunk c of row r lands in
 // column block c / 8 (blocks `rows` x 128 bytes apart) at chunk (c % 8) ^
 // (r % 8).  With `aligned` every write is a cp.async; otherwise plain loads
 // and stores.
-template <int D>
+template <int kThreads>
 __device__ __forceinline__ void stage_rows(uint8_t* region, const __nv_bfloat16* src,
-                                           long long row_stride, int valid, int rows,
+                                           long long row_stride, int valid, int rows, int C,
                                            bool aligned) {
-  constexpr int C = Shape<D>::kChunks;
   const uint32_t base = smem_addr(region);
   for (int i = threadIdx.x; i < rows * C; i += kThreads) {
     const int r = i / C, c = i - r * C;
@@ -282,24 +296,42 @@ __device__ __forceinline__ void issue_pv(float (&o)[Shape<D>::kNB][32],
   wgmma_commit();
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, Shape<D>::kMinBlocks)
+// kExact: the head width is Dc; else D_, a multiple of 8 below Dc, whose
+// rows are staged into zeroed columns.  The exact widths keep their own
+// instantiation: class 64 and 128 at D 64 and 128 (a run-time D, the chunk
+// loops no longer unrolled) took 18 % and 25 % longer at tinyllama-1.1b's
+// and qwen2-1.5b's prefill (kernels/timing.py, NVIDIA H100 80GB HBM3).
+template <int Dc, bool kExact>
+__global__ void __launch_bounds__(Shape<Dc>::kThreads, Shape<Dc>::kMinBlocks)
 flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
                           __nv_bfloat16* __restrict__ out, Strides sq, Strides sk,
-                          Strides sv, int T_, int S, int Hq, int G, int causal,
+                          Strides sv, int T_, int S, int Hq, int G, int D_, int causal,
                           int window, int q_offset, float scale_log2, int aligned) {
-  using Sh = Shape<D>;
+  using Sh = Shape<Dc>;
   constexpr int kNB = Sh::kNB, kH = Sh::kHalves, kBK = Sh::kBK;
+  constexpr int kWG = Sh::kWG, kBQ = Sh::kBQ, kThreads = Sh::kThreads;
+  constexpr int kStages = Sh::kStages;
+  const int D = kExact ? Dc : D_;
+  const int C = kExact ? Sh::kChunks : D / 8;  // 16-byte chunks of a row
   extern __shared__ uint8_t smem_raw[];
   // the swizzle pattern repeats every 1024 bytes of shared address
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint8_t* qs = smem;                         // kWG regions of 64 query rows
-  uint8_t* kvs = smem + kWG * Sh::kQRegion;   // stage s: K, then V
-  // full[s]: the stage's tile has landed; empty[s]: every thread is done with it
+  // stage s: K, then V (kSplit: the K ring, then the V ring)
+  uint8_t* kvs = smem + kWG * Sh::kQRegion;
+  auto k_at = [&](int st) {
+    return kvs + (Sh::kSplit ? st : 2 * st) * Sh::kKVRegion;
+  };
+  auto v_at = [&](int st) {
+    return kvs + (Sh::kSplit ? kStages + st : 2 * st + 1) * Sh::kKVRegion;
+  };
+  // full[s]: the stage's tile (kSplit: its K) has landed; empty[s]: every
+  // thread is done with it; kSplit: fullV[s], emptyV[s] the same for V
   uint64_t* bars = reinterpret_cast<uint64_t*>(kvs + kStages * 2 * Sh::kKVRegion);
   const uint32_t full0 = smem_addr(bars), empty0 = smem_addr(bars + kStages);
+  const uint32_t fullv0 = smem_addr(bars + 2 * kStages), emptyv0 = smem_addr(bars + 3 * kStages);
 
   const int nqt = (T_ + kBQ - 1) / kBQ;
   const int qt = nqt - 1 - (int)(blockIdx.x % nqt);  // heavy tiles first
@@ -317,16 +349,13 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
 
-  if (D < 64) {  // padded columns must read as zero
-    for (int i = threadIdx.x; i < (int)((Sh::smem - 1024 - kBarBytes) / 16); i += kThreads)
+  if (Dc < 64 || D < Dc) {  // padded columns must read as zero
+    for (int i = threadIdx.x; i < (int)((Sh::smem - 1024 - Sh::kBars * 8) / 16); i += kThreads)
       reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
     fence_async_shared();
   }
   if (threadIdx.x == 0) {
-    for (int st = 0; st < kStages; ++st) {
-      mbar_init(full0 + 8 * st, kThreads);
-      mbar_init(empty0 + 8 * st, kThreads);
-    }
+    for (int st = 0; st < Sh::kBars; ++st) mbar_init(full0 + 8 * st, kThreads);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -349,28 +378,36 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   const __nv_bfloat16* kb = k + b * sk.b + hk * sk.h;
   const __nv_bfloat16* vb = v + b * sv.b + hk * sv.h;
-  // every thread copies its share of tile it into stage it % kStages, then
-  // arrives on that stage's full barrier
-  auto stage_tile = [&](int it) {
+  // every thread copies its share of tile it's K (parts & 1) and V (parts &
+  // 2) into stage it % kStages, then arrives on the stage's full barrier
+  // (kSplit: K's, then V's)
+  auto arrive_full = [&](uint32_t bar) {
+    if (aligned) {
+      mbar_arrive_cp_async(bar);
+    } else {
+      fence_async_shared();
+      mbar_arrive(bar);
+    }
+  };
+  auto stage_tile = [&](int it, int parts) {
     const long long k0 = kbeg + (long long)it * kBK;
     const int valid = (int)min((long long)kBK, kend - k0);
     const int st = it % kStages;
-    uint8_t* kt = kvs + st * 2 * Sh::kKVRegion;
-    stage_rows<D>(kt, kb + k0 * sk.t, sk.t, valid, kBK, aligned);
-    stage_rows<D>(kt + Sh::kKVRegion, vb + k0 * sv.t, sv.t, valid, kBK, aligned);
-    if (aligned) {
-      mbar_arrive_cp_async(full0 + 8 * st);
-    } else {
-      fence_async_shared();
-      mbar_arrive(full0 + 8 * st);
+    if (parts & 1) {
+      stage_rows<kThreads>(k_at(st), kb + k0 * sk.t, sk.t, valid, kBK, C, aligned);
+      if (Sh::kSplit) arrive_full(full0 + 8 * st);
+    }
+    if (parts & 2) {
+      stage_rows<kThreads>(v_at(st), vb + k0 * sv.t, sv.t, valid, kBK, C, aligned);
+      arrive_full((Sh::kSplit ? fullv0 : full0) + 8 * st);
     }
   };
   if (ntiles > 0) {  // the query tile lands with tile 0
     const __nv_bfloat16* qb = q + b * sq.b + h * sq.h + (long long)q0 * sq.t;
     for (int w = 0; w < kWG; ++w)
-      stage_rows<D>(qs + w * Sh::kQRegion, qb + (long long)w * 64 * sq.t, sq.t,
-                    rows - 64 * w, 64, aligned);
-    stage_tile(0);
+      stage_rows<kThreads>(qs + w * Sh::kQRegion, qb + (long long)w * 64 * sq.t, sq.t,
+                           rows - 64 * w, 64, C, aligned);
+    stage_tile(0, 3);
   }
 
   float o[kNB][32];
@@ -391,21 +428,27 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
   // tile's softmax while that product is on the tensor cores.
   // No barrier of the whole block inside the loop: a warpgroup may run a
   // tile ahead of the other, so that their softmax phases need not collide.
+  // kSplit: tile it's K is released at the end of iteration it and tile it
+  // + 1's K staged at the start of iteration it, as the shared ring does;
+  // tile it - 1's V, read by the P.V issued in iteration it, is released at
+  // its end, and tile it + 1's V staged then, a whole iteration before its
+  // P.V
   for (int it = 0; it < ntiles; ++it) {
     if (it + 1 < ntiles) {
-      // stage (it + 1) % kStages last held tile it - 2: every thread has
-      // released it at the end of its iteration it - 1
+      // stage (it + 1) % kStages last held tile it + 1 - kStages: every
+      // thread has released it (its K) at the end of its iteration it - 1
       if (it + 1 >= kStages)
         mbar_wait(empty0 + 8 * ((it + 1) % kStages), ((it + 1) / kStages - 1) & 1);
-      stage_tile(it + 1);
+      stage_tile(it + 1, Sh::kSplit ? 1 : 3);
     }
     mbar_wait(full0 + 8 * (it % kStages), (it / kStages) & 1);
+    if (Sh::kSplit && it >= 1)  // the V of tile it - 1, for its P.V
+      mbar_wait(fullv0 + 8 * ((it - 1) % kStages), ((it - 1) / kStages) & 1);
     fence_async_shared();  // the landed tile, to the tensor cores' reads
 
     const long long k0 = kbeg + (long long)it * kBK;
-    const uint32_t kv_sh = smem_addr(kvs + (it % kStages) * 2 * Sh::kKVRegion);
-    const uint32_t vprev_sh =
-        smem_addr(kvs + ((it + kStages - 1) % kStages) * 2 * Sh::kKVRegion + Sh::kKVRegion);
+    const uint32_t kv_sh = smem_addr(k_at(it % kStages));
+    const uint32_t vprev_sh = smem_addr(v_at((it + kStages - 1) % kStages));
     if (wrows > 0 && k0 < wend && k0 + kBK > wbeg) {
       float s[kH][32];
 #pragma unroll
@@ -499,7 +542,7 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
       // each branch retires every product it issued before o is read, so
       // that the compiler keeps the products asynchronous
       if (pending) {
-        issue_pv<D>(o, pa, vprev_sh);
+        issue_pv<Dc>(o, pa, vprev_sh);
         wgmma_wait<1>();  // S has landed; P.V of the previous tile runs on
 #pragma unroll
         for (int hf = 0; hf < kH; ++hf) fence_regs(s[hf]);
@@ -536,19 +579,32 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
       pending = true;
     } else if (pending) {  // past this warpgroup's last tile: flush
       wgmma_fence();
-      issue_pv<D>(o, pa, vprev_sh);
+      issue_pv<Dc>(o, pa, vprev_sh);
       wgmma_wait<0>();
 #pragma unroll
       for (int nb = 0; nb < kNB; ++nb) fence_regs(o[nb]);
       pending = false;
     }
-    // tile it - 1 is done with (its P.V has retired, or never ran)
-    if (it >= 1) mbar_arrive(empty0 + 8 * ((it - 1) % kStages));
+    if constexpr (Sh::kSplit) {
+      // tile it's K and tile it - 1's V are done with; V of tile it + 1 goes
+      // into the stage that V of tile it - 1 held
+      mbar_arrive(empty0 + 8 * (it % kStages));
+      if (it >= 1) mbar_arrive(emptyv0 + 8 * ((it - 1) % kStages));
+      if (it + 1 < ntiles) {
+        if (it + 1 >= kStages)
+          mbar_wait(emptyv0 + 8 * ((it + 1) % kStages), ((it + 1) / kStages - 1) & 1);
+        stage_tile(it + 1, 2);
+      }
+    } else {
+      // tile it - 1 is done with (its P.V has retired, or never ran)
+      if (it >= 1) mbar_arrive(empty0 + 8 * ((it - 1) % kStages));
+    }
   }
   if (pending) {
+    if (Sh::kSplit)
+      mbar_wait(fullv0 + 8 * ((ntiles - 1) % kStages), ((ntiles - 1) / kStages) & 1);
     wgmma_fence();
-    issue_pv<D>(o, pa, smem_addr(kvs + ((ntiles - 1) % kStages) * 2 * Sh::kKVRegion +
-                                  Sh::kKVRegion));
+    issue_pv<Dc>(o, pa, smem_addr(v_at((ntiles - 1) % kStages)));
     wgmma_wait<0>();
 #pragma unroll
     for (int nb = 0; nb < kNB; ++nb) fence_regs(o[nb]);
@@ -581,12 +637,13 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
+template <int Dc, bool kExact>
 int launch(const void* q, const void* k, const void* v, void* out, const long long* strides,
-           int B, int T_, int S, int Hq, int G, int causal, int window, int q_offset,
-           int aligned, cudaStream_t st) {
-  const size_t smem = Shape<D>::smem;
-  auto kern = flash_attention_tc_kernel<D>;
+           int B, int T_, int S, int Hq, int G, int D, int causal, int window, int q_offset,
+           int aligned, int scale_d, cudaStream_t st) {
+  using Sh = Shape<Dc>;
+  const size_t smem = Sh::smem;
+  auto kern = flash_attention_tc_kernel<Dc, kExact>;
   // raise the shared-memory limit once a device, so that a launch being
   // captured into a CUDA graph makes no other runtime call
   static bool raised[kMaxDevices] = {};
@@ -598,19 +655,19 @@ int launch(const void* q, const void* k, const void* v, void* out, const long lo
     if (e != cudaSuccess) return (int)e;
     if (dev < kMaxDevices) raised[dev] = true;
   }
-  const long long nqt = (T_ + kBQ - 1) / kBQ;
+  const long long nqt = (T_ + Sh::kBQ - 1) / Sh::kBQ;
   const long long blocks = (long long)B * Hq * nqt;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  // D^-1/2 rounded once to f32, as the JAX package's Python-float constant,
-  // then folded with log2(e) for exp2
-  const float scale = (float)(1.0 / std::sqrt((double)D));
+  // D^-1/2 of the true head width rounded once to f32, as the JAX package's
+  // Python-float constant, then folded with log2(e) for exp2
+  const float scale = (float)(1.0 / std::sqrt((double)scale_d));
   const Strides sq{strides[0], strides[1], strides[2]};
   const Strides sk{strides[3], strides[4], strides[5]};
   const Strides sv{strides[6], strides[7], strides[8]};
-  kern<<<dim3((unsigned)blocks), kThreads, smem, st>>>(
+  kern<<<dim3((unsigned)blocks), Sh::kThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), sq, sk, sv,
-      T_, S, Hq, G, causal, window, q_offset, scale * kLog2e, aligned);
+      T_, S, Hq, G, D, causal, window, q_offset, scale * kLog2e, aligned);
   return (int)cudaGetLastError();
 }
 
@@ -622,33 +679,44 @@ extern "C" {
 // dimension and element strides (b, t, h) given in strides[0..2] (q),
 // [3..5] (k), [6..8] (v); out contiguous (B, T, Hq, D) bf16.  aligned = 1
 // when every base pointer and stride is a multiple of 16 bytes (cp.async),
-// 0 otherwise.  D in {8, 16, 32, 64, 128}; the wrapper checks the rest.
+// 0 otherwise.  D a multiple of 8 from 8 to 256 (the wrapper pads other
+// widths with zero columns); scale_d the true head width, whose D^-1/2
+// scales the logits.  The wrapper checks the rest.
 int repro_flash_attention_tc(const void* q, const void* k, const void* v, void* out,
                              const long long* strides, int B, int T, int S, int Hq, int G,
                              int D, int causal, int window, int q_offset, int aligned,
-                             void* stream) {
-  if (B < 1 || T < 1 || S < 1 || Hq < 1 || G < 1 || Hq % G) return (int)cudaErrorInvalidValue;
+                             int scale_d, void* stream) {
+  if (B < 1 || T < 1 || S < 1 || Hq < 1 || G < 1 || Hq % G || D < 8 || D > 256 || D % 8 ||
+      scale_d < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 8: return launch<8>(q, k, v, out, strides, B, T, S, Hq, G, causal, window, q_offset, aligned, st);
-    case 16: return launch<16>(q, k, v, out, strides, B, T, S, Hq, G, causal, window, q_offset, aligned, st);
-    case 32: return launch<32>(q, k, v, out, strides, B, T, S, Hq, G, causal, window, q_offset, aligned, st);
-    case 64: return launch<64>(q, k, v, out, strides, B, T, S, Hq, G, causal, window, q_offset, aligned, st);
-    case 128: return launch<128>(q, k, v, out, strides, B, T, S, Hq, G, causal, window, q_offset, aligned, st);
-    default: return (int)cudaErrorInvalidValue;
+#define REPRO_TC(DC, EXACT) \
+  launch<DC, EXACT>(q, k, v, out, strides, B, T, S, Hq, G, D, causal, window, q_offset, \
+                    aligned, scale_d, st)
+  switch (D) {  // the exact widths of every config before the domain was widened
+    case 8: return REPRO_TC(8, true);
+    case 16: return REPRO_TC(16, true);
+    case 32: return REPRO_TC(32, true);
+    case 64: return REPRO_TC(64, true);
+    case 128: return REPRO_TC(128, true);
+    default: break;
   }
+  if (D < 64) return REPRO_TC(64, false);
+  if (D < 128) return REPRO_TC(128, false);
+  return REPRO_TC(256, false);
+#undef REPRO_TC
 }
 
 // dynamic shared memory of a launch at head width D (bytes), or -1
 int repro_flash_attention_tc_smem(int D) {
+  if (D < 8 || D > 256 || D % 8) return -1;
   switch (D) {
     case 8: return (int)Shape<8>::smem;
     case 16: return (int)Shape<16>::smem;
     case 32: return (int)Shape<32>::smem;
-    case 64: return (int)Shape<64>::smem;
-    case 128: return (int)Shape<128>::smem;
-    default: return -1;
+    default: break;
   }
+  return (int)(D <= 64 ? Shape<64>::smem : D <= 128 ? Shape<128>::smem : Shape<256>::smem);
 }
 
 }  // extern "C"

@@ -4,7 +4,8 @@
 // offset.
 //
 // Replaces the Pallas TPU kernel of the JAX package, for f32 operands:
-//   flash_tf32_prep_kernel<D> + flash_attention_tf32_kernel<D>
+//   flash_tf32_prep_kernel<Dc> + flash_attention_tf32_kernel<Dc>
+//       (flash_attention_tf32_wide_kernel<256> above D 128)
 //       <- src/repro/kernels/flash_attention/kernel.py _flash_kernel
 // (reached through ops.flash_attention <- models/attention.attn_apply(...,
 // use_kernel=True) on the cache-free branch with T >= 128, once a layer;
@@ -103,6 +104,16 @@
 //     heavy query tiles are launched first.  D < 64 computes 64 output
 //     columns against V^T rows that the prep wrote as zero; the padded
 //     columns are never stored.
+//   Head widths: D 8, 16 and 32 run tiles of their own width; any other
+//     multiple of 8 up to 128 runs in the width class of 64 or 128 at or
+//     above it (Q staged zero past D, K and V^T written zero past D by the
+//     prep: the extra k-steps add exact zeros).  Above 128 (class 256) the
+//     tiles do not fit: Q's hi and lo planes alone are 128 KB at 64 rows,
+//     and a 64-key tile of K and V^T is 256 KB.  There
+//     flash_attention_tf32_wide_kernel streams each tile as eight 32 KB
+//     parts (K's 64-column quarters, then V^T's 64-row quarters, each hi
+//     then lo) through a ring of two, one warpgroup a block, S summed
+//     over the quarters' k-steps as above and P.V a quarter at a time.
 //
 // Bound.  Operations: 4 B Hq D per (query, visible key) pair, three times
 // over at the TF32 rate (495 TFLOP/s dense): at B 8 x T 2048, Hq 32, D 64,
@@ -136,22 +147,33 @@ struct Strides {
   long long b, t, h;
 };
 
-template <int D>
+// The tiles of width Dc: 8, 16 and 32 for those head widths alone, or a
+// width class (64, 128, 256) for any D up to Dc, its K, Q and V^T rows
+// zero past D.  At Dc 256 (kSplit) a prepared tile is eight 32 KB parts, K's
+// four 64-column quarters and then V^T's four 64-row quarters, each its hi
+// plane and then its lo plane, streamed through a ring of two parts.
+template <int Dc>
 struct Shape {
-  static constexpr int kWG = D == 128 ? 1 : 2;       // consumer warpgroups
+  static constexpr bool kSplit = Dc == 256;
+  static constexpr int kWG = Dc >= 128 ? 1 : 2;      // consumer warpgroups
   static constexpr int kBQ = 64 * kWG;               // query rows a block
   static constexpr int kThreads = 128 * kWG;
-  static constexpr int kStages = D == 128 ? 1 : 2;   // key tiles in flight
-  static constexpr int kKB = (D + 31) / 32;          // 32-column blocks of a K or Q row
-  static constexpr int kNB = D < 64 ? 1 : D / 64;    // 64-row blocks of V^T (and of O)
-  static constexpr int kKS = D / 8;                  // k-steps of Q.K^T
+  static constexpr int kStages = Dc == 128 ? 1 : 2;  // key tiles in flight (not kSplit)
+  static constexpr int kKB = (Dc + 31) / 32;         // 32-column blocks of a K or Q row
+  static constexpr int kNB = Dc < 64 ? 1 : Dc / 64;  // 64-row blocks of V^T (and of O)
+  static constexpr int kKS = Dc / 8;                 // k-steps of Q.K^T
   static constexpr int kQRegion = 2 * kKB * kColBlock;     // one warpgroup's Q, hi and lo
   static constexpr int kKPart = 2 * kKB * kColBlock;       // a tile's K, hi and lo
   static constexpr int kVPart = 2 * kNB * 2 * kColBlock;   // a tile's V^T, hi and lo
   static constexpr int kTile = kKPart + kVPart;            // bytes of a prepared tile
-  static constexpr int kBarBytes = 4 * kStages * 8;        // full and empty, K and V
+  static constexpr int kPart = 4 * kColBlock;              // kSplit: a quarter, hi and lo
+  static constexpr int kParts = kTile / kPart;             // kSplit: parts a tile
+  static constexpr int kRing = 2;                          // kSplit: parts in flight
+  static constexpr int kPRegion = 4 * kColBlock;           // kSplit: P (64 keys), hi and lo
+  static constexpr int kBarBytes = kSplit ? 2 * kRing * 8 : 4 * kStages * 8;
   static constexpr size_t smem =
-      1024 + (size_t)kWG * kQRegion + (size_t)kStages * kTile + kBarBytes;
+      1024 + (size_t)kWG * kQRegion +
+      (kSplit ? (size_t)kRing * kPart + kPRegion : (size_t)kStages * kTile) + kBarBytes;
 };
 
 // f32 -> the nearest TF32 value (ties to even), low 13 bits zero
@@ -284,6 +306,104 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// The online softmax of one 64-key tile on the S accumulator fragments
+// (s[4j + e] is row g, key k0 + 8j + 2 t4 + e; s[4j + 2 + e] row g + 8;
+// qpos_a and qpos_b the rows' query positions): the mask where the tile
+// straddles an edge (full false; a masked logit is -inf, so 2^(-inf) = 0
+// is its p), the row maxima over the quad, the running (m, l), p in s, and
+// al_a, al_b, the factors that rescale o to the new maxima.
+__device__ __forceinline__ void tile_softmax(float (&s)[32], long long k0, bool full, int S,
+                                             int causal, int window, long long qpos_a,
+                                             long long qpos_b, int t4, float scale_log2,
+                                             float& m_a, float& m_b, float& l_a, float& l_b,
+                                             float& al_a, float& al_b) {
+  float mxa[4], mxb[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) mxa[i] = mxb[i] = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (!full) {
+        const long long key = k0 + 8 * j + 2 * t4 + e;
+        bool oka = key < S, okb = key < S;
+        if (causal) {
+          oka = oka && key <= qpos_a;
+          okb = okb && key <= qpos_b;
+        }
+        if (window > 0) {
+          oka = oka && key > qpos_a - window;
+          okb = okb && key > qpos_b - window;
+        }
+        if (!oka) s[4 * j + e] = -INFINITY;
+        if (!okb) s[4 * j + 2 + e] = -INFINITY;
+      }
+      mxa[(2 * j + e) & 3] = fmaxf(mxa[(2 * j + e) & 3], s[4 * j + e]);
+      mxb[(2 * j + e) & 3] = fmaxf(mxb[(2 * j + e) & 3], s[4 * j + 2 + e]);
+    }
+  }
+  float mx_a = fmaxf(fmaxf(mxa[0], mxa[1]), fmaxf(mxa[2], mxa[3]));
+  float mx_b = fmaxf(fmaxf(mxb[0], mxb[1]), fmaxf(mxb[2], mxb[3]));
+  mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+  mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+  mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+  mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+  // the running maxima stay >= -1e30, as the TPU kernel's (a row that has
+  // seen no key keeps m = -1e30, alpha = 1 and p = 0)
+  const float mn_a = fmaxf(m_a, mx_a * scale_log2), mn_b = fmaxf(m_b, mx_b * scale_log2);
+  al_a = ex2(m_a - mn_a);
+  al_b = ex2(m_b - mn_b);
+  m_a = mn_a;
+  m_b = mn_b;
+  float sa[4] = {0.0f, 0.0f, 0.0f, 0.0f}, sb[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float pa = ex2(fmaf(s[4 * j + e], scale_log2, -mn_a));
+      const float pb = ex2(fmaf(s[4 * j + 2 + e], scale_log2, -mn_b));
+      s[4 * j + e] = pa;
+      s[4 * j + 2 + e] = pb;
+      sa[(2 * j + e) & 3] += pa;
+      sb[(2 * j + e) & 3] += pb;
+    }
+  }
+  l_a = l_a * al_a + ((sa[0] + sa[1]) + (sa[2] + sa[3]));
+  l_b = l_b * al_b + ((sb[0] + sb[1]) + (sb[2] + sb[3]));
+}
+
+// The end of a warpgroup's rows: l summed over the quad, O divided by l
+// where l > 0 (by 1 elsewhere, so a row that sees no key gives 0), rows t_a
+// and t_a + 8 below T stored to out, contiguous (B, T, Hq, D), up to D.
+template <int kNB>
+__device__ __forceinline__ void store_rows(float* __restrict__ out, const float (&o)[kNB][32],
+                                           float l_a, float l_b, long long bT, int T_, int Hq,
+                                           int h, int D, int t_a, int t4) {
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+  const float den_a = l_a > 0.0f ? l_a : 1.0f;
+  const float den_b = l_b > 0.0f ? l_b : 1.0f;
+  const int t_b = t_a + 8;
+  float* oa = out + ((bT + t_a) * Hq + h) * D;
+  float* ob = out + ((bT + t_b) * Hq + h) * D;
+#pragma unroll
+  for (int nb = 0; nb < kNB; ++nb) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = nb * 64 + 8 * j + 2 * t4;
+      if (col >= D) continue;
+      if (t_a < T_)
+        *reinterpret_cast<float2*>(oa + col) =
+            make_float2(o[nb][4 * j + 0] / den_a, o[nb][4 * j + 1] / den_a);
+      if (t_b < T_)
+        *reinterpret_cast<float2*>(ob + col) =
+            make_float2(o[nb][4 * j + 2] / den_b, o[nb][4 * j + 3] / den_b);
+    }
+  }
+}
+
 // byte offset of element (row r, column c) in a region of 32-column blocks
 // of 64 rows x 128 bytes, 128-byte swizzle
 __device__ __forceinline__ int swz(int r, int c) {
@@ -301,12 +421,12 @@ __device__ __forceinline__ int key_at(int pk) {
 // output float (hi plane, then lo; K, then V^T), zero past S and past D.
 // grid.y holds at most 65,535 blocks, so each block takes the (b, hkv)
 // pairs blockIdx.y, blockIdx.y + gridDim.y, ... below BH = B * Hkv.
-template <int D>
+template <int Dc>
 __global__ void __launch_bounds__(kPrepThreads)
 flash_tf32_prep_kernel(const float* __restrict__ k, const float* __restrict__ v,
                        float* __restrict__ image, Strides sk, Strides sv, int S, int Hkv,
-                       long long BH) {
-  using Sh = Shape<D>;
+                       long long BH, int D) {
+  using Sh = Shape<Dc>;
   constexpr int kKFloats = Sh::kKPart / 4, kPlaneK = kKFloats / 2;
   constexpr int kVFloats = Sh::kVPart / 4, kPlaneV = kVFloats / 2;
   const int kt = blockIdx.x;
@@ -320,16 +440,34 @@ flash_tf32_prep_kernel(const float* __restrict__ k, const float* __restrict__ v,
       float x = 0.0f;
       bool lo;
       if (f < kKFloats) {  // K: plane, 32-column block, key row, swizzled float
-        lo = f >= kPlaneK;
-        const int g = lo ? f - kPlaneK : f;
-        const int cb = g >> 11, r = (g >> 5) & 63, w = g & 31;
+        int g, cb;
+        if (Sh::kSplit) {  // quarter, plane, 32-column block of the quarter
+          const int h = f & 8191;
+          lo = h >= 4096;
+          g = h & 4095;
+          cb = (f >> 13) * 2 + (g >> 11);
+        } else {
+          lo = f >= kPlaneK;
+          g = lo ? f - kPlaneK : f;
+          cb = g >> 11;
+        }
+        const int r = (g >> 5) & 63, w = g & 31;
         const int c = cb * 32 + ((((w >> 2) ^ r) & 7) << 2) + (w & 3);
         if (c < D && k0 + r < S) x = kb[(k0 + r) * sk.t + c];
       } else {  // V^T: plane, 64-row block, 32-key block, head-column row, swizzled float
         const int f2 = f - kKFloats;
-        lo = f2 >= kPlaneV;
-        const int g = lo ? f2 - kPlaneV : f2;
-        const int nb = g >> 12, kb2 = (g >> 11) & 1, rr = (g >> 5) & 63, w = g & 31;
+        int g, nb;
+        if (Sh::kSplit) {  // quarter (64-row block), plane
+          const int h = f2 & 8191;
+          lo = h >= 4096;
+          g = h & 4095;
+          nb = f2 >> 13;
+        } else {
+          lo = f2 >= kPlaneV;
+          g = lo ? f2 - kPlaneV : f2;
+          nb = g >> 12;
+        }
+        const int kb2 = (g >> 11) & 1, rr = (g >> 5) & 63, w = g & 31;
         const int pk = kb2 * 32 + ((((w >> 2) ^ rr) & 7) << 2) + (w & 3);
         const int d = nb * 64 + rr, r = key_at(pk);
         if (d < D && k0 + r < S) x = vb[(k0 + r) * sv.t + d];
@@ -340,12 +478,13 @@ flash_tf32_prep_kernel(const float* __restrict__ k, const float* __restrict__ v,
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(Shape<D>::kThreads, 1)
+template <int Dc>
+__global__ void __launch_bounds__(Shape<Dc>::kThreads, 1)
 flash_attention_tf32_kernel(const float* __restrict__ q, const uint8_t* __restrict__ image,
                             float* __restrict__ out, Strides sq, int T_, int S, int Hq, int G,
-                            int nkt, int causal, int window, int q_offset, float scale_log2) {
-  using Sh = Shape<D>;
+                            int D, int nkt, int causal, int window, int q_offset,
+                            float scale_log2) {
+  using Sh = Shape<Dc>;
   constexpr int kWG = Sh::kWG, kBQ = Sh::kBQ, kThreads = Sh::kThreads, kStages = Sh::kStages;
   constexpr int kNB = Sh::kNB, kKB = Sh::kKB;
   extern __shared__ uint8_t smem_raw[];
@@ -419,12 +558,12 @@ flash_attention_tf32_kernel(const float* __restrict__ q, const uint8_t* __restri
     }
   }
 
-  // the query tile, split into hi and lo planes (rows past T are zero and
-  // never stored)
+  // the query tile, split into hi and lo planes (rows past T and columns
+  // past D are zero; the rows are never stored)
   const float* qb = q + b * sq.b + h * sq.h;
-  for (int i = threadIdx.x; i < kBQ * D; i += kThreads) {
-    const int r = i / D, c = i - r * D;
-    const float x = r < rows ? qb[(long long)(q0 + r) * sq.t + c] : 0.0f;
+  for (int i = threadIdx.x; i < kBQ * Dc; i += kThreads) {
+    const int r = i / Dc, c = i - r * Dc;
+    const float x = r < rows && c < D ? qb[(long long)(q0 + r) * sq.t + c] : 0.0f;
     const float hi = tf32_rn(x);
     uint8_t* reg = qs + (r >> 6) * Sh::kQRegion + swz(r & 63, c);
     *reinterpret_cast<float*>(reg) = hi;
@@ -500,63 +639,10 @@ flash_attention_tf32_kernel(const float* __restrict__ q, const uint8_t* __restri
     uint32_t ph_[8][4], pl_[8][4];  // P's hi and lo A fragments, a k-step each 8 keys
     float alpha_a = 1.0f, alpha_b = 1.0f;  // this tile's rescaling of o
     if (active) {
-      // s[4j + e] is row g, key k0 + 8j + 2 t4 + e; s[4j + 2 + e] row g + 8
       const bool full = k0 + kBK <= S && (!causal || k0 + kBK - 1 <= wq_lo) &&
                         (window <= 0 || k0 > wq_hi - window);
-      float mxa[4], mxb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) mxa[i] = mxb[i] = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if (!full) {
-            const long long key = k0 + 8 * j + 2 * t4 + e;
-            bool oka = key < S, okb = key < S;
-            if (causal) {
-              oka = oka && key <= qpos_a;
-              okb = okb && key <= qpos_b;
-            }
-            if (window > 0) {
-              oka = oka && key > qpos_a - window;
-              okb = okb && key > qpos_b - window;
-            }
-            if (!oka) s[4 * j + e] = -INFINITY;
-            if (!okb) s[4 * j + 2 + e] = -INFINITY;
-          }
-          mxa[(2 * j + e) & 3] = fmaxf(mxa[(2 * j + e) & 3], s[4 * j + e]);
-          mxb[(2 * j + e) & 3] = fmaxf(mxb[(2 * j + e) & 3], s[4 * j + 2 + e]);
-        }
-      }
-      float mx_a = fmaxf(fmaxf(mxa[0], mxa[1]), fmaxf(mxa[2], mxa[3]));
-      float mx_b = fmaxf(fmaxf(mxb[0], mxb[1]), fmaxf(mxb[2], mxb[3]));
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
-      // the running maxima stay >= -1e30, as the TPU kernel's (a row that has
-      // seen no key keeps m = -1e30, alpha = 1 and p = 0)
-      const float mn_a = fmaxf(m_a, mx_a * scale_log2), mn_b = fmaxf(m_b, mx_b * scale_log2);
-      const float al_a = ex2(m_a - mn_a), al_b = ex2(m_b - mn_b);
-      m_a = mn_a;
-      m_b = mn_b;
-      float sa[4] = {0.0f, 0.0f, 0.0f, 0.0f}, sb[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float pa = ex2(fmaf(s[4 * j + e], scale_log2, -mn_a));
-          const float pb = ex2(fmaf(s[4 * j + 2 + e], scale_log2, -mn_b));
-          s[4 * j + e] = pa;
-          s[4 * j + 2 + e] = pb;
-          sa[(2 * j + e) & 3] += pa;
-          sb[(2 * j + e) & 3] += pb;
-        }
-      }
-      l_a = l_a * al_a + ((sa[0] + sa[1]) + (sa[2] + sa[3]));
-      l_b = l_b * al_b + ((sb[0] + sb[1]) + (sb[2] + sb[3]));
-      alpha_a = al_a;
-      alpha_b = al_b;
+      tile_softmax(s, k0, full, S, causal, window, qpos_a, qpos_b, t4, scale_log2, m_a, m_b,
+                   l_a, l_b, alpha_a, alpha_b);
       // the A fragment of k-step j holds (row g, position t4), (g + 8, t4),
       // (g, t4 + 4), (g + 8, t4 + 4); V^T holds keys 2 t4 and 2 t4 + 1 of
       // the 8 at those positions, which are s[4j], s[4j + 2], s[4j + 1],
@@ -607,54 +693,249 @@ flash_attention_tf32_kernel(const float* __restrict__ q, const uint8_t* __restri
   }
 
   if (wrows == 0) return;
-  l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
-  l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
-  l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
-  l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
-  const float den_a = l_a > 0.0f ? l_a : 1.0f;
-  const float den_b = l_b > 0.0f ? l_b : 1.0f;
-  // out is contiguous (B, T, Hq, D)
-  const int t_a = q0 + 64 * wg + 16 * warp + g, t_b = t_a + 8;
-  float* oa = out + (((long long)b * T_ + t_a) * Hq + h) * D;
-  float* ob = out + (((long long)b * T_ + t_b) * Hq + h) * D;
-#pragma unroll
-  for (int nb = 0; nb < kNB; ++nb) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = nb * 64 + 8 * j + 2 * t4;
-      if (col >= D) continue;
-      if (t_a < T_)
-        *reinterpret_cast<float2*>(oa + col) =
-            make_float2(o[nb][4 * j + 0] / den_a, o[nb][4 * j + 1] / den_a);
-      if (t_b < T_)
-        *reinterpret_cast<float2*>(ob + col) =
-            make_float2(o[nb][4 * j + 2] / den_b, o[nb][4 * j + 3] / den_b);
-    }
-  }
+  store_rows(out, o, l_a, l_b, (long long)b * T_, T_, Hq, h, D, q0 + 64 * wg + 16 * warp + g, t4);
 }
 
-template <int D>
+// Head widths above 128 (width class 256): one warpgroup of 64 query rows
+// a block, its Q tile as hi and lo planes in shared memory (128 KB), and
+// each prepared tile streamed through a ring of two 32 KB parts (Shape's
+// kSplit layout): K's four 64-column quarters, then V^T's four 64-row
+// quarters.  Per tile: S = Q.K^T a quarter at a time, each k-step's three
+// products into a fresh accumulator added to S in f32 (as the narrow
+// kernel, but one accumulator: the O tile holds 128 registers a thread);
+// the softmax; P's hi and lo planes written to shared memory in V^T's key
+// order (wgmma's A from shared memory: as register fragments they would
+// take 64 more registers, past the 255 a thread has); then P.V a quarter at
+// a time into a fresh accumulator and O = alpha O + P.V.  Thread 0 refills
+// a slot with part P + 2 once every thread has released part P, so the
+// next part lands while this one is used.
+template <int Dc>
+__global__ void __launch_bounds__(Shape<Dc>::kThreads, 1)
+flash_attention_tf32_wide_kernel(const float* __restrict__ q, const uint8_t* __restrict__ image,
+                                 float* __restrict__ out, Strides sq, int T_, int S, int Hq,
+                                 int G, int D, int nkt, int causal, int window, int q_offset,
+                                 float scale_log2) {
+  using Sh = Shape<Dc>;
+  static_assert(Sh::kSplit && Sh::kWG == 1, "the wide kernel takes the split layout");
+  constexpr int kBQ = Sh::kBQ, kThreads = Sh::kThreads, kNB = Sh::kNB, kKB = Sh::kKB;
+  constexpr int kRing = Sh::kRing, kParts = Sh::kParts, kQuarters = kParts / 2;
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle pattern repeats every 1024 bytes of shared address
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = smem;                                 // hi plane, lo plane
+  const uint32_t ring0 = smem_addr(smem + Sh::kQRegion);
+  uint8_t* ps = smem + Sh::kQRegion + kRing * Sh::kPart;  // P: hi plane, lo plane
+  const uint32_t full0 = smem_addr(ps + Sh::kPRegion), empty0 = full0 + 8 * kRing;
+
+  const int nqt = (T_ + kBQ - 1) / kBQ;
+  const int qt = nqt - 1 - (int)(blockIdx.x % nqt);  // heavy tiles first
+  const int bh = (int)(blockIdx.x / nqt);
+  const int h = bh % Hq;
+  const int b = bh / Hq;
+  const int Hkv = Hq / G;
+  const int hk = h / G;
+  const int q0 = qt * kBQ;
+  const int rows = min(kBQ, T_ - q0);
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+
+  // key tiles the block's rows see: [kt0, kt0 + ntiles)
+  const long long qpos_lo = (long long)q0 + q_offset;
+  const long long qpos_hi = (long long)q0 + rows - 1 + q_offset;
+  long long kbeg = 0, kend = S;
+  if (window > 0) kbeg = qpos_lo - window + 1 > 0 ? qpos_lo - window + 1 : 0;
+  if (causal) kend = qpos_hi + 1 < S ? qpos_hi + 1 : S;
+  const int kt0 = (int)(kbeg / kBK);
+  const int ntiles = kend > kbeg ? (int)((kend + kBK - 1) / kBK) - kt0 : 0;
+  const long long nparts = (long long)ntiles * kParts;
+
+  const uint8_t* tiles = image + ((size_t)(b * Hkv + hk) * nkt + kt0) * Sh::kTile;
+  // thread 0 brings part P (tile P / kParts, part P % kParts) into slot P % kRing
+  auto fetch = [&](long long P) {
+    const int sl = (int)(P % kRing);
+    mbar_expect_tx(full0 + 8 * sl, Sh::kPart);
+    bulk_copy_g2s(ring0 + sl * Sh::kPart,
+                  tiles + (size_t)(P / kParts) * Sh::kTile + (size_t)(P % kParts) * Sh::kPart,
+                  Sh::kPart, full0 + 8 * sl);
+  };
+  if (threadIdx.x == 0) {
+    for (int sl = 0; sl < kRing; ++sl) {
+      mbar_init(full0 + 8 * sl, 1);
+      mbar_init(empty0 + 8 * sl, kThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (long long P = 0; P < kRing && P < nparts; ++P) fetch(P);
+  }
+  // part P has landed: its slot's address
+  auto acquire = [&](long long P) {
+    mbar_wait(full0 + 8 * (int)(P % kRing), (uint32_t)((P / kRing) & 1));
+    return ring0 + (int)(P % kRing) * Sh::kPart;
+  };
+  // this thread is done with part P; thread 0 refills its slot with P + kRing
+  auto release = [&](long long P) {
+    const int sl = (int)(P % kRing);
+    mbar_arrive(empty0 + 8 * sl);
+    if (threadIdx.x == 0 && P + kRing < nparts) {
+      mbar_wait(empty0 + 8 * sl, (uint32_t)((P / kRing) & 1));
+      fetch(P + kRing);
+    }
+    __syncwarp();
+  };
+
+  // the query tile, split into hi and lo planes (rows past T and columns
+  // past D are zero; the rows are never stored)
+  const float* qb = q + b * sq.b + h * sq.h;
+  for (int i = threadIdx.x; i < kBQ * Dc; i += kThreads) {
+    const int r = i / Dc, c = i - r * Dc;
+    const float x = r < rows && c < D ? qb[(long long)(q0 + r) * sq.t + c] : 0.0f;
+    const float hi = tf32_rn(x);
+    uint8_t* reg = qs + swz(r, c);
+    *reinterpret_cast<float*>(reg) = hi;
+    *reinterpret_cast<float*>(reg + kKB * kColBlock) = tf32_rn(x - hi);
+  }
+  fence_async_shared();
+  __syncthreads();
+
+  float o[kNB][32];
+#pragma unroll
+  for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[nb][i] = 0.0f;
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.0f, l_b = 0.0f;  // rows g, g + 8
+  const uint32_t qh_sh = smem_addr(qs);
+  const uint32_t ql_sh = qh_sh + kKB * kColBlock;
+  const long long qpos_a = qpos_lo + 16 * warp + g;  // this thread's two rows
+  const long long qpos_b = qpos_a + 8;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const long long P0 = (long long)it * kParts;
+    const long long k0 = (long long)(kt0 + it) * kBK;
+    // [kbeg, kend) meets every tile of the loop; a row that sees no key of
+    // a tile gets p = 0 from its masked (-inf) logits
+    const bool active = k0 < kend && k0 + kBK > kbeg;
+
+    // S, a quarter of the head columns (8 k-steps) a part
+    float s[32];
+    for (int qq = 0; qq < kQuarters; ++qq) {
+      const uint32_t kh = acquire(P0 + qq);
+      fence_async_shared();
+      if (active) {
+#pragma unroll
+        for (int kq = 0; kq < 8; ++kq) {
+          const int kk = qq * 8 + kq;
+          const uint32_t qoff = (kk >> 2) * kColBlock + (kk & 3) * 32;
+          const uint32_t koff = (kq >> 2) * kColBlock + (kq & 3) * 32;
+          const uint32_t kl = kh + 2 * kColBlock;
+          float part[32];
+          wgmma_fence();
+          wgmma_ss(part, desc_sw128(ql_sh + qoff), desc_sw128(kh + koff), 0);
+          wgmma_ss(part, desc_sw128(qh_sh + qoff), desc_sw128(kl + koff), 1);
+          wgmma_ss(part, desc_sw128(qh_sh + qoff), desc_sw128(kh + koff), 1);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(part);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) s[i] = kk == 0 ? part[i] : s[i] + part[i];
+        }
+      }
+      release(P0 + qq);
+    }
+
+    float alpha_a = 1.0f, alpha_b = 1.0f;  // this tile's rescaling of o
+    if (active) {
+      const bool full = k0 + kBK <= S && (!causal || k0 + kBK - 1 <= qpos_lo) &&
+                        (window <= 0 || k0 > qpos_lo + rows - 1 - window);
+      tile_softmax(s, k0, full, S, causal, window, qpos_a, qpos_b, t4, scale_log2, m_a, m_b,
+                   l_a, l_b, alpha_a, alpha_b);
+      // P's hi and lo planes, K-major (a row a query row): key 8j + 2 t4 + e
+      // at position 8j + t4 + 4e, V^T's key order
+      __syncthreads();  // the last tile's P.V has read P
+      const int ra = 16 * warp + g;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int pos = 8 * j + t4 + 4 * e;
+#pragma unroll
+          for (int hb = 0; hb < 2; ++hb) {
+            const float p = s[4 * j + 2 * hb + e];
+            const float hi = tf32_rn(p);
+            uint8_t* at = ps + swz(ra + 8 * hb, pos);
+            *reinterpret_cast<float*>(at) = hi;
+            *reinterpret_cast<float*>(at + 2 * kColBlock) = tf32_rn(p - hi);
+          }
+        }
+      }
+      fence_async_shared();
+      __syncthreads();
+    }
+
+    // P.V, 64 head columns (a V^T quarter) a part, each into a fresh
+    // accumulator, then o = alpha o + P.V in f32 with rounding to nearest
+    const uint32_t ph_sh = smem_addr(ps), pl_sh = ph_sh + 2 * kColBlock;
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb) {
+      const uint32_t v_sh = acquire(P0 + kQuarters + nb);
+      fence_async_shared();
+      if (active) {
+        float pv[32];
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const uint32_t poff = (j >> 2) * kColBlock + (j & 3) * 32;
+          const uint32_t vh = v_sh + (j >> 2) * kColBlock + (j & 3) * 32;
+          const uint32_t vl = vh + 2 * kColBlock;
+          wgmma_ss(pv, desc_sw128(pl_sh + poff), desc_sw128(vh), j > 0);
+          wgmma_ss(pv, desc_sw128(ph_sh + poff), desc_sw128(vl), 1);
+          wgmma_ss(pv, desc_sw128(ph_sh + poff), desc_sw128(vh), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(pv);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          o[nb][4 * j + 0] = fmaf(o[nb][4 * j + 0], alpha_a, pv[4 * j + 0]);
+          o[nb][4 * j + 1] = fmaf(o[nb][4 * j + 1], alpha_a, pv[4 * j + 1]);
+          o[nb][4 * j + 2] = fmaf(o[nb][4 * j + 2], alpha_b, pv[4 * j + 2]);
+          o[nb][4 * j + 3] = fmaf(o[nb][4 * j + 3], alpha_b, pv[4 * j + 3]);
+        }
+      }
+      release(P0 + kQuarters + nb);
+    }
+  }
+
+  store_rows(out, o, l_a, l_b, (long long)b * T_, T_, Hq, h, D, q0 + 16 * warp + g, t4);
+}
+
+template <int Dc>
 int launch_prep(const void* k, const void* v, void* image, const long long* strides, int B,
-                int S, int Hkv, cudaStream_t st) {
+                int S, int Hkv, int D, cudaStream_t st) {
   const long long nkt = (S + kBK - 1) / kBK;
   if (nkt > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   const Strides sk{strides[0], strides[1], strides[2]};
   const Strides sv{strides[3], strides[4], strides[5]};
   const long long bh = (long long)B * Hkv;
   const unsigned by = (unsigned)(bh < 65535 ? bh : 65535);  // the rest loop on grid.y
-  flash_tf32_prep_kernel<D><<<dim3((unsigned)nkt, by), kPrepThreads, 0, st>>>(
+  flash_tf32_prep_kernel<Dc><<<dim3((unsigned)nkt, by), kPrepThreads, 0, st>>>(
       static_cast<const float*>(k), static_cast<const float*>(v), static_cast<float*>(image),
-      sk, sv, S, Hkv, bh);
+      sk, sv, S, Hkv, bh, D);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int Dc>
 int launch_main(const void* q, const void* image, void* out, const long long* strides, int B,
-                int T_, int S, int Hq, int G, int causal, int window, int q_offset,
-                cudaStream_t st) {
-  using Sh = Shape<D>;
+                int T_, int S, int Hq, int G, int D, int causal, int window, int q_offset,
+                int scale_d, cudaStream_t st) {
+  using Sh = Shape<Dc>;
   const size_t smem = Sh::smem;
-  auto kern = flash_attention_tf32_kernel<D>;
+  void (*kern)(const float*, const uint8_t*, float*, Strides, int, int, int, int, int, int,
+               int, int, int, float);
+  if constexpr (Sh::kSplit) {
+    kern = flash_attention_tf32_wide_kernel<Dc>;
+  } else {
+    kern = flash_attention_tf32_kernel<Dc>;
+  }
   // raise the shared-memory limit once a device, so that a launch being
   // captured into a CUDA graph makes no other runtime call
   static bool raised[kMaxDevices] = {};
@@ -670,15 +951,33 @@ int launch_main(const void* q, const void* image, void* out, const long long* st
   const long long blocks = (long long)B * Hq * nqt;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   const int nkt = (S + kBK - 1) / kBK;
-  // D^-1/2 rounded once to f32, as the JAX package's Python-float constant,
-  // then folded with log2(e) for exp2
-  const float scale = (float)(1.0 / std::sqrt((double)D));
+  // D^-1/2 of the true head width rounded once to f32, as the JAX package's
+  // Python-float constant, then folded with log2(e) for exp2
+  const float scale = (float)(1.0 / std::sqrt((double)scale_d));
   const Strides sq{strides[0], strides[1], strides[2]};
   kern<<<dim3((unsigned)blocks), Sh::kThreads, smem, st>>>(
       static_cast<const float*>(q), static_cast<const uint8_t*>(image), static_cast<float*>(out),
-      sq, T_, S, Hq, G, nkt, causal, window, q_offset, scale * kLog2e);
+      sq, T_, S, Hq, G, D, nkt, causal, window, q_offset, scale * kLog2e);
   return (int)cudaGetLastError();
 }
+
+// D 8, 16 and 32 run tiles of their own width; any other D the width class
+// (64, 128, 256) above it.
+#define REPRO_TF32_DISPATCH(CALL)  \
+  switch (D) {                     \
+    case 8: return CALL(8);        \
+    case 16: return CALL(16);      \
+    case 32: return CALL(32);      \
+    default: break;                \
+  }                                \
+  if (D <= 64) return CALL(64);    \
+  if (D <= 128) return CALL(128);  \
+  return CALL(256);
+
+bool head_width_ok(int D) { return D >= 8 && D <= 256 && D % 8 == 0; }
+
+template <int Dc>
+long long tile_bytes() { return Shape<Dc>::kTile; }
 
 }  // namespace
 
@@ -687,16 +986,11 @@ extern "C" {
 // Bytes of the prepared tiles of k/v (B, S, Hkv, D): the image the prep
 // kernel writes and the main kernel reads (the wrapper allocates it), or -1.
 long long repro_flash_tf32_image_bytes(int B, int S, int Hkv, int D) {
-  if (B < 1 || S < 1 || Hkv < 1) return -1;
+  if (B < 1 || S < 1 || Hkv < 1 || !head_width_ok(D)) return -1;
   const long long tiles = (long long)B * Hkv * ((S + kBK - 1) / kBK);
-  switch (D) {
-    case 8: return tiles * Shape<8>::kTile;
-    case 16: return tiles * Shape<16>::kTile;
-    case 32: return tiles * Shape<32>::kTile;
-    case 64: return tiles * Shape<64>::kTile;
-    case 128: return tiles * Shape<128>::kTile;
-    default: return -1;
-  }
+#define REPRO_TILE(DC) tiles * tile_bytes<DC>()
+  REPRO_TF32_DISPATCH(REPRO_TILE)
+#undef REPRO_TILE
 }
 
 // k/v (B, S, Hkv, D) f32 with a contiguous last dimension and element
@@ -704,47 +998,38 @@ long long repro_flash_tf32_image_bytes(int B, int S, int Hkv, int D) {
 // into image (repro_flash_tf32_image_bytes, 16-byte aligned).
 int repro_flash_tf32_prep(const void* k, const void* v, void* image, const long long* strides,
                           int B, int S, int Hkv, int D, void* stream) {
-  if (B < 1 || S < 1 || Hkv < 1) return (int)cudaErrorInvalidValue;
+  if (B < 1 || S < 1 || Hkv < 1 || !head_width_ok(D)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 8: return launch_prep<8>(k, v, image, strides, B, S, Hkv, st);
-    case 16: return launch_prep<16>(k, v, image, strides, B, S, Hkv, st);
-    case 32: return launch_prep<32>(k, v, image, strides, B, S, Hkv, st);
-    case 64: return launch_prep<64>(k, v, image, strides, B, S, Hkv, st);
-    case 128: return launch_prep<128>(k, v, image, strides, B, S, Hkv, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define REPRO_PREP(DC) launch_prep<DC>(k, v, image, strides, B, S, Hkv, D, st)
+  REPRO_TF32_DISPATCH(REPRO_PREP)
+#undef REPRO_PREP
 }
 
 // q (B, T, Hq, D) f32 with a contiguous last dimension and element strides
 // (b, t, h) in strides[0..2]; image the prepared k/v tiles of (B, S, Hq/G,
-// D); out contiguous (B, T, Hq, D) f32.  D in {8, 16, 32, 64, 128}; the
-// wrapper checks the rest.
+// D); out contiguous (B, T, Hq, D) f32.  D a multiple of 8 from 8 to 256
+// (the wrapper pads other widths with zero columns); scale_d the true head
+// width, whose D^-1/2 scales the logits.  The wrapper checks the rest.
 int repro_flash_attention_tf32(const void* q, const void* image, void* out,
                                const long long* strides, int B, int T, int S, int Hq, int G,
-                               int D, int causal, int window, int q_offset, void* stream) {
-  if (B < 1 || T < 1 || S < 1 || Hq < 1 || G < 1 || Hq % G) return (int)cudaErrorInvalidValue;
+                               int D, int causal, int window, int q_offset, int scale_d,
+                               void* stream) {
+  if (B < 1 || T < 1 || S < 1 || Hq < 1 || G < 1 || Hq % G || !head_width_ok(D) || scale_d < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 8: return launch_main<8>(q, image, out, strides, B, T, S, Hq, G, causal, window, q_offset, st);
-    case 16: return launch_main<16>(q, image, out, strides, B, T, S, Hq, G, causal, window, q_offset, st);
-    case 32: return launch_main<32>(q, image, out, strides, B, T, S, Hq, G, causal, window, q_offset, st);
-    case 64: return launch_main<64>(q, image, out, strides, B, T, S, Hq, G, causal, window, q_offset, st);
-    case 128: return launch_main<128>(q, image, out, strides, B, T, S, Hq, G, causal, window, q_offset, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define REPRO_MAIN(DC)                                                                     \
+  launch_main<DC>(q, image, out, strides, B, T, S, Hq, G, D, causal, window, q_offset, \
+                         scale_d, st)
+  REPRO_TF32_DISPATCH(REPRO_MAIN)
+#undef REPRO_MAIN
 }
 
 // dynamic shared memory of a main-kernel launch at head width D (bytes), or -1
 int repro_flash_attention_tf32_smem(int D) {
-  switch (D) {
-    case 8: return (int)Shape<8>::smem;
-    case 16: return (int)Shape<16>::smem;
-    case 32: return (int)Shape<32>::smem;
-    case 64: return (int)Shape<64>::smem;
-    case 128: return (int)Shape<128>::smem;
-    default: return -1;
-  }
+  if (!head_width_ok(D)) return -1;
+#define REPRO_SMEM(DC) (int)Shape<DC>::smem
+  REPRO_TF32_DISPATCH(REPRO_SMEM)
+#undef REPRO_SMEM
 }
 
 }  // extern "C"

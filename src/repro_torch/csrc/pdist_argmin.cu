@@ -5,6 +5,7 @@
 // Replaces the Pallas TPU kernel of the JAX package, for metrics "l1" and
 // "linf":
 //   nearest_cc_kernel<T, M, DP>  <- src/repro/kernels/pdist_argmin/kernel.py _pdist_kernel
+//   nearest_wide_kernel<T, M> + nearest_wide_merge_kernel<M>  (the same, d > 58,108)
 // (reached through ops.pdist_argmin <- the E-step of ml/clustering.py
 // kmeans(metric="l1" | "linf"), the only clustering entry point that takes
 // those metrics).  l2 goes to pdist_argmin_tc.cu; the route is a fixed
@@ -18,7 +19,10 @@
 // over k in increasing order with a strict '<', so ties take the first
 // index as jnp.argmin's do.  Zero columns past d add |0 - 0| = 0 and change
 // nothing, so the result is bitwise that of any kernel that sums in that
-// order, the first design of this file included.
+// order, the first design of this file included.  Past d = 58,108 (rows
+// wider than one staged centroid row) the sum runs in increasing j within
+// each split of d and the splits are added in increasing order; l-infinity
+// is exact in any order.
 //
 // Design.  Neither l1 nor linf has a matrix-product form, so the kernel
 // stays on the CUDA cores, and its bound is instruction issue: a subtract,
@@ -43,16 +47,25 @@
 // Above d = 64 the points do not fit in registers: the kernel with DP = 0
 // takes the columns in chunks of 64, re-reading each point's chunk from
 // device memory (the cache) for every centroid; that path serves shapes off
-// the clustering path (d <= 64 there).
+// the clustering path (d <= 64 there).  Past d = 58,108 a row of C no
+// longer fits in shared memory, and at such widths N is small (a point is
+// 232 KB or more), so a grid over points alone would leave most SMs idle:
+// nearest_wide_kernel cuts d into splits as well (the wrapper sizes them
+// for eight blocks an SM), carries 16 centroids' partials for its points
+// in registers across the split's 64-column chunks of C, and a merge kernel
+// folds the splits (scratch of nsplit x K x N floats the wrapper
+// allocates).
 //
 // Bound.  Instruction issue: 2 N K d f32 instructions at 132 SMs x 128
-// lanes x 1.98 GHz = 33.45 T instructions/s; at kmeans(metric="l1")'s
+// lanes x 1.98 GHz = 33.45 T instructions/s, or bytes past d = 58,108 where
+// N is small: at 4,096 x 100,000 against 16, X's 1.64 GB at 3.35 TB/s
+// (0.491 ms) against 0.392 ms of issue.  Issue at kmeans(metric="l1")'s
 // 320,000 x 42 against 32 centroids 0.025715 ms, at the KDD Cup 1999 shape
 // (4,898,432 x 42 against 1,000) 12.30 ms.  Bytes: N d + K d elements read,
 // 8 N bytes written (0.0168 ms at the first shape).
 //
-// Plain C interface for ctypes: the entry point launches on the given
-// stream, never synchronises, allocates nothing, and returns
+// Plain C interface for ctypes: the entry points launch on the given
+// stream, never synchronise, allocate nothing, and return
 // cudaGetLastError() so a refused launch is reported by the caller.
 
 #include <cuda_runtime.h>
@@ -274,6 +287,129 @@ nearest_cc_kernel(const typename Elem<T>::Storage* __restrict__ X,
   }
 }
 
+// Rows wider than one staged centroid row (d > kMaxDStaged): the grid is
+// (256-point tiles, groups of kWideNC centroids, splits of d).  A block's
+// threads own two points each (t, t + 128) and carry their kP x kWideNC
+// partials in registers across the split's 64-column chunks; each chunk of
+// the group's centroid rows is staged in shared memory and read as 16-byte
+// broadcasts, the points' columns come from device memory through the
+// cache.  Within a split the terms are added (or maxed) in increasing j;
+// part[(split * K + k) * N + n] holds the split's partial, and
+// nearest_wide_merge_kernel folds the splits in increasing order (l1: a sum,
+// linf: a max, exact in any order) and takes the first least k.
+constexpr int kWideNC = 16;                    // centroids a block carries
+constexpr int kMaxDStaged = kSmemMax / 4 - 4;  // the widest row stage_c stages (58,108)
+
+template <typename T, int M>
+__global__ void __launch_bounds__(kThreads)
+nearest_wide_kernel(const typename Elem<T>::Storage* __restrict__ X,
+                    const typename Elem<T>::Storage* __restrict__ C, float* __restrict__ part,
+                    long long N, int K, int d, int jlen) {
+  using E = Elem<T>;
+  __shared__ __align__(16) float cs[kWideNC][kChunkCols];
+  const long long n0 = (long long)blockIdx.x * kChunk;
+  const int kg = blockIdx.y * kWideNC;
+  const int split = blockIdx.z;
+  const long long jb = (long long)split * jlen;
+  const int j_beg = (int)jb, j_end = (int)(jb + jlen < d ? jb + jlen : d);
+  long long rows[kP];
+  bool live[kP];
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {
+    const long long n = n0 + threadIdx.x + p * kThreads;
+    live[p] = n < N;
+    rows[p] = (live[p] ? n : n0) * (long long)d;
+  }
+  float acc[kWideNC][kP];
+#pragma unroll
+  for (int c = 0; c < kWideNC; ++c)
+#pragma unroll
+    for (int p = 0; p < kP; ++p) acc[c][p] = 0.0f;
+
+  for (int j0 = j_beg; j0 < j_end; j0 += kChunkCols) {
+    const int cols = min(kChunkCols, j_end - j0);
+    __syncthreads();  // the last chunk is read
+    for (int i = threadIdx.x; i < kWideNC * kChunkCols; i += kThreads) {
+      const int r = i / kChunkCols, j = i - r * kChunkCols;
+      cs[r][j] = (kg + r < K && j < cols) ? E::load(C + (long long)(kg + r) * d + j0 + j) : 0.0f;
+    }
+    __syncthreads();
+    for (int q = 0; q < kChunkCols / 4; ++q) {
+      if (4 * q >= cols) break;
+      float x[kP][4];
+#pragma unroll
+      for (int p = 0; p < kP; ++p)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[p][e] = 4 * q + e < cols ? E::load(X + rows[p] + j0 + 4 * q + e) : 0.0f;
+#pragma unroll
+      for (int c = 0; c < kWideNC; ++c) {
+        const float4 cv = *reinterpret_cast<const float4*>(&cs[c][4 * q]);
+#pragma unroll
+        for (int p = 0; p < kP; ++p) {
+          float a = acc[c][p];
+          a = accumulate<M>(a, x[p][0], cv.x);
+          a = accumulate<M>(a, x[p][1], cv.y);
+          a = accumulate<M>(a, x[p][2], cv.z);
+          a = accumulate<M>(a, x[p][3], cv.w);
+          acc[c][p] = a;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kWideNC; ++c) {
+    if (kg + c >= K) break;
+#pragma unroll
+    for (int p = 0; p < kP; ++p)
+      if (live[p])
+        part[((long long)split * K + kg + c) * N + n0 + threadIdx.x + p * kThreads] = acc[c][p];
+  }
+}
+
+template <int M>
+__global__ void __launch_bounds__(kThreads)
+nearest_wide_merge_kernel(const float* __restrict__ part, int* __restrict__ idx_out,
+                          float* __restrict__ dist_out, long long N, int K, int nsplit) {
+  for (long long n = (long long)blockIdx.x * kThreads + threadIdx.x; n < N;
+       n += (long long)gridDim.x * kThreads) {
+    float best = __int_as_float(0x7f800000);  // +inf
+    int best_k = 0;
+    for (int k = 0; k < K; ++k) {
+      float a = part[(long long)k * N + n];
+      for (int sp = 1; sp < nsplit; ++sp) {
+        const float b = part[((long long)sp * K + k) * N + n];
+        a = M == kL1 ? a + b : fmaxf(a, b);
+      }
+      if (a < best) {  // strict: the first index keeps a tie
+        best = a;
+        best_k = k;
+      }
+    }
+    idx_out[n] = best_k;
+    dist_out[n] = best;
+  }
+}
+
+template <typename T, int M>
+int launch_wide(const void* X, const void* C, int* idx, float* dist, float* part, long long N,
+                int K, int d, int jlen, int nsplit, cudaStream_t st) {
+  using St = typename Elem<T>::Storage;
+  const long long tiles = (N + kChunk - 1) / kChunk;
+  const long long groups = (K + kWideNC - 1) / kWideNC;
+  if (tiles > 0x7fffffffLL || groups > 65535 || nsplit > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  nearest_wide_kernel<T, M><<<dim3((unsigned)tiles, (unsigned)groups, (unsigned)nsplit),
+                              kThreads, 0, st>>>(static_cast<const St*>(X),
+                                                 static_cast<const St*>(C), part, N, K, d, jlen);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = (N + kThreads - 1) / kThreads;
+  nearest_wide_merge_kernel<M><<<(unsigned)(blocks < 65535 ? blocks : 65535), kThreads, 0, st>>>(
+      part, idx, dist, N, K, nsplit);
+  return (int)cudaGetLastError();
+}
+
 int cached_sms() {
   static int sms[kMaxDevices] = {};
   int dev = 0;
@@ -356,6 +492,16 @@ int launch(const void* X, const void* C, int* idx, float* dist, long long N, int
   }
 }
 
+template <typename T>
+int launch_w(const void* X, const void* C, int* idx, float* dist, float* part, long long N,
+             int K, int d, int jlen, int nsplit, int metric, cudaStream_t st) {
+  switch (metric) {
+    case kL1: return launch_wide<T, kL1>(X, C, idx, dist, part, N, K, d, jlen, nsplit, st);
+    case kLinf: return launch_wide<T, kLinf>(X, C, idx, dist, part, N, K, d, jlen, nsplit, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -363,16 +509,35 @@ extern "C" {
 // X (N, d), C (K, d): contiguous, both f32 (is_bf16 = 0) or both bf16
 // (is_bf16 = 1); idx (N,) int32 and dist (N,) f32 out.  metric: 1 l1,
 // 2 linf (0, l2, is refused: it runs on pdist_argmin_tc.cu).  N, K >= 1,
-// 1 <= d with (d rounded up to 4) floats within a block's shared memory;
-// the wrapper checks the rest.
+// 1 <= d <= 58,108 (one centroid row, d rounded up to 4 floats, within a
+// block's shared memory; wider rows take repro_pdist_argmin_wide); the
+// wrapper checks the rest.
 int repro_pdist_argmin(const void* X, const void* C, void* idx, void* dist, long long N, int K,
                        int d, int metric, int is_bf16, void* stream) {
-  if (N < 1 || K < 1 || d < 1 || d > kSmemMax / 4 - 4) return (int)cudaErrorInvalidValue;
+  if (N < 1 || K < 1 || d < 1 || d > kMaxDStaged) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* i = static_cast<int*>(idx);
   float* o = static_cast<float*>(dist);
   return is_bf16 ? launch<Bf16>(X, C, i, o, N, K, d, metric, st)
                  : launch<float>(X, C, i, o, N, K, d, metric, st);
+}
+
+// The same for any d >= 1, in splits of jlen columns (a positive multiple
+// of 64; nsplit = ceil(d / jlen) <= 65,535): part (nsplit, K, N) f32 is
+// scratch the wrapper allocates.  Two launches, the split kernel and the
+// merge.
+int repro_pdist_argmin_wide(const void* X, const void* C, void* idx, void* dist, void* part,
+                            long long N, int K, int d, int jlen, int nsplit, int metric,
+                            int is_bf16, void* stream) {
+  if (N < 1 || K < 1 || d < 1 || jlen < 1 || jlen % kChunkCols || nsplit < 1 ||
+      (long long)(nsplit - 1) * jlen >= d || (long long)nsplit * jlen < d)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* i = static_cast<int*>(idx);
+  float* o = static_cast<float*>(dist);
+  float* pt = static_cast<float*>(part);
+  return is_bf16 ? launch_w<Bf16>(X, C, i, o, pt, N, K, d, jlen, nsplit, metric, st)
+                 : launch_w<float>(X, C, i, o, pt, N, K, d, jlen, nsplit, metric, st);
 }
 
 }  // extern "C"

@@ -14,6 +14,10 @@ through the kernels::
     kernels.reset_launches()
     ...                                  # drive a fit or a server on the card
     kernels.LAUNCHES["topk_encode"]      # launches since the reset
+
+``PADS`` counts the calls whose operands an attention wrapper padded with
+zero columns to a head width its kernels take (a D that is no multiple of
+8), by the wrapper's name: one copy of q, k and v that a run can see.
 """
 
 from __future__ import annotations
@@ -29,6 +33,12 @@ KERNEL_NAMES = (
 #: launches per kernel name since the last ``reset_launches``
 LAUNCHES: dict = dict.fromkeys(KERNEL_NAMES, 0)
 
+#: the wrappers that pad head widths
+PADDED_NAMES = ("decode_attention", "flash_attention")
+#: padded calls per wrapper since the last ``reset_launches``
+PADS: dict = dict.fromkeys(PADDED_NAMES, 0)
+
 
 def reset_launches() -> None:
     LAUNCHES.update(dict.fromkeys(KERNEL_NAMES, 0))
+    PADS.update(dict.fromkeys(PADDED_NAMES, 0))

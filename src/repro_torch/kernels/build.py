@@ -48,12 +48,14 @@ SIGNATURES = {
     },
     "decode_attention": {
         "repro_decode_attention": (
-            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
         "repro_decode_merge": ([_P, _P, _P, _I, _I, _I, _I, _P], ctypes.c_int),
         "repro_decode_attention_smem": ([_I, _I, _I], ctypes.c_int),
     },
     "pdist_argmin": {
         "repro_pdist_argmin": ([_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P], ctypes.c_int),
+        "repro_pdist_argmin_wide": (
+            [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
     },
     "pdist_argmin_tc": {
         "repro_pdist_argmin_tc": (
@@ -64,12 +66,12 @@ SIGNATURES = {
         "repro_flash_tf32_image_bytes": ([_I, _I, _I, _I], ctypes.c_longlong),
         "repro_flash_tf32_prep": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], ctypes.c_int),
         "repro_flash_attention_tf32": (
-            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
         "repro_flash_attention_tf32_smem": ([_I], ctypes.c_int),
     },
     "flash_attention_tc": {
         "repro_flash_attention_tc": (
-            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
         "repro_flash_attention_tc_smem": ([_I], ctypes.c_int),
     },
     "topk_sparsify": {
@@ -198,6 +200,17 @@ def check_vector(v, what: str, x) -> None:
             f"{what}: expected a contiguous float32 ({x.shape[0]},) tensor "
             f"on {x.device}"
         )
+
+
+_SMS: dict = {}
+
+
+def sm_count(device) -> int:
+    """The SM count of CUDA ``device`` (queried once a device)."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
 def stream_of(x) -> int:

@@ -4,7 +4,8 @@ Replaces ``repro.kernels.decode_attention.kernel``'s ``_decode_kernel``:
 one query token per row against a dense KV cache view, the G query heads
 of a GQA group sharing each staged K/V tile.  Where the Pallas kernel walks
 (B, Hkv, Sp/bk) in order with an additive (B, Sp) bias row, the split
-kernel runs one block per (kv head, row, run of ``chunk`` keys), reads the
+kernel runs one block per (kv head, row, run of ``chunk`` keys), takes
+the group's heads eight at a time inside the block (any G), reads the
 row's valid length from the device itself and stops at it, so neither the
 bias row nor padding of S exists; its f32 partials (m, l, acc) are merged
 by a second kernel (``decode_attention_merge``).  ``plan_splits`` picks the
@@ -18,11 +19,12 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels import build
+from repro_torch.kernels._heads import MAX_HEAD_DIM, head_dim_error
 
-#: the GQA group sizes and head widths the kernel is instantiated for — every
-#: config of the repo and every shape of the JAX package's tests
-GROUPS = (1, 2, 4, 6, 8)
-HEAD_DIMS = (8, 16, 32, 64, 128)
+# The kernels' domain: any GQA group G = Hq / Hkv >= 1 (MQA included) and
+# the head widths ``_heads.head_dim_error`` takes, multiples of 8 up to 256
+# (``ops.decode_attention`` pads any other D up to 256 with zero columns);
+# D 8, 16, 32, 64 and 128 run exact instantiations, the rest width classes.
 _DTYPES = (torch.float32, torch.bfloat16)
 #: K/V rows a block stages at a time; a split covers a multiple of it
 TILE = 64
@@ -30,7 +32,6 @@ TILE = 64
 BLOCKS_PER_SM = 2
 #: the C interface's row counts (B, B·Hq) are ints
 _INT_MAX = 2**31 - 1
-_SMS: dict = {}
 
 
 def plan_splits(B: int, Hkv: int, S: int, sms: int) -> tuple[int, int]:
@@ -42,13 +43,6 @@ def plan_splits(B: int, Hkv: int, S: int, sms: int) -> tuple[int, int]:
     while chunk * 2 * want <= S:
         chunk *= 2
     return chunk, -(-S // chunk)
-
-
-def _sm_count(device) -> int:
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _SMS[idx]
 
 
 def _check(x, what: str, device=None, *, rows: bool = True) -> None:
@@ -84,11 +78,9 @@ def _checked(q, k, v, valid_len) -> None:
     if Bk != B or Dk != D or Hq % Hkv:
         raise ValueError(
             f"decode attention: q {tuple(q.shape)} does not match k {tuple(k.shape)}")
-    G = Hq // Hkv
-    if G not in GROUPS or D not in HEAD_DIMS:
-        raise ValueError(
-            f"decode attention: no kernel for G={G}, D={D} "
-            f"(G in {GROUPS}, D in {HEAD_DIMS})")
+    why = head_dim_error(D, "ops.decode_attention")
+    if why:
+        raise ValueError(f"decode attention: {why}")
     if not (B >= 1 and 1 <= Hkv <= 65535 and S >= 1 and B * Hq <= _INT_MAX):
         raise ValueError(f"decode attention: unsupported shape {tuple(k.shape)}")
     if valid_len.dtype != torch.int32 or valid_len.shape != (B,):
@@ -98,21 +90,23 @@ def _checked(q, k, v, valid_len) -> None:
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     valid_len: torch.Tensor) -> torch.Tensor:
+                     valid_len: torch.Tensor, *, scale_d: int | None = None) -> torch.Tensor:
     """Launch on CUDA ``q`` (B, Hq, D), ``k``/``v`` (B, S, Hkv, D) of one
     type (f32 or bf16) and ``valid_len`` (B,) int32: the (B, Hq, D)
-    attention output in q's type: the split kernel, then the merge."""
+    attention output in q's type: the split kernel, then the merge.  The
+    logits are scaled by ``scale_d ** -0.5`` (default D: the true head
+    width of operands padded with zero columns)."""
     _checked(q, k, v, valid_len)
     B, _, _ = q.shape
     S, Hkv = k.shape[1], k.shape[2]
-    chunk, n_split = plan_splits(B, Hkv, S, _sm_count(q.device))
+    chunk, n_split = plan_splits(B, Hkv, S, build.sm_count(q.device))
     if n_split > 65535:
         raise ValueError(f"decode attention: S={S} needs {n_split} splits (grid.z)")
-    part_acc, part_ml = _split(q, k, v, valid_len, chunk, n_split)
+    part_acc, part_ml = _split(q, k, v, valid_len, chunk, n_split, scale_d)
     return decode_merge(part_acc, part_ml, q.dtype).view(q.shape)
 
 
-def _split(q, k, v, valid_len, chunk: int, n_split: int):
+def _split(q, k, v, valid_len, chunk: int, n_split: int, scale_d: int | None):
     """Launch the split kernel on checked operands: the f32 partials
     ``(part_acc (B·Hq, n_split, D), part_ml (B·Hq, n_split, 2))``."""
     B, Hq, D = q.shape
@@ -124,7 +118,7 @@ def _split(q, k, v, valid_len, chunk: int, n_split: int):
         status = lib.repro_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_len.data_ptr(),
             part_acc.data_ptr(), part_ml.data_ptr(), B, S, Hkv, Hq // Hkv, D, chunk, n_split,
-            int(q.dtype == torch.bfloat16), build.stream_of(q),
+            scale_d or D, int(q.dtype == torch.bfloat16), build.stream_of(q),
         )
     build.check(status, "decode attention")
     kernels.LAUNCHES["decode_attention"] += 1
@@ -132,7 +126,7 @@ def _split(q, k, v, valid_len, chunk: int, n_split: int):
 
 
 def decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    valid_len: torch.Tensor, chunk: int):
+                    valid_len: torch.Tensor, chunk: int, *, scale_d: int | None = None):
     """The split kernel alone, on the operands ``decode_attention`` takes,
     with splits of ``chunk`` keys (a positive multiple of ``TILE``):
     ``(part_acc, part_ml)`` as ``ref.decode_partials_plain`` gives them."""
@@ -140,7 +134,7 @@ def decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (isinstance(chunk, int) and chunk >= TILE and chunk % TILE == 0):
         raise ValueError(f"decode attention: chunk {chunk} is no multiple of {TILE}")
     _checked(q, k, v, valid_len)
-    return _split(q, k, v, valid_len, chunk, -(-S // chunk))
+    return _split(q, k, v, valid_len, chunk, -(-S // chunk), scale_d)
 
 
 def decode_merge(part_acc: torch.Tensor, part_ml: torch.Tensor, dtype) -> torch.Tensor:
@@ -153,8 +147,9 @@ def decode_merge(part_acc: torch.Tensor, part_ml: torch.Tensor, dtype) -> torch.
             raise ValueError(
                 f"decode attention partials: expected float32 ({rows}, {n_split}, {last}), "
                 f"got {x.dtype} {tuple(x.shape)}")
-    if dtype not in _DTYPES or D not in HEAD_DIMS:
-        raise ValueError(f"decode attention merge: no kernel for {dtype}, D={D}")
+    if dtype not in _DTYPES or not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"decode attention merge: no kernel for {dtype}, D={D} "
+                         f"(float32 or bfloat16, D from 1 to {MAX_HEAD_DIM})")
     out = torch.empty((rows, D), dtype=dtype, device=part_acc.device)
     lib = build.library("decode_attention")
     with torch.cuda.device(part_acc.device):

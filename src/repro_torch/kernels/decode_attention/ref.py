@@ -34,17 +34,18 @@ def decode_attention_ref(q, k, v, valid_len) -> torch.Tensor:
     return out.reshape(B, Hq, D).to(q.dtype)
 
 
-def decode_attention_plain(q, k, v, valid_len) -> torch.Tensor:
+def decode_attention_plain(q, k, v, valid_len, *, scale: float | None = None) -> torch.Tensor:
     """The kernel's single-pass math as ``ops.decode_attention_xla`` writes
     it: additive 0/−1e30 bias, max → exp → masked p @ v → divide by l,
     guarded by l > 0 (a row with no valid key gives 0), all in f32 and
-    rounded once to q's type."""
+    rounded once to q's type.  ``scale`` (default D ** -0.5) multiplies
+    the logits: the true width's, for operands padded with zero columns."""
     B, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     mask = _key_mask(valid_len, B, S, q.device)
     bias = torch.where(mask, 0.0, NEG_INF).to(torch.float32)[:, None, None, :]
     qg = q.reshape(B, Hkv, Hq // Hkv, D).float()
-    s = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) * (D ** -0.5)
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) * (D ** -0.5 if scale is None else scale)
     s = s + bias
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(bias > NEG_INF / 2, torch.exp(s - m), 0.0)
@@ -54,13 +55,14 @@ def decode_attention_plain(q, k, v, valid_len) -> torch.Tensor:
     return out.reshape(B, Hq, D).to(q.dtype)
 
 
-def decode_partials_plain(q, k, v, valid_len, chunk: int):
+def decode_partials_plain(q, k, v, valid_len, chunk: int, *, scale: float | None = None):
     """The split kernel's arithmetic: for each run of ``chunk`` keys (any
     ``chunk`` >= 1 here), the f32 partial over its keys below valid_len —
     m (−1e30 where the run has none), l = Σ exp(s − m) and the unnormalised
     acc = Σ exp(s − m) v, masked p exactly 0.  Returns ``(part_acc
     (B·Hq, n_split, D), part_ml (B·Hq, n_split, 2))``, n_split =
-    ceil(S / chunk), as the kernel writes them."""
+    ceil(S / chunk), as the kernel writes them; ``scale`` as in
+    ``decode_attention_plain``."""
     B, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -70,7 +72,7 @@ def decode_partials_plain(q, k, v, valid_len, chunk: int):
     mask = torch.nn.functional.pad(mask, (0, pad), value=False)
     mask = mask.reshape(B, 1, 1, n_split, chunk)
     qg = q.reshape(B, Hkv, G, D).float()
-    s = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) * (D ** -0.5)
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) * (D ** -0.5 if scale is None else scale)
     s = torch.nn.functional.pad(s, (0, pad)).reshape(B, Hkv, G, n_split, chunk)
     s = torch.where(mask, s, NEG_INF)
     m = s.amax(dim=-1)

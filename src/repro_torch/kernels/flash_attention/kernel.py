@@ -7,7 +7,8 @@ VMEM, each kernel runs one block per (b, h, query tile), loops over key
 tiles itself from the window's left edge to the causal diagonal, reads the
 model layout (B, T, H, D) through its strides and masks the ragged edges
 itself, so nothing is padded (the f32 route's prep kernel writes k and vᵀ
-once a call in the tiles its tensor cores read).  Bound by operations:
+once a call in the tiles its tensor cores read; ``ops`` pads a head width
+that is no multiple of 8 with zero columns).  Bound by operations:
 4·B·Hq·D per visible (query, key) pair.
 
 The route is a fixed function of the type (``ROUTES``), not a fallback:
@@ -32,13 +33,23 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels import build
+from repro_torch.kernels._heads import head_dim_error
 
-#: the head widths the kernels are instantiated for (those of the decode
-#: kernel: every config of the repo and every shape of the JAX tests)
-HEAD_DIMS = (8, 16, 32, 64, 128)
+# The kernels' domain: the head widths ``_heads.head_dim_error`` takes,
+# multiples of 8 up to 256 (``ops.flash_attention`` pads any other D up to
+# 256 with zero columns), any G, causal or not, any window and query offset;
+# the f32 route runs D 8, 16 and 32 in tiles of their own width and any other
+# D in the width class (64, 128, 256) at or above it; the bf16 route has
+# exact instantiations at D 8, 16, 32, 64 and 128 and classes for the rest.
 #: operand type -> the kernel that runs it (its ``kernels.LAUNCHES`` name)
 ROUTES = {torch.float32: "flash_attention_tf32", torch.bfloat16: "flash_attention_tc"}
 _INT_MAX = 2**31 - 1
+
+
+def _check_head_dim(D: int) -> None:
+    why = head_dim_error(D, "ops.flash_attention")
+    if why:
+        raise ValueError(f"flash attention: {why}")
 
 
 def route(dtype) -> str:
@@ -74,8 +85,7 @@ def _validate(q, k, v, window: int, q_offset: int):
         raise ValueError(
             f"flash attention: q {tuple(q.shape)} does not match k "
             f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash attention: no kernel for D={D} (D in {HEAD_DIMS})")
+    _check_head_dim(D)
     if min(B, T, S, Hq) < 1 or max(T, S, abs(q_offset) + T + S) > _INT_MAX:
         raise ValueError(
             f"flash attention: unsupported shapes q {tuple(q.shape)}, k {tuple(k.shape)}")
@@ -95,8 +105,7 @@ def tf32_image(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"flash attention prep: k, v must be f32 of one shape, got "
                          f"{k.dtype} {tuple(k.shape)}, {v.dtype} {tuple(v.shape)}")
     B, S, Hkv, D = k.shape
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash attention: no kernel for D={D} (D in {HEAD_DIMS})")
+    _check_head_dim(D)
     if max(B, S, Hkv) > _INT_MAX:
         raise ValueError(f"flash attention prep: unsupported shape {tuple(k.shape)}")
     lib = build.library("flash_attention_tf32")
@@ -112,13 +121,15 @@ def tf32_image(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def tf32_attend(q: torch.Tensor, image: torch.Tensor, S: int, Hkv: int, *,
-                causal: bool = True, window: int = 0, q_offset: int = 0) -> torch.Tensor:
+                causal: bool = True, window: int = 0, q_offset: int = 0,
+                scale_d: int | None = None) -> torch.Tensor:
     """The f32 route's attention kernel alone: CUDA f32 ``q`` (B, T, Hq, D)
     over ``image``, the prepared tiles of k/v (B, S, Hkv, D) that
     ``tf32_image`` wrote.  Counted as ``flash_attention_tf32``."""
     _check(q, "q")
     B, T, Hq, D = q.shape
-    if q.dtype != torch.float32 or D not in HEAD_DIMS or Hkv < 1 or Hq % Hkv:
+    _check_head_dim(D)
+    if q.dtype != torch.float32 or Hkv < 1 or Hq % Hkv:
         raise ValueError(f"flash attention tf32: unsupported q {q.dtype} {tuple(q.shape)}, "
                          f"Hkv {Hkv}")
     lib = build.library("flash_attention_tf32")
@@ -134,25 +145,27 @@ def tf32_attend(q: torch.Tensor, image: torch.Tensor, S: int, Hkv: int, *,
     with torch.cuda.device(q.device):
         status = lib.repro_flash_attention_tf32(
             q.data_ptr(), image.data_ptr(), out.data_ptr(), c_strides, B, T, S, Hq, Hq // Hkv,
-            D, int(bool(causal)), int(window), int(q_offset), build.stream_of(q))
+            D, int(bool(causal)), int(window), int(q_offset), scale_d or D, build.stream_of(q))
     build.check(status, "flash attention tf32")
     kernels.LAUNCHES["flash_attention_tf32"] += 1
     return out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0,
-                    q_offset: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0, q_offset: int = 0,
+                    scale_d: int | None = None) -> torch.Tensor:
     """Launch on CUDA ``q`` (B, T, Hq, D), ``k``/``v`` (B, S, Hkv, D) of
     one type (f32 or bf16), any strides with D contiguous: the contiguous
     (B, T, Hq, D) attention output in q's type, from the kernel that
-    ``route(q.dtype)`` names (each launch counted where it happens)."""
+    ``route(q.dtype)`` names (each launch counted where it happens).  The
+    logits are scaled by ``scale_d ** -0.5`` (default D: the true head
+    width of operands padded with zero columns)."""
     _check(q, "q")
     name = route(q.dtype)
     B, T, S, Hq, Hkv, D = _validate(q, k, v, window, q_offset)
     if name == "flash_attention_tf32":  # the prep kernel, then attention on its image
         return tf32_attend(q, tf32_image(k, v), S, Hkv, causal=causal, window=window,
-                           q_offset=q_offset)
+                           q_offset=q_offset, scale_d=scale_d)
     out = torch.empty((B, T, Hq, D), dtype=q.dtype, device=q.device)
     strides = [s for x in (q, k, v) for s in x.stride()[:3]]
     c_strides = (ctypes.c_longlong * 9)(*strides)
@@ -164,7 +177,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         status = build.library("flash_attention_tc").repro_flash_attention_tc(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), c_strides,
             B, T, S, Hq, Hq // Hkv, D, int(bool(causal)), int(window), int(q_offset),
-            aligned, build.stream_of(q),
+            aligned, scale_d or D, build.stream_of(q),
         )
     build.check(status, "flash attention tc")
     kernels.LAUNCHES[name] += 1

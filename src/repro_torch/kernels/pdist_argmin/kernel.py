@@ -21,7 +21,12 @@ The route is a fixed function of the metric (``ROUTES``), not a fallback:
   range of points, stages C in shared memory once (in tiles when it does not
   fit), brings its points in with coalesced loads and keeps each point in
   registers (d ≤ 64; chunks of 64 columns above), with one broadcast of a
-  centroid row feeding several running sums.  Counted as ``pdist_argmin``.
+  centroid row feeding several running sums.  Rows wider than one staged
+  centroid row (d > ``MAX_D_STAGED``) take a second kernel of the same
+  source: d is cut into splits, each block carries its points' partials for
+  16 centroids in registers across the split's 64-column chunks of C, and
+  a merge folds the splits and takes the first least index.  Counted as
+  ``pdist_argmin`` (one count a call on either path).
 """
 
 from __future__ import annotations
@@ -37,9 +42,26 @@ _DTYPES = (torch.float32, torch.bfloat16)
 ROUTES = {"l2": "pdist_argmin_tc", "l1": "pdist_argmin", "linf": "pdist_argmin"}
 #: centroids a tensor-core n-tile (``kBN`` in the source); C is padded to it
 TILE_N = 64
-#: the widest rows the CUDA-core kernel takes: one centroid row, d rounded up
-#: to 4 floats, in a block's 232,448 bytes of shared memory
-MAX_D_CUDA_CORES = 232448 // 4 - 4
+#: the widest rows the CUDA-core kernel stages whole: one centroid row, d
+#: rounded up to 4 floats, in a block's 232,448 bytes of shared memory;
+#: wider rows take the split kernel (``plan_wide``)
+MAX_D_STAGED = 232448 // 4 - 4
+#: the split kernel: points a block, centroids a block, columns a chunk
+WIDE_POINTS, WIDE_CENTROIDS, WIDE_CHUNK = 256, 16, 64
+#: split-kernel blocks an SM the plan aims for
+WIDE_BLOCKS_PER_SM = 8
+
+
+def plan_wide(N: int, K: int, d: int, sms: int) -> tuple[int, int]:
+    """``(jlen, nsplit)`` of the split kernel: the columns a split covers (a
+    multiple of ``WIDE_CHUNK``) and ceil(d / jlen), so that the grid of
+    point tiles × centroid groups × splits reaches ``WIDE_BLOCKS_PER_SM``
+    blocks on each of ``sms`` SMs where d allows it."""
+    cells = -(-N // WIDE_POINTS) * -(-K // WIDE_CENTROIDS)
+    want = max(1, -(-WIDE_BLOCKS_PER_SM * sms // cells))
+    jlen = -(-d // want)
+    jlen = max(WIDE_CHUNK, -(-jlen // WIDE_CHUNK) * WIDE_CHUNK)
+    return jlen, -(-d // jlen)
 
 
 def route(metric: str) -> str:
@@ -94,17 +116,26 @@ def pdist_argmin_cuda_cores(X: torch.Tensor, C: torch.Tensor, metric: str = "l1"
     N, K, d = _validate(X, C, metric)
     if route(metric) != "pdist_argmin":
         raise ValueError(f"pdist_argmin: the CUDA-core kernel takes l1 and linf, not {metric}")
-    if d > MAX_D_CUDA_CORES:
-        raise ValueError(f"pdist_argmin: d = {d} > {MAX_D_CUDA_CORES}, the widest rows "
-                         f"the CUDA-core kernel stages")
     lib = build.library("pdist_argmin")
     idx = torch.empty((N,), dtype=torch.int32, device=X.device)
     dist = torch.empty((N,), dtype=torch.float32, device=X.device)
+    bf16 = int(X.dtype == torch.bfloat16)
     with torch.cuda.device(X.device):
-        status = lib.repro_pdist_argmin(
-            X.data_ptr(), C.data_ptr(), idx.data_ptr(), dist.data_ptr(), N, K, d,
-            METRICS.index(metric), int(X.dtype == torch.bfloat16), build.stream_of(X),
-        )
+        if d <= MAX_D_STAGED:
+            status = lib.repro_pdist_argmin(
+                X.data_ptr(), C.data_ptr(), idx.data_ptr(), dist.data_ptr(), N, K, d,
+                METRICS.index(metric), bf16, build.stream_of(X),
+            )
+        else:  # rows wider than a staged centroid row: splits of d, then the merge
+            jlen, nsplit = plan_wide(N, K, d, build.sm_count(X.device))
+            if nsplit > 65535 or -(-K // WIDE_CENTROIDS) > 65535:
+                raise ValueError(f"pdist_argmin: unsupported shapes X {tuple(X.shape)}, "
+                                 f"C {tuple(C.shape)} (grid)")
+            part = torch.empty((nsplit, K, N), dtype=torch.float32, device=X.device)
+            status = lib.repro_pdist_argmin_wide(
+                X.data_ptr(), C.data_ptr(), idx.data_ptr(), dist.data_ptr(), part.data_ptr(),
+                N, K, d, jlen, nsplit, METRICS.index(metric), bf16, build.stream_of(X),
+            )
     build.check(status, "pdist_argmin")
     kernels.LAUNCHES["pdist_argmin"] += 1
     return idx, dist

@@ -83,12 +83,21 @@ def test_wrappers_refuse_bad_operands(cuda):
 
 # (B, S, Hq, Hkv, D): the JAX package's decode test shapes, the serving
 # shape of tinyllama-1.1b (G 8, D 64), qwen2-1.5b's heads (G 6, D 128),
-# olmoe-1b-7b's heads (MHA: G 1, D 128), and S within one tile (a single split)
+# olmoe-1b-7b's heads (MHA: G 1, D 128), S within one tile (a single split);
+# then the public head layouts past the first kernel's list: Gemma-2B (8 / 1
+# at D 256), Qwen2-7B (G 7), StarCoder2-3B (G 12), Falcon-7B (MQA, G 71),
+# Phi-3-mini (D 96), G 128, and odd groups and widths (G 3, 5, 12; D 24, 40,
+# 80; D 256 in f32 at G 7)
 DECODE_SHAPES = [
     (2, 256, 8, 2, 32), (1, 512, 4, 4, 64), (3, 128, 4, 1, 16),
     (2, 300, 8, 4, 32), (4, 1024, 32, 4, 64), (3, 200, 12, 2, 128),
     (2, 70, 2, 2, 8), (3, 40, 4, 2, 16), (4, 512, 16, 16, 128),
+    (3, 300, 8, 1, 256), (2, 200, 28, 4, 128), (2, 200, 24, 2, 128), (3, 300, 71, 1, 64),
+    (2, 200, 32, 32, 96), (2, 130, 128, 1, 64), (3, 130, 3, 1, 24), (2, 100, 10, 2, 40),
+    (3, 150, 12, 1, 80), (2, 100, 7, 1, 256),
 ]
+#: (B, S, Hq, Hkv, D) whose D is no multiple of 8: ``ops`` pads the heads
+DECODE_PADDED_SHAPES = [(2, 90, 6, 2, 36), (3, 70, 5, 1, 20), (2, 64, 2, 1, 100)]
 #: |kernel - plain| limits: the JAX package's own decode-test tolerances
 DECODE_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
@@ -126,6 +135,26 @@ def test_decode_attention_kernel_vs_plain(cuda, shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", DECODE_PADDED_SHAPES, ids=str)
+def test_decode_attention_pads_odd_head_widths(cuda, shape, dtype):
+    """A D that is no multiple of 8 is padded with zero columns by ``ops``
+    (counted in ``kernels.PADS``), runs the kernel at the true width's
+    scale and matches the plain version at the true width."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+
+    q, k, v, vl = _decode_inputs(cuda, shape, dtype, sum(shape))
+    before, pads = dict(kernels.LAUNCHES), kernels.PADS["decode_attention"]
+    out = da_ops.decode_attention(q, k, v, vl)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["decode_attention"] == before["decode_attention"] + 1
+    assert kernels.PADS["decode_attention"] == pads + 1
+    assert out.dtype == dtype and out.shape == q.shape and out.is_contiguous()
+    plain = da_ref.decode_attention_plain(q, k, v, vl)
+    assert float((out.float() - plain.float()).abs().max()) <= DECODE_TOL[dtype]
+
+
+@pytest.mark.cuda
 def test_decode_attention_refuses_bad_operands(cuda):
     q = torch.zeros((2, 8, 64), device=cuda)
     k = torch.zeros((2, 16, 2, 64), device=cuda)
@@ -136,11 +165,20 @@ def test_decode_attention_refuses_bad_operands(cuda):
         da_kernel.decode_attention(q, k.bfloat16(), k.bfloat16(), vl)
     with pytest.raises(ValueError, match="contiguous"):
         da_kernel.decode_attention(q.transpose(0, 1), k, k, vl)
-    with pytest.raises(ValueError, match="no kernel for G=3"):
-        da_kernel.decode_attention(q[:, :6].contiguous(), k, k, vl)
-    with pytest.raises(ValueError, match="no kernel for G=4, D=48"):
-        da_kernel.decode_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
-                                   k[..., :48].contiguous(), vl)
+    # G 3 and D 48 were refused by the first kernel's list; both now run
+    for qq, kk in ((q[:, :6].contiguous(), k), (q[..., :48].contiguous(),
+                                                 k[..., :48].contiguous())):
+        qq, kk = qq.normal_(), kk.normal_()
+        got = da_kernel.decode_attention(qq, kk, kk, vl)
+        want = da_ref.decode_attention_plain(qq, kk, kk, vl)
+        assert float((got - want).abs().max()) <= DECODE_TOL[torch.float32]
+    # past the widest head, with the domain in the message
+    with pytest.raises(ValueError, match="no kernel for D=264.*up to 256"):
+        da_kernel.decode_attention(q.new_zeros((2, 8, 264)), k.new_zeros((2, 16, 2, 264)),
+                                   k.new_zeros((2, 16, 2, 264)), vl)
+    with pytest.raises(ValueError, match="no kernel for D=36.*multiple of 8"):
+        da_kernel.decode_attention(q.new_zeros((2, 8, 36)), k.new_zeros((2, 16, 2, 36)),
+                                   k.new_zeros((2, 16, 2, 36)), vl)
     with pytest.raises(ValueError, match="CUDA tensor"):
         da_kernel.decode_attention(q, k.cpu(), k, vl)
     with pytest.raises(ValueError, match="valid_len"):
@@ -159,7 +197,8 @@ def test_decode_attention_refuses_bad_operands(cuda):
 #: (B, S, Hq, Hkv, D, chunk): a split of one tile, splits past every row's
 #: length, and a ragged last split
 SPLIT_CASES = [(2, 256, 8, 2, 32, 64), (3, 300, 12, 2, 128, 128), (4, 1024, 32, 4, 64, 192),
-               (2, 130, 2, 2, 8, 64)]
+               (2, 130, 2, 2, 8, 64), (2, 300, 8, 1, 256, 128), (2, 200, 71, 1, 64, 64),
+               (2, 200, 20, 4, 80, 64)]
 
 
 @pytest.mark.cuda
@@ -334,6 +373,46 @@ def test_pdist_cuda_cores_adds_in_increasing_j(cuda, shape, metric, dtype, align
     assert torch.equal(dist.view(torch.int32), want_dist.view(torch.int32))
 
 
+#: (N, K, d) past one staged centroid row (d > 58,108): the split kernel,
+#: one centroid group and two (K 20), and the KDD-sized N with a ragged tile
+PDIST_WIDE_SHAPES = [(600, 16, 58_109), (300, 16, 100_000), (257, 20, 70_001)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("metric", ["l1", "linf"])
+@pytest.mark.parametrize("shape", PDIST_WIDE_SHAPES, ids=str)
+def test_pdist_cuda_cores_wide_rows_vs_plain(cuda, shape, metric, dtype):
+    """Rows wider than a staged centroid row run the split kernel and its
+    merge (one count a call): each point sits near one centroid, so the
+    indices are the plain version's, and the distances are within its
+    atol + rtol (l∞ exactly: a max in any order is the same)."""
+    from repro_torch.kernels.pdist_argmin import kernel as pd_kernel
+    from repro_torch.kernels.pdist_argmin import ref as pd_ref
+
+    N, K, d = shape
+    g = torch.Generator(device=cuda).manual_seed(N + K + d)
+    C = torch.randn((K, d), generator=g, device=cuda)
+    near = torch.randint(0, K, (N,), generator=g, device=cuda)
+    X = (C[near] + 0.1 * torch.randn((N, d), generator=g, device=cuda)).to(dtype)
+    C = C.to(dtype)
+    before = kernels.LAUNCHES["pdist_argmin"]
+    idx, dist = pd_kernel.pdist_argmin(X, C, metric)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["pdist_argmin"] == before + 1
+    ref_idx, ref_dist = [], []
+    for s in range(0, N, 32):  # the plain version materialises (n, K, d)
+        i, dd = pd_ref.pdist_argmin_ref(X[s:s + 32], C, metric)
+        ref_idx.append(i)
+        ref_dist.append(dd)
+    ref_idx, ref_dist = torch.cat(ref_idx), torch.cat(ref_dist)
+    assert torch.equal(idx, ref_idx) and torch.equal(idx, near.to(torch.int32))
+    tol = PDIST_ATOL + PDIST_RTOL * ref_dist.abs()
+    assert bool(((dist - ref_dist).abs() <= tol).all())
+    if metric == "linf":
+        assert torch.equal(dist, ref_dist)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("metric", ["l2", "l1", "linf"])
 def test_pdist_argmin_kernel_ties_take_the_first_index(cuda, metric):
@@ -489,7 +568,16 @@ FLASH_SHAPES = [
     (2, 64, 64, 4, 2, 32, True, 8, 40), (1, 70, 70, 2, 1, 8, True, 0, 0),
     (1, 512, 512, 32, 4, 64, True, 0, 0), (1, 300, 300, 12, 2, 128, True, 0, 0),
     (2, 200, 131, 6, 3, 16, False, 50, 0),
+    # head widths past the first kernels' list, causal, windowed and offset:
+    # D 24, 40, 80, 96, 192 and Gemma-2B's 8 / 1 heads at D 256
+    (2, 130, 130, 4, 2, 24, True, 0, 0), (2, 100, 160, 6, 3, 40, True, 32, 60),
+    (1, 200, 200, 4, 1, 80, True, 70, 0), (2, 150, 150, 4, 4, 96, False, 0, 0),
+    (1, 140, 200, 4, 2, 192, True, 0, 60), (1, 300, 300, 8, 1, 256, True, 0, 0),
+    (2, 100, 180, 2, 1, 256, True, 50, 80), (1, 70, 70, 2, 2, 256, False, 0, 0),
 ]
+#: (B, T, S, Hq, Hkv, D, causal, window, q_offset) whose D is no multiple
+#: of 8: ``ops`` pads the heads
+FLASH_PADDED_SHAPES = [(2, 100, 100, 4, 2, 36, True, 0, 0), (1, 90, 120, 2, 1, 100, True, 40, 30)]
 #: |kernel − plain| limits: the JAX package's flash-test tolerances
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
@@ -539,7 +627,33 @@ def test_flash_attention_kernel_vs_plain(cuda, shape, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("D", [8, 32, 128])
+@pytest.mark.parametrize("shape", FLASH_PADDED_SHAPES, ids=str)
+def test_flash_attention_pads_odd_head_widths(cuda, shape, dtype):
+    """A D that is no multiple of 8 is padded with zero columns by ``ops``
+    (counted in ``kernels.PADS``), runs the routed kernel at the true
+    width's scale and matches the plain version at the true width."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    causal, window, q_offset = shape[6:]
+    q, k, v = _flash_inputs(cuda, shape, dtype)
+    name = fa_kernel.route(dtype)
+    before, pads = kernels.LAUNCHES[name], kernels.PADS["flash_attention"]
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    assert kernels.PADS["flash_attention"] == pads + 1
+    assert out.dtype == dtype and out.shape == q.shape and out.is_contiguous()
+    tr = lambda x: x.transpose(1, 2)  # noqa: E731
+    plain = tr(fa_ref.attention_ref(tr(q), tr(k), tr(v), **kw))
+    assert float((out.float() - plain.float()).abs().max()) <= FLASH_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [8, 32, 128, 80, 256])
 def test_flash_attention_reads_strided_layouts(cuda, dtype, D):
     """q, k, v as views of one fused projection (the model's layout before
     any copy) give the same result as contiguous copies, bitwise; so does a
@@ -593,7 +707,8 @@ def test_flash_attention_counts_each_route(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 130, 3, 64), (1, 64, 2, 8), (1, 70, 1, 128),
-                                   (2, 5, 2, 16), (3, 100, 2, 32)], ids=str)
+                                   (2, 5, 2, 16), (3, 100, 2, 32), (2, 70, 2, 40),
+                                   (1, 130, 2, 96), (2, 100, 1, 256), (1, 65, 2, 192)], ids=str)
 def test_flash_tf32_prep_is_its_plain_version_bitwise(cuda, shape):
     """The f32 route's prep kernel writes exactly ``tf32_image_ref``'s image
     (hi/lo planes, swizzle, Vᵀ key order, zeros past S and D), from
@@ -634,8 +749,9 @@ def test_flash_tf32_holds_at_the_split_worst_case(cuda, scale):
     """Large q and k (logits of standard deviation scale²) whose every
     element sits at the 3xTF32 split's worst case (low 13 bits 0x1001) stay
     within the f32 limit of the exact (float64) attention, at
-    tinyllama-1.1b's heads (over one and over 32 key tiles) and at
-    qwen2-1.5b's.  The exact answer is the yardstick because f32
+    tinyllama-1.1b's heads (over one and over 32 key tiles), at
+    qwen2-1.5b's, and at Gemma-2B's 8 / 1 heads of D 256 (the streamed
+    tiles of the wide kernel).  The exact answer is the yardstick because f32
     ``attention_ref`` itself leaves it by 1.6e-5–2.3e-5 at scale 3 on these
     inputs (NVIDIA H100 80GB HBM3, 700 W)."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -644,7 +760,7 @@ def test_flash_tf32_holds_at_the_split_worst_case(cuda, scale):
         return ((x.view(torch.int32) & ~0x1FFF) | 0x1001).view(torch.float32)
 
     for shape in ((1, 512, 512, 32, 4, 64), (1, 2048, 2048, 8, 2, 64),
-                  (1, 300, 300, 12, 2, 128)):
+                  (1, 300, 300, 12, 2, 128), (1, 1024, 1024, 8, 1, 256)):
         q, k, v = _flash_inputs(cuda, shape, torch.float32)
         q, k = worst(q * scale), worst(k * scale)
         out = fa_kernel.flash_attention(q, k, v)
@@ -677,6 +793,7 @@ def test_flash_tf32_replays_in_a_cuda_graph(cuda):
 @pytest.mark.cuda
 def test_flash_attention_refuses_bad_operands(cuda):
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
 
     q = torch.zeros((1, 16, 4, 32), device=cuda)
     k = torch.zeros((1, 16, 2, 32), device=cuda)
@@ -684,9 +801,20 @@ def test_flash_attention_refuses_bad_operands(cuda):
         fa_kernel.flash_attention(q.double(), k.double(), k.double())
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fa_kernel.flash_attention(q, k.bfloat16(), k.bfloat16())
-    with pytest.raises(ValueError, match="no kernel for D=48"):
-        fa_kernel.flash_attention(q.new_zeros((1, 16, 4, 48)), k.new_zeros((1, 16, 2, 48)),
-                                  k.new_zeros((1, 16, 2, 48)))
+    # D 48 (f32) and D 24 (bf16) were refused by the first kernels' list;
+    # both now run, and D 264 is refused with the domain in the message
+    for D, dt in ((48, torch.float32), (24, torch.bfloat16)):
+        qq, kk = q.new_empty((1, 16, 4, D)).normal_(), k.new_empty((1, 16, 2, D)).normal_()
+        qq, kk = qq.to(dt), kk.to(dt)
+        got = fa_kernel.flash_attention(qq, kk, kk)
+        want = fa_ref.attention_ref(qq.transpose(1, 2), kk.transpose(1, 2),
+                                    kk.transpose(1, 2)).transpose(1, 2)
+        assert float((got.float() - want.float()).abs().max()) <= FLASH_TOL[dt]
+    for dt in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="no kernel for D=264.*up to 256"):
+            fa_kernel.flash_attention(q.new_zeros((1, 16, 4, 264)).to(dt),
+                                      k.new_zeros((1, 16, 2, 264)).to(dt),
+                                      k.new_zeros((1, 16, 2, 264)).to(dt))
     with pytest.raises(ValueError, match="does not match"):
         fa_kernel.flash_attention(q[:, :, :3], k, k)
     with pytest.raises(ValueError, match="last dimension is contiguous"):
@@ -697,10 +825,10 @@ def test_flash_attention_refuses_bad_operands(cuda):
         fa_kernel.flash_attention(q.half(), k.half(), k.half())
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fa_kernel.flash_attention(q.bfloat16(), k, k.bfloat16())
-    with pytest.raises(ValueError, match="no kernel for D=24"):
-        fa_kernel.flash_attention(q.new_zeros((1, 16, 4, 24)).bfloat16(),
-                                  k.new_zeros((1, 16, 2, 24)).bfloat16(),
-                                  k.new_zeros((1, 16, 2, 24)).bfloat16())
+    with pytest.raises(ValueError, match="no kernel for D=20.*multiple of 8"):
+        fa_kernel.flash_attention(q.new_zeros((1, 16, 4, 20)).bfloat16(),
+                                  k.new_zeros((1, 16, 2, 20)).bfloat16(),
+                                  k.new_zeros((1, 16, 2, 20)).bfloat16())
     with pytest.raises(ValueError, match="window"):
         fa_kernel.flash_attention(q.bfloat16(), k.bfloat16(), k.bfloat16(), window=-1)
 
