@@ -70,8 +70,7 @@
    The executors phase, on the same data: (i) ``executor="sweep"`` over 8
    learning rates × allreduce × ``topk:0.01+ef`` (the encode kernel 20
    times for the 8 × 20 scenario-rounds), scenario-rounds/s beside run
-   (a)'s rounds/s, and 5 rounds of each under the profiler (device time
-   against wall); (ii) a staleness sweep D ∈ {0, 1, 2, 3} × delay_line ×
+   (a)'s rounds/s; (ii) a staleness sweep D ∈ {0, 1, 2, 3} × delay_line ×
    ``topk:0.01`` (the select kernel 20 times); (iii) a dropout sweep p ∈
    {0, 0.2, 0.5} × a ``FaultPlan`` (a straggler lag, a quorum of 10) ×
    ``int8+ef`` (the one-launch int8 encode 20 times).  Each sweep: kernel on ≡
@@ -92,8 +91,7 @@
    clients of 40 records under both wires — one launch a round on 80,000
    folded rows, bitwise the ``use_kernel=False`` sweep, ledgers exact, the
    gap to the solo fits at lr 1.0 and 3.0 reported and the dense twin's
-   held at rtol 1e-6 / atol 1e-7; rounds/s, peak memory and 5 profiled
-   rounds of each.
+   held at rtol 1e-6 / atol 1e-7; rounds/s and peak memory of each.
 4. Decode-attention kernel phase: the kernels (split over S, then the
    merge) against their plain version (``decode_attention_plain``) in f32
    and bf16 at the JAX package's test shapes, the serving shape (B 16, S
@@ -1082,28 +1080,6 @@ def timed_fit(torch, api, kernels, strategy, data, **spec):
     return res, wall, delta, torch.cuda.max_memory_allocated() / 2**30
 
 
-def profiled_rounds(torch, fit, rounds: int) -> dict:
-    """``fit()``, a fit of ``rounds`` rounds, under the profiler: wall and
-    device busy ms a round, the device's idle share, and the four kernels
-    that take the most device time (name, ms and calls a round)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fit()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in on_card) / 1e3
-    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:4]
-    return {"wall_ms_a_round": wall / rounds, "device_ms_a_round": busy / rounds,
-            "idle_share": 1 - busy / wall if busy > 0 else None,
-            "top": [[e.key[:70], e.self_device_time_total / (rounds * 1e3), e.count / rounds]
-                    for e in top]}
-
-
 def same_fit(torch, a, b) -> bool:
     """θ, trajectory and ledger of two fits bit for bit."""
     return (torch.equal(a.theta.view(torch.int32), b.theta.view(torch.int32))
@@ -1233,17 +1209,6 @@ def executors_phase(torch, data, run_a):
           f"({out['i']['within_sweep_tol']} of {S} within rtol 1e-6 / atol 1e-7; first "
           f"round apart {out['i']['first_round_apart']}), dense "
           f"wire {out['i']['dense_max_dtheta_vs_solo']:.3g}; peak {peak:.3f} GiB", flush=True)
-
-    # where a round's time goes: 5 rounds of run (a) and of the sweep under
-    # the profiler, device busy time against the wall of the same rounds
-    prof_out = {}
-    for label, extra in (("a", {}), ("i", {"executor": "sweep",
-                                           "sweep": {"lr": list(SWEEP_LRS)}})):
-        prof_out[label] = profiled_rounds(torch, lambda: api.fit(
-            gd(), data, transport="allreduce", wire="topk:0.01+ef", steps=5, device="cuda",
-            **extra), 5)
-    out["profiled"] = prof_out
-    print("profiled rounds (5 each, under the profiler): " + json.dumps(prof_out), flush=True)
 
     spec_ii = dict(transport="delay_line", wire="topk:0.01", steps=STEPS, executor="sweep",
                    sweep={"staleness": list(SWEEP_DS)})
@@ -1407,15 +1372,6 @@ def many_clients_phase(torch, data, timings):
         S = len(SWEEP_LRS)
         spec = dict(transport="allreduce", steps=STEPS, executor="sweep",
                     sweep={"lr": list(SWEEP_LRS)})
-        # where a round's time goes: 5 rounds of each run under the profiler
-        prof = out["profiled"] = {}
-        for tag, wire in (("m1", "topk:0.01+ef"), ("m2", "int8+ef")):
-            prof[tag] = profiled_rounds(torch, lambda w=wire: api.fit(
-                gd(), few, transport="allreduce", wire=w, steps=5, device="cuda"), 5)
-            prof[f"m3 {wire}"] = profiled_rounds(torch, lambda w=wire: api.fit(
-                gd(), sweep_data, wire=w, device="cuda", **dict(spec, steps=5)), 5)
-        print("many clients, profiled rounds (5 each): " + json.dumps(out["profiled"]),
-              flush=True)
         idx = [SWEEP_LRS.index(lr) for lr in MANY_SOLO_LRS]
         dense = api.fit(gd(), sweep_data, device="cuda", **dict(spec, wire="dense"))
         dense_gap = 0.0

@@ -24,10 +24,15 @@ runs a (strategy × transport × wire × executor) combination and returns a
 
 A ``tracer=`` (``repro_torch.telemetry.Tracer``) is installed as the
 ambient tracer for the whole run: the ``fit/loop``, ``fit/ledger`` and
-``fit/metrics`` spans, the executors' ``dispatch/<label>`` spans and the
-serving engine's spans land on one timeline.  Every span is on the host
-and changes nothing the card computes, so a traced fit returns the
-untraced fit's bits.
+``fit/metrics`` spans, the executors' ``dispatch/<label>`` spans, inside
+them each round's ``fit/round/update``, ``fit/round/wire``,
+``fit/round/aggregate`` and ``fit/round/metric`` (update transports: the
+local updates, the wire's encode and uplink count, the aggregate through
+to the applied update, the round's metric) and the serving engine's spans
+land on one timeline.  Every span is on the host and changes nothing the
+card computes, so a traced fit returns the untraced fit's bits; under
+``torch.profiler`` each span is also a ``record_function`` range, so the
+profiler's trace puts every kernel in the span that launched it.
 """
 
 from __future__ import annotations

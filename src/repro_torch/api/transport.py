@@ -39,6 +39,7 @@ from repro_torch.core.staleness import (
     delay_push_pop,
     delay_push_read,
 )
+from repro_torch.telemetry import trace as _trace
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 PyTree = Any
@@ -386,24 +387,23 @@ class UpdateTransport(Transport):
         def make_step(shard_data, sweep_delay):
             """The round's step for the node slice placed here (all of it
             locally, the rank's rows on a mesh); ``sweep_delay`` is the
-            scenario's staleness under a staleness sweep, else None."""
+            scenario's staleness under a staleness sweep, else None.  A
+            round is four phases; with an ambient tracer each runs inside
+            its ``fit/round/<phase>`` span."""
 
-            def step(c, xt):
-                fault_t, batch = xt
-                c0 = c  # the pre-round carry: the quorum rollback target
-                theta, sstate, wstate, delay = c
-                if overlap_active:
-                    buf2, pending, step0 = delay
-                msgs, sstate = strategy.local_updates(theta, sstate, shard_data, batch)
+            def update(theta, sstate, batch):
+                return strategy.local_updates(theta, sstate, shard_data, batch)
+
+            def encode(wstate, msgs, fault_t):
+                """The wire: encode, participation, the uplink count."""
                 wstate_new, msgs_hat, up_wire = wire.encode_updates(
                     wstate, msgs, stacked=stacked)
-                del msgs  # a θ-sized tree: let it go before the apply
                 alive = live = None
                 if fault_t is not None:
                     # participation: node k answers iff u_t[k] clears
                     # dropout_p; dead rows send zeros and keep their wire
                     # state (EF residuals must not absorb a discarded push)
-                    u_t, lag_t = fault_t
+                    u_t, _ = fault_t
                     alive = u_t >= faults.dropout_p
                     live = alive.sum()
                     if stacked:
@@ -429,7 +429,15 @@ class UpdateTransport(Transport):
                 if up is None and not up_is_static:
                     with _exec.deferring(stats if defer_ok else None):
                         up = _exec.sum_bytes(up_wire)
+                return wstate, msgs_hat, up, alive, live
+
+            def aggregate(c0, sstate, wstate, msgs_hat, alive, live, fault_t):
+                """The aggregate through to the applied update, the downlink
+                count and the quorum rollback to ``c0``, the pre-round
+                carry."""
+                theta, _, _, delay = c0
                 if overlap_active:
+                    buf2, pending, step0 = delay
                     # last round's outermost hop has run while this round's
                     # local compute was enqueued; start this round's now
                     part = _exec.aggregate_partial(msgs_hat)
@@ -446,6 +454,7 @@ class UpdateTransport(Transport):
                         # the round completes when its slowest LIVE node
                         # responds: read the line at base + max live lag
                         base = self.staleness if sweep_delay is None else sweep_delay
+                        lag_t = fault_t[1]
                         if isinstance(alive, torch.Tensor):
                             lag_eff = torch.max(torch.where(alive, lag_t, 0))
                         else:
@@ -470,9 +479,26 @@ class UpdateTransport(Transport):
                         new_c = _tree_where(proceed, new_c, c0)
                     elif not proceed:
                         new_c = c0
+                return new_c, down
+
+            def metric(c):
                 with _exec.deferring(stats if defer_ok else None):
-                    m = strategy.round_metric(new_c[0], new_c[1], shard_data)
-                return new_c, (m, up, down)
+                    return strategy.round_metric(c[0], c[1], shard_data)
+
+            tracer = _trace.current_tracer()
+            if tracer is not None:
+                update = tracer.spanned("fit/round/update", update)
+                encode = tracer.spanned("fit/round/wire", encode)
+                aggregate = tracer.spanned("fit/round/aggregate", aggregate)
+                metric = tracer.spanned("fit/round/metric", metric)
+
+            def step(c, xt):
+                fault_t, batch = xt
+                msgs, sstate = update(c[0], c[1], batch)
+                wstate, msgs_hat, up, alive, live = encode(c[2], msgs, fault_t)
+                del msgs  # a θ-sized tree: let it go before the apply
+                new_c, down = aggregate(c, sstate, wstate, msgs_hat, alive, live, fault_t)
+                return new_c, (metric(new_c), up, down)
 
             return step
 

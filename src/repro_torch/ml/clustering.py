@@ -30,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels.pdist_argmin import ops as pdist_ops
+from repro_torch.telemetry import trace as _trace
 
 #: the kernel's metric for each E-step metric (l2 and l2sq share one argmin)
 _KERNEL_METRIC = {"l2": "l2", "l2sq": "l2", "l1": "l1", "linf": "linf"}
@@ -179,17 +180,34 @@ def distributed_kmeans(
     the local data sizes.  The centroids are shared by every node, so one
     kernel launch over the stacked (Knodes·Nk, d) points is the E-step of
     all nodes: ``iters`` + 1 launches a call.  The M-step's one-hot product
-    runs one node at a time (a node's one-hot is Nk × K)."""
+    runs one node at a time (a node's one-hot is Nk × K).  With an ambient
+    tracer each E-step is a ``kmeans/estep`` span, each M-step a
+    ``kmeans/mstep`` and the final assignment a ``kmeans/assign``."""
     K = num_clusters
     Xall = Xs.reshape(-1, Xs.shape[-1])
-    C = init_centroids
-    for _ in range(iters):
-        assign, _ = nearest(Xall, C, "l2sq")
+
+    def estep(C):
+        return nearest(Xall, C, "l2sq")[0]
+
+    def mstep(assign, C):
         g_sums, g_counts = node_stats(Xs, assign, K)
         C_new = g_sums / torch.clamp_min(g_counts, 1.0)[:, None]
-        C = torch.where(g_counts[:, None] > 0, C_new, C)
-    assign, dist = nearest(Xall, C, "l2sq")
-    return KMeansResult(centroids=C, assignments=assign, inertia=torch.sum(dist), iters=iters)
+        return torch.where(g_counts[:, None] > 0, C_new, C)
+
+    def final(C):
+        assign, dist = nearest(Xall, C, "l2sq")
+        return assign, torch.sum(dist)
+
+    tracer = _trace.current_tracer()
+    if tracer is not None:
+        estep = tracer.spanned("kmeans/estep", estep)
+        mstep = tracer.spanned("kmeans/mstep", mstep)
+        final = tracer.spanned("kmeans/assign", final)
+    C = init_centroids
+    for _ in range(iters):
+        C = mstep(estep(C), C)
+    assign, inertia = final(C)
+    return KMeansResult(centroids=C, assignments=assign, inertia=inertia, iters=iters)
 
 
 # ----------------------------------------------------------------------------

@@ -20,21 +20,44 @@ executors' ``dispatch``, ``repro_torch.serve``) guard every span behind one
 default.  Every span is host-side and no span changes what the card
 computes, so a traced fit returns the untraced fit's bits.
 
+The spans the port records:
+
+* ``fit/loop``, ``fit/ledger``, ``fit/metrics`` — ``api.fit``'s three
+  stages; ``dispatch/<label>`` — an executor's whole loop of rounds;
+* ``fit/round/update``, ``fit/round/wire``, ``fit/round/aggregate``,
+  ``fit/round/metric`` — the four phases of every round of an update
+  transport (``allreduce``, ``delay_line``): the strategy's local updates,
+  the wire's encode with the participation mask and the uplink count, the
+  aggregate through to the applied update and the downlink count, the
+  round's metric.  Each opens once a round on every executor (once per
+  scenario a round only where a sweep steps its scenarios in turn);
+* ``kmeans/estep``, ``kmeans/mstep``, ``kmeans/assign`` — an EM iteration
+  of ``ml.clustering.distributed_kmeans`` and its final assignment;
+* ``phase/*``, ``hop/*`` — ``fit(trace="phases")``'s probes;
+  ``serve/*``, ``batcher/serve`` — the serving engines and the batcher.
+
 Device time: a host span around queued CUDA work measures submission, not
 execution.  Call sites that want device-complete spans fence with
 ``torch.cuda.synchronize()`` before closing the span (``fit`` does it for
 ``fit/loop`` when a tracer is given; ``telemetry.phases`` for each probe),
 and ``device_trace(logdir)`` wraps ``torch.profiler`` so the kernels'
-device timeline lands in ``logdir`` under a span of the same run.
+device timeline lands in ``logdir`` under a span of the same run.  While
+``torch.profiler`` records, every span also opens a
+``torch.profiler.record_function`` range of its name around the same
+block, so the profiler's own trace carries the spans on its clock and
+each kernel can be put in the span that launched it (a user annotation:
+the profiler's device operations and operator tables leave it out).
 
-This module imports the standard library only; ``torch.profiler`` is
-imported inside ``device_trace``.
+This module imports the standard library only; torch is looked up in
+``sys.modules`` for the profiler check and imported inside
+``device_trace``.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
 import time
 from contextlib import contextmanager, nullcontext
@@ -94,7 +117,12 @@ class Tracer:
     def _span(self, name: str, tags: dict):
         rec = self.span_begin(name, **tags)
         try:
-            yield rec
+            torch = sys.modules.get("torch")
+            if torch is not None and torch.autograd._profiler_enabled():
+                with torch.autograd.profiler.record_function(name):
+                    yield rec
+            else:
+                yield rec
         finally:
             self.span_end(rec)
 
@@ -109,6 +137,22 @@ class Tracer:
         if not self.enabled:
             return nullcontext()
         return self._span(name, tags)
+
+    def spanned(self, name: str, fn):
+        """``fn`` with each call inside a span ``name``: a call site looks
+        its tracer up once and wraps its phases only when there is one, so
+        an untraced loop runs its own statements and nothing else::
+
+            t = current_tracer()
+            if t is not None:
+                estep = t.spanned("kmeans/estep", estep)
+        """
+
+        def run(*args, **kwargs):
+            with self.span(name):
+                return fn(*args, **kwargs)
+
+        return run
 
     def count(self, name: str, n: float = 1) -> None:
         """Monotonic counter (dispatches, padded slots, …)."""

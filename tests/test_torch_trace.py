@@ -140,6 +140,28 @@ def _names(tracer) -> Counter:
     return Counter(s["name"] for s in tracer.spans)
 
 
+#: the port's spans of a round's phases, which the reference does not record
+ROUND_SPANS = ("fit/round/update", "fit/round/wire", "fit/round/aggregate",
+               "fit/round/metric")
+
+
+def _reference_names(port, ref) -> Counter:
+    """The port's span names less its round spans, which the reference
+    must not record either."""
+    assert not set(ROUND_SPANS) & set(_names(ref))
+    return Counter({k: n for k, n in _names(port).items() if k not in ROUND_SPANS})
+
+
+def _rounds(tracer) -> dict:
+    """How many times the tracer recorded each round span."""
+    names = _names(tracer)
+    return {k: names[k] for k in ROUND_SPANS}
+
+
+def _each(n) -> dict:
+    return dict.fromkeys(ROUND_SPANS, n)
+
+
 @pytest.mark.parametrize("spec", list(FITS))
 def test_fit_spans_and_counters_match_jax(problem, spec, monkeypatch):
     """Mirrors ``TestExactness::test_trace_phases_bit_exact``'s span names:
@@ -149,7 +171,8 @@ def test_fit_spans_and_counters_match_jax(problem, spec, monkeypatch):
     jt, tt = JTracer(), Tracer()
     j_fit(problem, spec, tracer=jt, trace="phases")
     t_fit(problem, spec, tracer=tt, trace="phases")
-    assert _names(tt) == _names(jt)
+    assert _reference_names(tt, jt) == _names(jt)
+    assert _rounds(tt) == _each(0 if spec == "server" else STEPS)
     assert tt.counters == jt.counters
     assert tt.gauges == jt.gauges
     for name in ("fit/loop", "phase/local_step", "phase/encode"):
@@ -177,7 +200,8 @@ def test_mesh_phases_match_jax_on_one_device(problem, executor, monkeypatch):
     res = tapi.fit(tapi.GradientDescent(t_lsq, lr=0.05), (X, y), device="cpu", tracer=tt,
                    trace="phases", **kw)
     assert same_fit(base, res)
-    assert _names(tt) == _names(jt)
+    assert _reference_names(tt, jt) == _names(jt)
+    assert _rounds(tt) == _each(5)
     assert tt.counters == jt.counters and tt.gauges == jt.gauges
     assert "phase/stats_completion" in _names(tt)
     hops = {s["name"]: s["tags"] for s in tt.spans if s["name"].startswith("hop/")}
@@ -411,7 +435,9 @@ def test_chrome_export_schema_matches_jax(problem, tmp_path, monkeypatch):
             assert e["dur"] >= 0
     complete = [e for e in events if e["ph"] == "X"]
     assert len(complete) == len(tt.spans)
-    assert Counter(e["name"] for e in complete) == _names(jt)
+    names = Counter(e["name"] for e in complete)
+    assert Counter({k: n for k, n in names.items() if k not in ROUND_SPANS}) == _names(jt)
+    assert {k: names[k] for k in ROUND_SPANS} == _each(STEPS)
     assert any(e["ph"] == "C" and e["name"] == "custom" and e["args"]["value"] == 3
                for e in events)
 
@@ -445,6 +471,104 @@ def test_device_trace_writes_a_profile(tmp_path):
 
 
 # ----------------------------------------------------------------------------
+# The port's own spans: a round's phases, an EM iteration's steps (no
+# reference test: the reference records none of them)
+# ----------------------------------------------------------------------------
+
+ROUND_FITS = {
+    "local-allreduce": dict(transport="allreduce", wire="topk:0.25+ef"),
+    "local-delay_line": dict(transport="delay_line", staleness=2, wire="topk:0.25+ef"),
+    "sweep-allreduce": dict(transport="allreduce", executor="sweep",
+                            sweep={"lr": [0.02, 0.05, 0.1]}),
+    "sweep-delay_line": dict(transport="delay_line", staleness=1, executor="sweep",
+                             sweep={"lr": [0.02, 0.1]}),
+    "mesh-allreduce": dict(transport="allreduce", executor="mesh", wire="topk:0.25+ef"),
+    "mesh-delay_line": dict(transport="delay_line", staleness=1, executor="mesh"),
+}
+
+
+@pytest.mark.parametrize("spec", list(ROUND_FITS))
+def test_round_spans_open_once_a_round(problem, spec):
+    """Each round span opens exactly once a round inside the executor's
+    ``dispatch`` span, in the round's order, under the local loop, a sweep
+    (once a round, not once a scenario) and a mesh of one rank; the traced
+    fit is bitwise the untraced one."""
+    steps = 7
+    kw = dict(ROUND_FITS[spec], steps=steps, device="cpu")
+    base = tapi.fit(tapi.GradientDescent(t_lsq, lr=0.05), problem, **kw)
+    t = Tracer()
+    res = tapi.fit(tapi.GradientDescent(t_lsq, lr=0.05), problem, tracer=t, **kw)
+    assert same_fit(base, res)
+    assert _rounds(t) == _each(steps)
+    (loop,) = [s for s in t.spans if s["name"].startswith("dispatch/")]
+    rounds = [s for s in t.spans if s["name"] in ROUND_SPANS]
+    assert [s["name"] for s in rounds] == list(ROUND_SPANS) * steps
+    for a, b in zip(rounds, rounds[1:]):
+        assert a["ts"] + a["dur"] <= b["ts"]
+    assert all(loop["ts"] <= s["ts"] and s["ts"] + s["dur"] <= loop["ts"] + loop["dur"]
+               for s in rounds)
+    assert all(s["tags"] == {} for s in rounds)
+
+
+def test_kmeans_spans_and_bits():
+    """A traced ``distributed_kmeans`` records one ``kmeans/estep`` and one
+    ``kmeans/mstep`` an iteration and one ``kmeans/assign``, and returns the
+    untraced call's bits."""
+    from repro_torch.ml.clustering import distributed_kmeans
+
+    g = torch.Generator().manual_seed(4)
+    Xs = torch.randn((4, 50, 3), generator=g)
+    C0 = Xs[0, :6].clone()
+    base = distributed_kmeans(Xs, C0, num_clusters=6, iters=5)
+    t = Tracer()
+    with trace_mod.activated(t):
+        res = distributed_kmeans(Xs, C0, num_clusters=6, iters=5)
+    assert same_bits(res.centroids, base.centroids)
+    assert torch.equal(res.assignments, base.assignments)
+    assert same_bits(res.inertia, base.inertia)
+    assert [s["name"] for s in t.spans] == ["kmeans/estep", "kmeans/mstep"] * 5 + [
+        "kmeans/assign"]
+
+
+@pytest.mark.parametrize("executor", ["local", "sweep"])
+def test_spans_are_profiler_ranges_only_under_the_profiler(problem, monkeypatch, executor):
+    """Under ``torch.profiler`` every span is also a ``record_function``
+    range of its name, a user annotation, once for each span (inside the
+    sweep's ``vmap`` too); without the profiler no range is opened."""
+    from torch.autograd import profiler as autograd_profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.ml.clustering import distributed_kmeans
+
+    kw = {} if executor == "local" else dict(executor="sweep", sweep={"lr": [0.02, 0.1]})
+
+    def run(tracer):
+        tapi.fit(tapi.GradientDescent(t_lsq, lr=0.05), problem, transport="allreduce",
+                 steps=3, device="cpu", tracer=tracer, **kw)
+        with trace_mod.activated(tracer):
+            distributed_kmeans(torch.from_numpy(problem[0]), torch.from_numpy(problem[0][0, :3]),
+                               num_clusters=3, iters=2)
+
+    opened = []
+    real = autograd_profiler.record_function
+
+    def counting(name, *a, **kw):
+        opened.append(name)
+        return real(name, *a, **kw)
+
+    monkeypatch.setattr(autograd_profiler, "record_function", counting)
+    run(Tracer())
+    assert opened == []
+    t = Tracer()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run(t)
+    assert Counter(opened) == _names(t)
+    ranges = Counter(e.name for e in prof.events() if e.is_user_annotation)
+    assert ranges == _names(t)
+    assert _rounds(t) == _each(3) and _names(t)["kmeans/estep"] == 2
+
+
+# ----------------------------------------------------------------------------
 # RunReport (TestRunReport)
 # ----------------------------------------------------------------------------
 
@@ -467,7 +591,9 @@ def test_run_report_from_fit_matches_jax(problem, spec, monkeypatch):
     assert d["comm"] == dj["comm"]
     assert set(dj["program_cache"]) <= set(d["program_cache"])
     assert d["program_cache"]["uncached"] >= 1
-    assert set(d["spans"]) == set(dj["spans"])
+    assert set(d["spans"]) - set(ROUND_SPANS) == set(dj["spans"])
+    assert {k: d["spans"][k]["count"] for k in ROUND_SPANS if k in d["spans"]} == (
+        {} if spec == "server" else _each(STEPS))
     assert d["counters"] == dj["counters"]
     if "wire_kernel_hits" in dj:
         hits = dict(d["wire_kernel_hits"])
